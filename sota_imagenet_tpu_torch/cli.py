@@ -1,0 +1,203 @@
+"""Train CLI of the port (port of ``sota_imagenet_tpu/cli.py``:27-333; reference
+train.py).
+
+Usage:
+    python -m sota_imagenet_tpu_torch.cli -c configs/exp/1.r50_baseline.yaml [key=value ...]
+    python -m sota_imagenet_tpu_torch.cli -c <yaml> run.evaluate=true run.resume=<run_dir>/model_last.ckpt
+
+Mirrors the reference main() flow (reference train.py:22-185): config →
+run dir + git snapshot → model / criterion / optimizer → resume → callbacks
+→ stage loop over the DataManager → final eval + save. It runs on one CUDA
+device unless the caller passes ``device="cpu"``. Options that would change
+the numbers and are not ported yet raise NotImplementedError naming the
+ROADMAP item; the TensorBoard sinks log one warning instead.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import subprocess
+import time
+from typing import Iterable, Optional
+
+import torch
+
+from sota_imagenet_tpu_torch import config as C
+from sota_imagenet_tpu_torch.config import instantiate, parse_stages
+from sota_imagenet_tpu_torch.data.pipeline import DataManager
+from sota_imagenet_tpu_torch.optim import build_optimizer
+from sota_imagenet_tpu_torch.train.callbacks import Callback, CheckpointSaver, ConsoleLogger, Timer
+from sota_imagenet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from sota_imagenet_tpu_torch.train.loop import Runner
+from sota_imagenet_tpu_torch.train.schedule import phases_from_stages
+from sota_imagenet_tpu_torch.utils.logging import setup_logger
+from sota_imagenet_tpu_torch.utils.misc import count_parameters, filter_from_weight_decay, resolve_device, set_random_seed
+
+
+def find_auto_resume(log_dir: str, exp_name: str) -> Optional[str]:
+    """Newest checkpoint for this experiment, for preemption recovery."""
+    cands = sorted(glob.glob(os.path.join(log_dir, f"*_{exp_name}", "*", "model*.ckpt")), key=os.path.getmtime)
+    return cands[-1] if cands else None
+
+
+def reject_unported(cfg) -> None:
+    """Raise for every option that changes the numbers and is not in this port yet."""
+    checks = (
+        (cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1 or cfg.mesh.spatial != 1 or cfg.mesh.zero1,
+         "mesh.* beyond one device (data parallelism, ZeRO-1, spatial / head TP)", "Queue 1 items 8 and 14"),
+        (cfg.run.bn_stats not in (None, "global", 1), f"run.bn_stats={cfg.run.bn_stats!r}", "Queue 1 item 8"),
+        (bool(cfg.weight_standardization), "weight_standardization", "Queue 1 item 10"),
+        (bool(cfg.get("sigmoid_trick", False)), "sigmoid_trick", "Queue 1 item 11"),
+        (bool(cfg.run.skip_nonfinite), "run.skip_nonfinite", "Queue 1 item 9"),
+        (bool(cfg.run.extra_callbacks), "run.extra_callbacks", "Queue 1 item 9"),
+        (int(cfg.run.accumulate_steps or 1) > 1, "run.accumulate_steps > 1", "Queue 1 item 9"),
+        (bool(cfg.run.remat), "run.remat", "Queue 1 item 9"),
+    )
+    for bad, what, item in checks:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported to sota_imagenet_tpu_torch yet (ROADMAP.md {item})")
+
+
+def _git_snapshot(run_dir: str) -> None:
+    """Reproducibility artifacts (reference train.py:32-36); best effort."""
+    for fname, cmd in (("commit_hash.txt", ["git", "rev-parse", "--short", "HEAD"]), ("diff.txt", ["git", "diff"])):
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True, timeout=60).stdout
+        except (OSError, subprocess.SubprocessError):
+            out = ""
+        with open(os.path.join(run_dir, fname), "w") as f:
+            f.write(out)
+
+
+def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
+    """Train (or evaluate) as the config says; returns the final val metrics.
+
+    ``device``: None runs on ``cuda`` (raising if no GPU is present); tests
+    pass ``"cpu"``. ``callbacks`` are appended to the default host callbacks
+    (Timer, ConsoleLogger, CheckpointSaver), for tools that observe a run."""
+    parser = argparse.ArgumentParser(description="sota_imagenet_tpu_torch trainer")
+    parser.add_argument("--config", "-c", default=None, help="experiment YAML")
+    parser.add_argument("overrides", nargs="*", help="dotted overrides key=value")
+    args = parser.parse_args(argv)
+    device = resolve_device(device)
+
+    start_time = time.time()
+    cfg = C.load(args.config, overrides=args.overrides, strict_env=False)
+    reject_unported(cfg)
+
+    # run dir: logs/<date>_<exp>/<time> (reference configs/base.yaml:13-15)
+    run_dir = os.path.join(cfg.log.dir, time.strftime("%Y-%m-%d") + "_" + cfg.log.exp_name, time.strftime("%H-%M-%S"))
+    os.makedirs(run_dir, exist_ok=True)
+    _git_snapshot(run_dir)
+    with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+        f.write(C.to_yaml(cfg))
+    log = setup_logger(os.path.join(run_dir, "logs.txt"))
+    log.info(C.to_yaml(cfg))
+    if device.type == "cuda":
+        # float32 matmuls and convs in full float32 (the JAX reference's
+        # numerics); bf16 runs are unaffected. cuDNN picks its fastest
+        # algorithms for the fixed shapes of a run.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.benchmark = True
+        log.info(f"PyTorch {torch.__version__} | device: {device} ({torch.cuda.get_device_name(device)})")
+    else:
+        log.info(f"PyTorch {torch.__version__} | device: {device}")
+    if cfg.log.tensorboard or cfg.log.histogram:
+        log.warning("log.tensorboard / log.histogram: TensorBoard sinks are not ported yet (ROADMAP.md Queue 1 item 7); "
+                    "metrics go to stdout and logs.txt only")
+    if cfg.debug_nans:
+        log.warning("debug_nans has no effect in sota_imagenet_tpu_torch yet")
+    seed = cfg.random_seed if cfg.random_seed is not None else 0
+    if cfg.random_seed is not None:
+        set_random_seed(cfg.random_seed)
+    input_dtype = torch.bfloat16 if cfg.run.bf16 else torch.float32
+
+    log.info("Loading model")
+    model_cfg = dict(cfg.model)
+    divisor = max(int(cfg.loader.get("classes_divisor", 1) or 1), 1)
+    if divisor > 1 and "num_classes" not in model_cfg:
+        # legacy classes_divisor: the classifier width follows the merged label space
+        model_cfg["num_classes"] = -(-int(cfg.loader.num_classes) // divisor)
+    if cfg.bn_momentum != 0.1 and "bn_momentum" not in model_cfg:
+        model_cfg["bn_momentum"] = cfg.bn_momentum  # patch_bn_mom (reference train.py:76)
+    model = instantiate(model_cfg)
+    if cfg.log.print_model:
+        log.info(str(model))
+    criterion = instantiate(cfg.criterion)
+    lr_phases = phases_from_stages(parse_stages(cfg.run.stages))
+    log.info(f"Learning rate stages: {lr_phases}")
+    # weight decay applies to EVERY parameter unless filter_from_wd is set
+    # (cli.py:199-202 of the JAX package)
+    mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd) if cfg.filter_from_wd is not None else None
+
+    runner = Runner(
+        model,
+        criterion,
+        lambda m: build_optimizer(dict(cfg.optim), m.named_parameters(), wd_mask=mask),
+        lr_phases=lr_phases,
+        callbacks=[
+            Timer(),
+            ConsoleLogger(),
+            CheckpointSaver(run_dir, save_name="model.ckpt", include_optimizer=cfg.log.save_optim),
+            *callbacks,
+        ],
+        accumulate_steps=cfg.run.accumulate_steps,
+        ema_decay=cfg.run.ema_decay,
+        remat=cfg.run.remat,
+        input_dtype=input_dtype,
+        device=device,
+    )
+    runner.init_state(seed=seed)
+    log.info(f"Model params: {count_parameters(runner.state.model) / 1e6:.2f}M")
+
+    start_epoch = cfg.run.start_epoch
+    if cfg.run.auto_resume and not cfg.run.resume:
+        found = find_auto_resume(cfg.log.dir, cfg.log.exp_name)
+        if found:
+            cfg.run.resume = found
+            log.info(f"auto_resume: found {cfg.run.resume}")
+    if cfg.run.resume:
+        runner.state, ckpt_epoch = load_checkpoint(cfg.run.resume, runner.state)
+        log.info(f"Loaded checkpoint from {cfg.run.resume}")
+        if cfg.run.load_start_epoch:
+            start_epoch = ckpt_epoch
+
+    data_manager = DataManager(cfg, device=device, seed=seed + 777, out_dtype=input_dtype)
+
+    if cfg.run.evaluate:
+        data_manager.set_stage(0)
+        # debug caps the val pass at 20 steps here too, so an eval of a debug
+        # run's checkpoint reproduces that run's final val metrics
+        metrics = runner.evaluate(data_manager.val_loader, steps=20 if cfg.debug else None)
+        log.info(f"Eval: {metrics}")
+        runner.close()
+        return metrics
+
+    for idx in range(len(data_manager)):
+        data_manager.set_stage(idx)
+        if data_manager.end_epoch <= start_epoch:
+            continue
+        runner.fit(
+            data_manager.loader,
+            data_manager.val_loader,
+            epochs=data_manager.end_epoch,
+            start_epoch=max(data_manager.start_epoch, start_epoch),
+            steps_per_epoch=10 if cfg.debug else None,
+            val_steps=20 if cfg.debug else None,
+        )
+
+    vm = runner.val_metrics
+    if vm:
+        log.info(f"Acc@1 {vm.get('Acc@1', 0):.3f} Acc@5 {vm.get('Acc@5', 0):.3f}")
+    m = (time.time() - start_time) / 60
+    log.info(f"Total time: {int(m / 60)}h {m % 60:.1f}m")
+    save_checkpoint(run_dir, runner.state, data_manager.tot_epochs, name="model_last.ckpt")
+    runner.close()
+    return vm
+
+
+if __name__ == "__main__":
+    main()

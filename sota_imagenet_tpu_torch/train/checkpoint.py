@@ -1,0 +1,58 @@
+"""Checkpoints with ``torch.save`` (port of ``sota_imagenet_tpu/train/checkpoint.py``
+:86-171; reference train.py:98-109,134,183-184).
+
+Payload: ``{"state": {step, model, optimizer, ema}, "epoch"}``, state dicts
+of tensors. Saves are atomic: written to ``<name>.tmp-<pid>`` and renamed
+over ``<name>``, so a crash leaves the previous complete file.
+
+Restore semantics follow the JAX package: a checkpoint written without the
+optimizer state (``log.save_optim=false``, the reference default) restores
+params, BN buffers and EMA only, and does NOT restore ``step`` — the fresh
+optimizer and the lr schedule's step anchor restart together (the resumed
+epoch is carried by the epoch counter instead).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import torch
+
+from sota_imagenet_tpu_torch.train.state import TrainState
+from sota_imagenet_tpu_torch.utils.logging import get_logger
+
+
+def save_checkpoint(
+    directory: str, state: TrainState, epoch: int, name: str = "model.ckpt", include_optimizer: bool = True
+) -> str:
+    path = os.path.join(os.path.abspath(directory), name)
+    payload = {
+        "state": {
+            "step": int(state.step),
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict() if include_optimizer else None,
+            "ema": state.ema.state_dict() if state.ema is not None else None,
+        },
+        "epoch": int(epoch),
+    }
+    tmp = f"{path}.tmp-{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
+    """Restore into ``state`` in place (onto the model's device)."""
+    device = next(state.model.parameters()).device
+    payload = torch.load(os.path.abspath(path), map_location=device, weights_only=True)
+    disk = payload["state"]
+    state.model.load_state_dict(disk["model"])
+    if state.ema is not None and disk.get("ema") is not None:
+        state.ema.load_state_dict(disk["ema"])
+    if disk.get("optimizer") is None:
+        get_logger().info("Checkpoint has no optimizer state (log.save_optim=false); restoring params/batch_stats")
+    else:
+        state.optimizer.load_state_dict(disk["optimizer"])
+        state.step = int(disk["step"])
+    return state, int(payload["epoch"])

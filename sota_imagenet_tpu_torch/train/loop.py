@@ -1,0 +1,189 @@
+"""Runner: the epoch/step loop (port of ``sota_imagenet_tpu/train/loop.py``:26-327;
+pt.fit_wrapper.Runner equivalent, reference train.py:145-173).
+
+Per-step metrics stay on the device during the epoch and are reduced once
+at epoch end (loop.py:250-253): the loop itself never waits for the device,
+so the host runs ahead while the card works through the queued steps.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from sota_imagenet_tpu_torch.train import steps as steps_lib
+from sota_imagenet_tpu_torch.train.callbacks import Callback
+from sota_imagenet_tpu_torch.train.schedule import make_lr_schedule
+from sota_imagenet_tpu_torch.train.state import TrainState
+from sota_imagenet_tpu_torch.utils.misc import resolve_device
+
+
+def reduce_metrics(dev_metrics: List[Dict[str, Any]]) -> Dict[str, float]:
+    """Mean of each metric over a list of per-step dicts, with ONE device read
+    for all tensor-valued metrics (host floats such as lr are averaged in f32)."""
+    if not dev_metrics:
+        return {}
+    keys = list(dev_metrics[0])
+    tensor_keys = [k for k in keys if isinstance(dev_metrics[0][k], torch.Tensor)]
+    out: Dict[str, float] = {}
+    if tensor_keys:
+        means = torch.stack([torch.stack([m[k].float() for m in dev_metrics]).mean() for k in tensor_keys])
+        out.update(zip(tensor_keys, means.tolist()))
+    for k in keys:
+        if k not in out:
+            out[k] = float(np.mean(np.asarray([m[k] for m in dev_metrics], np.float32)))
+    return {k: out[k] for k in keys}
+
+
+class Runner:
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        criterion: Callable,
+        optimizer_factory: Callable[[torch.nn.Module], torch.optim.Optimizer],
+        *,
+        lr_phases: List[dict],
+        callbacks: Optional[List[Callback]] = None,
+        accumulate_steps: int = 1,
+        ema_decay: float = 0.0,
+        remat: Any = False,
+        input_dtype: torch.dtype = torch.bfloat16,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.model = model
+        self.criterion = criterion
+        self.optimizer_factory = optimizer_factory
+        self.lr_phases = lr_phases
+        self.callbacks = callbacks or []
+        self.accumulate_steps = accumulate_steps
+        self.ema_decay = ema_decay
+        self.remat = remat
+        self.input_dtype = input_dtype
+        self.state: Optional[TrainState] = None
+        self.epoch = 0
+        self.batch_size = 0
+        self.val_metrics: Dict[str, float] = {}
+        self.train_metrics: Dict[str, float] = {}
+        self._began = False
+        self._train_step = None
+        self._eval_step = None
+        self._eval_step_ema = None
+        for c in self.callbacks:
+            c.set_runner(self)
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        self.state = steps_lib.init_state(
+            self.model, self.optimizer_factory, device=self.device, seed=seed, ema_decay=self.ema_decay
+        )
+        return self.state
+
+    def _build_steps(self, steps_per_epoch: int, base_epoch: int):
+        self.base_epoch = base_epoch
+        lr_schedule = make_lr_schedule(self.lr_phases, steps_per_epoch, base_epoch=base_epoch, base_step=self.state.step)
+        self._train_step = steps_lib.build_train_step(
+            self.criterion,
+            lr_schedule,
+            accumulate_steps=self.accumulate_steps,
+            ema_decay=self.ema_decay,
+            remat=self.remat,
+            input_dtype=self.input_dtype,
+        )
+        self._build_eval_steps()
+
+    def _build_eval_steps(self):
+        self._eval_step = steps_lib.build_eval_step(self.criterion, input_dtype=self.input_dtype)
+        self._eval_step_ema = steps_lib.build_eval_step(self.criterion, input_dtype=self.input_dtype, use_ema=True)
+
+    def _ensure_began(self):
+        if not self._began:
+            self._began = True
+            for c in self.callbacks:
+                c.on_begin()
+
+    def fit(
+        self,
+        loader,
+        val_loader=None,
+        *,
+        epochs: int,
+        start_epoch: int = 0,
+        steps_per_epoch: Optional[int] = None,
+        val_steps: Optional[int] = None,
+    ):
+        if self.state is None:
+            raise RuntimeError("call init_state() first")
+        self._ensure_began()
+        spe = steps_per_epoch or len(loader)
+        self.batch_size = loader.batch_size
+        self._build_steps(spe, base_epoch=start_epoch)
+        for epoch in range(start_epoch, epochs):
+            self.epoch = epoch
+            if hasattr(loader, "set_epoch"):
+                loader.set_epoch(epoch)
+            for c in self.callbacks:
+                c.on_epoch_begin(epoch)
+            dev_metrics: List[Dict[str, Any]] = []
+            t0 = time.time()
+            data_time = 0.0  # host time blocked waiting for input batches
+            it = iter(loader)
+            try:
+                i = 0
+                while i < spe:
+                    td = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        break
+                    data_time += time.perf_counter() - td
+                    self.state, m = self._train_step(self.state, batch)
+                    dev_metrics.append(m)
+                    step = int(i + epoch * spe)
+                    for c in self.callbacks:
+                        c.on_batch_end(step, m)
+                    i += 1
+            finally:
+                if hasattr(it, "close"):
+                    it.close()  # stops the feed's producer when the epoch ends early (debug)
+            self.train_metrics = reduce_metrics(dev_metrics)  # the epoch's single device read
+            wall = time.time() - t0
+            self.train_metrics["epoch_time_s"] = wall
+            self.train_metrics["data_time_s"] = data_time
+            # HOST-WAIT PROXY, not measured device utilization: 1 - fraction of
+            # the epoch the host spent blocked waiting for the next batch
+            self.train_metrics["input_utilization"] = max(1.0 - data_time / max(wall, 1e-9), 0.0)
+            # validate with EMA weights when EMA is on (reference ModelEma, train.py:135)
+            self.val_metrics = (
+                self.evaluate(val_loader, steps=val_steps, use_ema=self.ema_decay > 0, _internal=True)
+                if val_loader is not None
+                else {}
+            )
+            for c in self.callbacks:
+                c.on_epoch_end(epoch, self.train_metrics, self.val_metrics)
+        return self.train_metrics, self.val_metrics
+
+    def evaluate(self, loader, steps: Optional[int] = None, use_ema: bool = False, _internal: bool = False):
+        self._ensure_began()
+        if self._eval_step is None:
+            self._build_eval_steps()
+        fn = self._eval_step_ema if use_ema else self._eval_step
+        dev_metrics = []
+        it = iter(loader)
+        try:
+            for batch in itertools.islice(it, steps):
+                dev_metrics.append(fn(self.state, batch))
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+        metrics = reduce_metrics(dev_metrics)
+        if not _internal:
+            self.val_metrics = metrics
+        return metrics
+
+    def close(self):
+        for c in self.callbacks:
+            c.on_end()

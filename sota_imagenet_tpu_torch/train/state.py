@@ -1,0 +1,24 @@
+"""Training state (port of ``sota_imagenet_tpu/train/state.py``:13).
+
+The JAX TrainState is an immutable pytree of arrays. Here the same fields
+are held by PyTorch objects updated in place: ``model`` carries the params
+and the BN running buffers (``batch_stats``), ``optimizer`` the momentum
+buffers (``opt_state``), ``ema`` a copy of the model whose params and
+buffers are the EMA (``ema_params`` / ``ema_batch_stats``). ``step`` is the
+global optimizer step, a host int (the lr schedule reads it on the host).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+@dataclass
+class TrainState:
+    step: int
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    ema: Optional[torch.nn.Module] = None
