@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -83,8 +84,11 @@ def build(name: str, sources: Sequence[str]) -> Path:
 
 
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Build (if needed) and load the library once per process."""
-    with _LOCK:
+    """Build (if needed) and load the library once per process. Libraries of
+    different names build concurrently from several threads."""
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LOADED.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name, sources)))

@@ -7,6 +7,12 @@ torchvision-layout ``state_dict`` — conv kernels HWIO → OIHW, Dense kernel
 (in, out) → weight (out, in), BN scale/bias/mean/var →
 weight/bias/running_mean/running_var. With it, tests run both packages from
 the same weights.
+
+A bottleneck built with ``fused_stats`` is recognised by its ``fconv3``:
+its ``fconv1``/``fconv3``/``fdown`` (``Conv1x1BNStats``: kernel, scale, bias;
+batch_stats mean, var) map to the port's modules of the same names, and its
+remaining 3x3 conv (and the 1x1 conv1 when ``groups > 1``) sit at flax's
+auto names ``Conv_i``/``_NormAct_i``, numbered from 0.
 """
 
 from __future__ import annotations
@@ -56,6 +62,13 @@ def flax_to_torch(
         sd[dst + ".running_mean"] = torch.from_numpy(_get(batch_stats, src + "/mean", used_s).copy())
         sd[dst + ".running_var"] = torch.from_numpy(_get(batch_stats, src + "/var", used_s).copy())
 
+    def fused(src: str, dst: str):  # Conv1x1BNStats: kernel, scale, bias / mean, var one level down
+        conv(src, dst)
+        for leaf in ("scale", "bias"):
+            sd[f"{dst}.{leaf}"] = torch.from_numpy(_get(params, f"{src}/{leaf}", used_p).copy())
+        sd[dst + ".running_mean"] = torch.from_numpy(_get(batch_stats, src + "/mean", used_s).copy())
+        sd[dst + ".running_var"] = torch.from_numpy(_get(batch_stats, src + "/var", used_s).copy())
+
     conv("stem_conv/Conv_0", "conv1")
     bn("stem_bn/BatchNorm_0/BatchNorm_0", "bn1")
     n_convs = 3 if bottleneck else 2
@@ -63,6 +76,17 @@ def flax_to_torch(
         for b in range(depth):
             f = f"layer{li}_{b}"
             t = f"layer{li}.{b}"
+            if "fconv3" in params[f]:
+                # fused_stats layout: fconv1 (groups == 1 only), fconv3 and fdown are
+                # Conv1x1BNStats; the plain convs left keep flax's auto names in order
+                plain = [2] if "fconv1" in params[f] else [1, 2]
+                for i, ci in enumerate(plain):
+                    conv(f"{f}/Conv_{i}/Conv_0", f"{t}.conv{ci}")
+                    bn(f"{f}/_NormAct_{i}/BatchNorm_0/BatchNorm_0", f"{t}.bn{ci}")
+                for name in ("fconv1", "fconv3", "fdown"):
+                    if name in params[f]:
+                        fused(f"{f}/{name}", f"{t}.{name}")
+                continue
             for ci in range(1, n_convs + 1):
                 conv(f"{f}/Conv_{ci - 1}/Conv_0", f"{t}.conv{ci}")
                 if ci < n_convs:

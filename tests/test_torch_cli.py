@@ -1,7 +1,9 @@
 """The port's training CLI end to end on the CPU: r50_baseline's recipe with
 a ResNet-18 at 32 px (synthetic data, f32, debug: 10 train / 20 val steps,
 one 1-epoch warmup stage), then an eval of its last checkpoint, which must
-reproduce the run's final val metrics exactly."""
+reproduce the run's final val metrics exactly. The same for a full-width
+ResNet-50 with ``fused_stats`` (every 1x1 conv + BN through conv1x1_stats,
+whose CPU path is the kernel's plain version)."""
 
 import glob
 import math
@@ -103,8 +105,51 @@ def test_main_defaults_to_cuda():
 @pytest.mark.parametrize(
     "override",
     ["run.accumulate_steps=2", "mesh.data=2", "run.bn_stats=local", "weight_standardization=true",
-     "loader.device_cache=true", "model={_target_: resnet50, fused_stats: true}"],
+     "loader.device_cache=true"],
 )
 def test_unported_options_raise(override, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["-c", CONFIG, *OVERRIDES, override, f"log.dir={tmp_path}"], device="cpu")
+
+
+FUSED = ["model={_target_: resnet50, fused_stats: true}"]
+
+
+@pytest.fixture(scope="module")
+def trained_fused(tmp_path_factory):
+    from sota_imagenet_tpu_torch.ops.conv_stats import conv1x1_stats
+    from sota_imagenet_tpu_torch.ops.fused_aug import fused_augment
+
+    logdir = tmp_path_factory.mktemp("logs_fused")
+    rec = _Record()
+    launches = (conv1x1_stats.launches, fused_augment.launches)
+    val = cli.main(["-c", CONFIG, *OVERRIDES, *FUSED, f"log.dir={logdir}"], device="cpu", callbacks=[rec])
+    (run_dir,) = glob.glob(os.path.join(logdir, "*_r50_baseline", "*"))
+    return {
+        "val": val,
+        "record": rec,
+        "run_dir": run_dir,
+        "cuda_launches": (conv1x1_stats.launches - launches[0], fused_augment.launches - launches[1]),
+    }
+
+
+def test_fused_stats_train_run_finishes(trained_fused):
+    """resnet50(fused_stats=True) trains through cli.main: 10 finite steps,
+    the fused modules in the checkpoint, no kernel launched on the CPU."""
+    rec = trained_fused["record"]
+    assert rec.steps == 10 and math.isfinite(rec.train_metrics["loss"])
+    assert all(math.isfinite(v) for v in trained_fused["val"].values())
+    assert trained_fused["cuda_launches"] == (0, 0)
+    disk = torch.load(os.path.join(trained_fused["run_dir"], "model_last.ckpt"), weights_only=True)
+    keys = disk["state"]["model"]
+    assert sum(k.endswith("running_var") and ".f" in k for k in keys) == 36  # fconv1/fconv3 x 16, fdown x 4
+    assert not any(".conv3." in k or "downsample" in k for k in keys)
+
+
+def test_fused_stats_eval_of_last_checkpoint_reproduces_val_metrics(trained_fused, tmp_path):
+    ckpt = os.path.join(trained_fused["run_dir"], "model_last.ckpt")
+    metrics = cli.main(
+        ["-c", CONFIG, *OVERRIDES, *FUSED, f"log.dir={tmp_path}", "run.evaluate=true", f"run.resume={ckpt}"],
+        device="cpu",
+    )
+    assert metrics == trained_fused["val"]
