@@ -13,15 +13,19 @@ without a build; any failure exits non-zero and prints no result):
              one nvcc per source, all started together; print the build
              seconds and ptxas' resource lines of each.
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             at the main path's shapes and a ragged one, and time kernel,
-             plain version and (where one PyTorch call computes the same
-             function) that library call with CUDA events (median of runs
-             of back-to-back launches after warm-up) beside the kernel's
-             bound. fused_aug: bit-exact, stages off and on. conv1x1_stats:
-             the 15 shapes resnet50(fused_stats=True) launches at batch 256,
-             224 px, a ragged one, the stride-2 NHWC wrapper and the
-             backward (tolerances in conv_stats_phase). moments: three
-             ResNet-50 activation shapes and a ragged one (moments_phase).
+             at the main path's shapes and a ragged one, and time it beside
+             its bound: ``kernel_ms`` is the kernel's own device time
+             (torch.profiler, device_ms), ``wrapper_ms`` a call through the
+             port's wrapper, back to back between CUDA events (median_ms),
+             and ``host_us`` the host's cost of one call at a toy shape;
+             the plain version and (where one PyTorch call computes the same
+             function) that library call are timed too. fused_aug:
+             bit-exact, stages off and on. conv1x1_stats: the 15 shapes
+             resnet50(fused_stats=True) launches at batch 256, 224 px (all
+             on the sm90 kernel, bit for bit the same over two calls),
+             ragged ones, the stride-2 NHWC wrapper and the backward
+             (tolerances in conv_stats_phase). moments: three ResNet-50
+             activation shapes and a ragged one (moments_phase).
 3. model   — one f32 train step of full-width ResNet-50 (64 px, batch 8) on
              the card against the same step on the CPU, from the same seeded
              weights, unfused and with fused_stats (tolerances in
@@ -38,7 +42,8 @@ without a build; any failure exits non-zero and prints no result):
              and the blur run inside the trainer.
 6. trainer C — trainer A with model={_target_: resnet50, fused_stats: true}:
              every 1x1 conv + BatchNorm of a train step goes through the
-             conv1x1_stats kernel, 36 launches per step.
+             conv1x1_stats kernel, 36 launches per step, all on its sm90
+             path.
 7. profile — trainers A and C once more with torch.profiler over steps 4-7:
              device time per step by layer and the top kernels, and the
              device's busy share (separate runs, so the trainers' times stay
@@ -100,11 +105,55 @@ def median_ms(fn, reps: int, per_rep: int, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs) / per_rep
 
 
-LIBRARIES = (  # (module under sota_imagenet_tpu_torch.ops and its library's name, sources)
-    ("fused_aug", ("fused_aug.cu",)),
-    ("conv_stats", ("conv_stats.cu",)),
-    ("moments", ("moments.cu",)),
-)
+def device_ms(fn, fragment=None, calls: int = 20) -> float:
+    """Device time of the kernels that one call of ``fn`` launches, from
+    torch.profiler: the self device time of the CUDA kernels whose name holds
+    ``fragment`` (every kernel if None) over ``calls`` calls after a warm-up,
+    divided by ``calls``. A profile must show one such kernel per call (with
+    no fragment, at least one kernel per call); the profiler now and then
+    loses kernel records, so a short profile is taken again, up to 5
+    times."""
+    import torch
+    from torch.autograd import DeviceType
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(5):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [
+            e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and (fragment is None or fragment in e.key)
+        ]
+        count = sum(e.count for e in events)
+        if count == calls or (fragment is None and count > calls):
+            return sum(e.self_device_time_total for e in events) / calls / 1e3
+        print(f"[kernels] the profile shows {count} kernels named *{fragment}* in {calls} calls: again", flush=True)
+    raise AssertionError(f"5 profiles short of kernels named *{fragment}* in {calls} calls")
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn``: the host clock over back-to-back
+    calls, at a shape whose kernels take less than the call, so the device
+    never holds the host back."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+MODULES = ("fused_aug", "conv_stats", "moments")  # under sota_imagenet_tpu_torch.ops, one library each
 
 
 def build_phase() -> dict:
@@ -119,16 +168,16 @@ def build_phase() -> dict:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        names = [name for name, _ in LIBRARIES]
-        seconds = dict(zip(names, pool.map(build, names)))
+    with ThreadPoolExecutor(len(MODULES)) as pool:
+        seconds = dict(zip(MODULES, pool.map(build, MODULES)))
     total = time.perf_counter() - t0
-    print(f"[build] {len(LIBRARIES)} libraries ready in {total:.2f} s: {json.dumps(seconds)}")
-    for name, sources in LIBRARIES:
+    print(f"[build] {len(MODULES)} libraries ready in {total:.2f} s: {json.dumps(seconds)}")
+    for name in MODULES:
+        sources = importlib.import_module(f"sota_imagenet_tpu_torch.ops.{name}")._SOURCES
         log = cuda_build.library_path(name, sources).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "ptxas info" in line and ("registers" in line or "Compiling" in line):
+                if ("ptxas info" in line and ("registers" in line or "Compiling" in line)) or "spill" in line:
                     print(f"[build]   {name}: {line.strip()}")
     return {"build_s": total, "per_library_s": seconds}
 
@@ -152,16 +201,23 @@ def kernel_phase() -> dict:
             torch.cuda.synchronize()
             diff = (out.float() - ref.float()).abs().max().item()
             n_bytes = imgs.numel() * (1 + 2) + scalars.numel() * 4  # u8 in, bf16 out, scalars
+
+            def call():
+                return fused_augment(imgs, scalars, out_dtype=torch.bfloat16, **kw)
+
             case = {
                 "shape": [b, h, w, 3],
                 "stages": stages,
                 "max_abs_err": diff,
-                "ms": median_ms(lambda: fused_augment(imgs, scalars, out_dtype=torch.bfloat16, **kw), 10, 20),
+                "kernel_ms": device_ms(call, "fused_aug"),
+                "wrapper_ms": median_ms(call, 10, 20),
                 "plain_ms": median_ms(
                     lambda: fused_augment_reference(imgs, scalars, out_dtype=torch.bfloat16, **kw), 5, 4
                 ),
                 "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
             }
+            if b == 3:  # the toy shape: what a call costs the host
+                case["host_us"] = host_us(call)
             print(f"[kernels] fused_aug {case}")
             if diff != 0.0:
                 raise AssertionError(f"fused_aug disagrees with its plain version at {case['shape']} {stages}: {diff}")
@@ -175,8 +231,9 @@ def kernel_phase() -> dict:
         "launches": None,  # set from the main path's run (trainer A)
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "max_abs_diff": max(c["max_abs_err"] for c in cases),
-        "ms": main["ms"],
-        "kernel_ms": main["ms"],
+        "ms": main["kernel_ms"],  # device time of the kernel alone
+        "wrapper_ms": main["wrapper_ms"],
+        "host_us_toy": cases[2]["host_us"],  # (3, 37, 53, 3), stages off
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
@@ -185,14 +242,6 @@ def kernel_phase() -> dict:
     }
 
 
-# (M, K, N, launches per train step) of resnet50(fused_stats=True) at batch
-# 256, 224 px: fconv1 and fconv3 of all 16 bottlenecks, fdown of 4
-R50_CONV1X1 = (
-    (802816, 64, 64, 1), (802816, 64, 256, 4), (802816, 256, 64, 2), (802816, 256, 128, 1),
-    (200704, 128, 512, 4), (200704, 256, 512, 1), (200704, 512, 128, 3), (200704, 512, 256, 1),
-    (50176, 256, 1024, 6), (50176, 512, 1024, 1), (50176, 1024, 256, 5), (50176, 1024, 512, 1),
-    (12544, 512, 2048, 3), (12544, 1024, 2048, 1), (12544, 2048, 512, 2),
-)
 SUM_RTOL = 1e-5
 
 
@@ -245,35 +294,60 @@ def _check_sums(y, s1, s2) -> dict:
 
 def conv_stats_phase() -> dict:
     """conv1x1_stats against its plain version on the card at the 15 r50
-    shapes, a ragged shape and the stride-2 NHWC wrapper; its autograd
-    backward against the plain version's autograd (rtol 1e-2 of the largest
-    gradient: gy_tot is rounded to bf16 before the products, the plain
-    version's f32 gradient only at the cast of x); times summed over the 36
-    launches of a train step."""
+    shapes (each on the sm90 kernel, and the same bit for bit over two
+    calls), ragged shapes on both kernels and the stride-2 NHWC wrapper; its
+    autograd backward against the plain version's autograd (rtol 1e-2 of the
+    largest gradient: gy_tot is rounded to bf16 before the products, the
+    plain version's f32 gradient only at the cast of x); times summed over
+    the 36 launches of a train step."""
     import torch
 
-    from sota_imagenet_tpu_torch.ops.conv_stats import conv1x1_stats, conv1x1_stats_nhwc, conv1x1_stats_reference
+    from sota_imagenet_tpu_torch.ops.conv_stats import (
+        R50_SHAPES,
+        conv1x1_stats,
+        conv1x1_stats_nhwc,
+        conv1x1_stats_reference,
+        plan,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    by_path0 = dict(conv1x1_stats.launches_by_path)
     cases = []
-    for m, k, n, count in (*R50_CONV1X1, (1000, 40, 72, 0)):
+    # the r50 shapes, then ragged ones: M on sm90, K % 8 != 0 and N % 8 != 0 on mma_sync
+    for m, k, n, count in (*R50_SHAPES, (1000, 40, 72, 0), (1000, 40, 75, 0), (1000, 45, 72, 0)):
         # post-ReLU-like activations and fan-out-scaled weights, as in the net
         x = torch.rand((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         w = (torch.randn((n, k), generator=gen, device="cuda") * math.sqrt(2.0 / n)).to(torch.bfloat16)
+        before = dict(conv1x1_stats.launches_by_path)
         y, s1, s2 = conv1x1_stats(x, w)
+        again = conv1x1_stats(x, w)
         y_ref, _, _ = conv1x1_stats_reference(x, w)
         torch.cuda.synchronize()
-        case = {"shape": [m, k, n], "launches_per_step": count}
+        p = plan(m, k, n, x.data_ptr(), w.data_ptr(), sms)
+        took = [path for path, v in conv1x1_stats.launches_by_path.items() if v != before[path]]
+        case = {"shape": [m, k, n], "launches_per_step": count, "path": p.path, "tile_n": p.tile_n, "grid": p.grid}
+        case["deterministic"] = all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
         case.update(_check_y(x, w, y, y_ref))
         case.update(_check_sums(y, s1, s2))
-        del y, s1, s2, y_ref
+        del y, s1, s2, y_ref, again
+        if took != [p.path] or (count and p.path != "sm90") or not case["deterministic"]:
+            raise AssertionError(f"conv1x1_stats at {case['shape']}: launched {took}, planned {p}, {case}")
         n_bytes = 2 * (m * k + k * n + m * n) + 2 * 4 * n
         case["bound_ms"] = max(2 * m * k * n / BF16_FLOPS, n_bytes / HBM_BYTES_PER_S) * 1e3
         case["bound_by"] = "operations" if 2 * m * k * n / BF16_FLOPS > n_bytes / HBM_BYTES_PER_S else "bytes"
-        case["ms"] = median_ms(lambda: conv1x1_stats(x, w), 10, 10)
+
+        def call():
+            return conv1x1_stats(x, w)
+
+        case["kernel_ms"] = device_ms(call, "conv1x1_stats")
+        case["wrapper_ms"] = median_ms(call, 10, 10)
+        if m == 1000:
+            case["host_us"] = host_us(call)
         case["plain_ms"] = median_ms(lambda: conv1x1_stats_reference(x, w), 3, 2, warmup=1)
         wt = w.t()
-        case["library_ms"] = median_ms(lambda: torch.matmul(x, wt), 10, 10)  # the product alone
+        case["library_ms"] = device_ms(lambda: torch.matmul(x, wt))  # the product alone
+        case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
         print(f"[kernels] conv1x1_stats {json.dumps(case)}")
         cases.append(case)
         del x, w, wt
@@ -317,15 +391,23 @@ def conv_stats_phase() -> dict:
         return sum(c[key] * c["launches_per_step"] for c in cases)
 
     by_bytes = per_step("bound_ms", [c for c in main if c["bound_by"] == "bytes"])
+    by_path = {k: v - by_path0[k] for k, v in conv1x1_stats.launches_by_path.items()}
+    print(f"[kernels] conv1x1_stats launches by path in this phase: {json.dumps(by_path)}")
 
     return {
         "name": "conv1x1_stats",
         "route": "cuda",
-        "source": "sota_imagenet_tpu_torch/csrc/conv_stats.cu",
+        "source": "sota_imagenet_tpu_torch/csrc/conv_stats_sm90.cu",  # the main path's kernel
+        "general_source": "sota_imagenet_tpu_torch/csrc/conv_stats.cu",  # mma_sync: K or N % 8, unaligned bases
         "replaces": "sota_imagenet_tpu/ops/pallas_conv_stats.py:107",
         "launches": None,  # set from the main path's run (trainer C)
+        "launches_by_path": None,  # likewise
         "max_abs_err": max(c["max_abs_err"] for c in (*cases, strided)),
-        "ms": per_step("ms"),  # the 36 launches of one train step
+        "ms": per_step("kernel_ms"),  # device time of the 36 launches of one train step
+        "wrapper_ms": per_step("wrapper_ms"),
+        "host_us_toy": cases[-3]["host_us"],  # 1000 x 40 x 72 on sm90
+        "deterministic": all(c["deterministic"] for c in cases),
+        "kernels_phase_launches_by_path": by_path,
         "plain_ms": per_step("plain_ms"),
         "bound_ms": per_step("bound_ms"),
         # what decides most of the per-step bound
@@ -366,16 +448,23 @@ def moments_phase() -> dict:
         e_var = float(((var.double() - var64).abs() / (1e-5 * var64 + 1e-5 * sq64)).max())
         dims = tuple(range(len(shape) - 1))
         n_bytes = x.numel() * x.element_size() + 2 * 4 * shape[-1]
+
+        def call():
+            return moments(x)
+
         case = {
             "shape": list(shape),
             "dtype": dtype,
             "max_abs_err": max(float((mean.double() - mean64).abs().max()), float((var.double() - var64).abs().max())),
             "err_over_tol": max(e_mean, e_var),
-            "ms": median_ms(lambda: moments(x), 10, 10),
+            "kernel_ms": device_ms(call, "moments_kernel"),
+            "wrapper_ms": median_ms(call, 10, 10),
             "plain_ms": median_ms(lambda: moments_reference(x), 5, 4),
-            "library_ms": median_ms(lambda: torch.var_mean(x, dims, correction=0), 10, 10),
+            "library_ms": device_ms(lambda: torch.var_mean(x, dims, correction=0)),
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
         }
+        if shape[0] == 3:
+            case["host_us"] = host_us(call)
         print(f"[kernels] moments {json.dumps(case)}")
         if case["err_over_tol"] > 1.0:
             raise AssertionError(f"moments disagrees with float64 moments at {shape} {dtype}: {case}")
@@ -389,11 +478,13 @@ def moments_phase() -> dict:
         "replaces": "sota_imagenet_tpu/ops/pallas_norm.py:51",
         "launches": None,  # no path calls it, in either package
         "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main["ms"],
+        "ms": main["kernel_ms"],  # device time of the kernel alone
+        "wrapper_ms": main["wrapper_ms"],
+        "host_us_toy": cases[3]["host_us"],  # (3, 9, 5, 128) bf16
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": main["library_ms"],  # torch.var_mean(x, (0, 1, 2), correction=0)
+        "library_ms": main["library_ms"],  # torch.var_mean(x, (0, 1, 2), correction=0), its kernels' device time
         "cases": cases,
     }
 
@@ -542,10 +633,14 @@ def trainer_phase(name: str, config: str, extra: tuple, gpu: str, per_step: dict
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0  # counts from here are this path's
+        by_path = counters["conv1x1_stats"].launches_by_path
+        for path in by_path:
+            by_path[path] = 0
         t0 = time.perf_counter()
         val = cli.main(["-c", config, *overrides], callbacks=[probe])
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
+        by_path = dict(by_path)
         ckpts = glob.glob(os.path.join(logdir, "*", "*", "model_last.ckpt"))
     steps = len(probe.step_ms)
     loss = probe.train_metrics.get("loss", float("nan"))
@@ -557,6 +652,7 @@ def trainer_phase(name: str, config: str, extra: tuple, gpu: str, per_step: dict
         "overrides": list(extra),
         "train_steps": steps,
         "kernel_launches": launches,
+        "conv1x1_stats_launches_by_path": by_path,
         "train_loss": loss,
         "val": val,
         "ms_per_step_median_4_10": ms_step,
@@ -574,6 +670,8 @@ def trainer_phase(name: str, config: str, extra: tuple, gpu: str, per_step: dict
     want = {k: per_step.get(k, 0) * steps for k in counters}
     if steps != 10 or launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} in {steps} train steps, want {want} in 10 steps")
+    if by_path != {"sm90": want["conv1x1_stats"], "mma_sync": 0}:
+        raise AssertionError(f"{name}: conv1x1_stats launches by path {by_path}, want all {want['conv1x1_stats']} on sm90")
     if probe.param_devices != {"cuda"} or probe.metric_devices != {"cuda"}:
         raise AssertionError(f"{name}: params on {probe.param_devices}, batches/metrics on {probe.metric_devices}")
     if not ckpts:
@@ -694,6 +792,7 @@ def main(argv=None) -> int:
     kernels[0]["launches"] = results["trainer_a"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_hard_aug"] = results["trainer_b"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
+    kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))
     for k in kernels:
         k["gpu"] = gpu

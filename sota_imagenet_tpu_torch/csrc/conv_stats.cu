@@ -21,21 +21,23 @@
 // the bound is 2.60 ms, of which the bytes decide most. The point of fusing
 // the statistics is that y is not read back from memory for BatchNorm.
 //
-// Design (first version: simple and right). A block of 256 threads (8 warps,
-// 2 along M by 4 along N, each warp 64 x 32) computes a 128 x 128 tile of y,
-// walking K in steps of 32 through a two-stage shared-memory ring filled by
-// cp.async (16-byte copies; a row or K chunk past the edge is zero-filled).
-// Operands reach the tensor cores through ldmatrix and mma.sync m16n8k16
-// (bf16 in, f32 accumulators). Shared rows are padded to 80 bytes so that
-// ldmatrix is free of bank conflicts. The epilogue rounds each accumulator to
-// bf16, stores it (two columns per 4-byte store), and sums the rounded values
-// and their squares over the tile's valid rows: per thread, then across the
-// warp with shuffles, then across the two M-warps in shared memory, in a
-// fixed order. Ragged M, N and K are masked; K not a multiple of 8 (or an
-// unaligned operand) takes element-wise loads instead of cp.async. None of
-// the Pallas kernel's Mosaic constraints carries over: no padding of M or N
-// in memory, no 8-row replicated statistics blocks, no /8. wgmma and TMA are
-// later work.
+// Design: the general path. The wrapper (ops/conv_stats.py, choose_path)
+// sends here only what the Hopper kernel of conv_stats_sm90.cu (TMA + wgmma)
+// cannot take: K or N not a multiple of 8, or an operand that does not start
+// on 16 bytes. A block of 256 threads (8 warps, 2 along M by 4 along N, each
+// warp 64 x 32) computes a 128 x 128 tile of y, walking K in steps of 32
+// through a two-stage shared-memory ring filled by cp.async (16-byte copies;
+// a row or K chunk past the edge is zero-filled). Operands reach the tensor
+// cores through ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulators).
+// Shared rows are padded to 80 bytes so that ldmatrix is free of bank
+// conflicts. The epilogue rounds each accumulator to bf16, stores it (two
+// columns per 4-byte store), and sums the rounded values and their squares
+// over the tile's valid rows: per thread, then across the warp with
+// shuffles, then across the two M-warps in shared memory, in a fixed order.
+// Ragged M, N and K are masked; K not a multiple of 8 (or an unaligned
+// operand) takes element-wise loads instead of cp.async. None of the Pallas
+// kernel's Mosaic constraints carries over: no padding of M or N in memory,
+// no 8-row replicated statistics blocks, no /8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

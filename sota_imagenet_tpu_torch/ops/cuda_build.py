@@ -3,7 +3,8 @@ them with ctypes.
 
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) at first use,
 from the ``.cu`` files under ``sota_imagenet_tpu_torch/csrc/`` alone, into
-``sota_imagenet_tpu_torch/_build/`` (git-ignored). The file name carries a
+``sota_imagenet_tpu_torch/_build/`` (git-ignored): one ``nvcc`` per source,
+all started together, then one link. The file name carries a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. The sources expose ``extern "C"`` launch
 functions that take device pointers and a stream and return the
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -70,15 +72,27 @@ def build(name: str, sources: Sequence[str]) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in sources)]
+    nvcc = find_nvcc()
+    objects = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o") for src in sources]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    steps = [[nvcc, *compile_flags, "-c", "-o", str(obj), str(CSRC_DIR / src)] for src, obj in zip(sources, objects)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {name} ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(
-        f"# {' '.join(cmd)}\n# {time.perf_counter() - t0:.2f} s\n{proc.stdout}{proc.stderr}"
-    )
+    try:
+        with ThreadPoolExecutor(len(steps)) as pool:
+            procs = list(pool.map(lambda cmd: subprocess.run(cmd, capture_output=True, text=True), steps))
+        link = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(obj) for obj in objects)]
+        if all(proc.returncode == 0 for proc in procs):
+            steps.append(link)
+            procs.append(subprocess.run(link, capture_output=True, text=True))
+        for cmd, proc in zip(steps, procs):
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed building {name} ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    log = "".join(f"# {' '.join(cmd)}\n{proc.stdout}{proc.stderr}" for cmd, proc in zip(steps, procs))
+    out.with_suffix(".log").write_text(f"# {time.perf_counter() - t0:.2f} s\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders never load a half-written file
     return out
 

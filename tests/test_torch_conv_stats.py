@@ -29,8 +29,18 @@ import torch
 
 from sota_imagenet_tpu.models.resnet import Conv1x1BNStats as JConv1x1BNStats
 from sota_imagenet_tpu.ops import pallas_conv_stats as jcs
+from sota_imagenet_tpu_torch.models import resnet50
 from sota_imagenet_tpu_torch.models.resnet import Conv1x1BNStats
-from sota_imagenet_tpu_torch.ops.conv_stats import conv1x1_stats, conv1x1_stats_nhwc, conv1x1_stats_reference
+from sota_imagenet_tpu_torch.ops import conv_stats as cs
+from sota_imagenet_tpu_torch.ops.conv_stats import (
+    R50_SHAPES,
+    Plan,
+    choose_path,
+    conv1x1_stats,
+    conv1x1_stats_nhwc,
+    conv1x1_stats_reference,
+    plan,
+)
 
 SHAPES = [(256, 64, 256), (384, 128, 512), (100, 32, 128), (1000, 40, 72)]
 FLIP_FRACTION = 1e-3
@@ -99,10 +109,10 @@ def test_forward_matches_jax_kernel(m, k, n):
 def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     x, w = _inputs(200, 48, 96, seed=1)
     tx, tw = torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w.T))
-    before = conv1x1_stats.launches
+    before, before_by_path = conv1x1_stats.launches, dict(conv1x1_stats.launches_by_path)
     got = conv1x1_stats(tx, tw)
     want = conv1x1_stats_reference(tx, tw)
-    assert conv1x1_stats.launches == before
+    assert conv1x1_stats.launches == before and conv1x1_stats.launches_by_path == before_by_path
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -231,3 +241,80 @@ def test_module_matches_jax(interpret, train, dtype, stride):
         )
     if not train:  # eval mode leaves the buffers as they were
         assert torch.equal(mod.running_var, torch.from_numpy(stats["var"]))
+
+
+# The tile width plan() gives each r50 shape on an H100's 132 SMs, as the
+# source note of csrc/conv_stats_sm90.cu lists it.
+R50_TILE_N = {
+    (802816, 64, 64): 64, (802816, 64, 256): 256, (802816, 256, 64): 64, (802816, 256, 128): 128,
+    (200704, 128, 512): 256, (200704, 256, 512): 256, (200704, 512, 128): 128, (200704, 512, 256): 256,
+    (50176, 256, 1024): 256, (50176, 512, 1024): 256, (50176, 1024, 256): 256, (50176, 1024, 512): 256,
+    (12544, 512, 2048): 256, (12544, 1024, 2048): 256, (12544, 2048, 512): 128,
+}
+
+
+@pytest.mark.parametrize("m,k,n,per_step", R50_SHAPES, ids=lambda v: str(v))
+def test_r50_shapes_take_the_sm90_path(m, k, n, per_step):
+    """Every shape of a ResNet-50 train step goes to the TMA + wgmma kernel,
+    on a persistent grid of at most one block per SM whose blocks each keep
+    one N-tile; each block writes 2 x 256 / BN rows of partials."""
+    p = plan(m, k, n, 0, 256, sms=132)
+    tiles_n = -(-n // p.tile_n)
+    groups = p.grid // tiles_n
+    assert p.path == choose_path(k, n, 0, 256) == "sm90"
+    assert p.tile_n == R50_TILE_N[(m, k, n)]
+    assert p.grid % tiles_n == 0 and p.grid <= 132 and groups == min(-(-m // 128), 132 // tiles_n)
+    assert p.part_rows == groups * 2 * (256 // p.tile_n)
+
+
+# (M, K, N, x offset in bytes, w offset in bytes) that TMA cannot map
+GENERAL_PATH = {
+    "k13": (100, 13, 130, 0, 0),
+    "n3": (257, 24, 3, 0, 0),
+    "n130": (1000, 64, 130, 0, 0),
+    "x_offset_2_bytes": (300, 64, 96, 2, 0),
+    "w_offset_8_bytes": (300, 64, 96, 0, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL_PATH))
+def test_what_tma_cannot_map_takes_the_mma_sync_path(case):
+    """K or N not a multiple of 8, or an operand off 16 bytes: one block per
+    128 x 128 tile and one row of partials per 128 rows of M."""
+    m, k, n, x_off, w_off = GENERAL_PATH[case]
+    assert choose_path(k, n, 4096 + x_off, 4096 + w_off) == "mma_sync"
+    tiles_m = -(-m // 128)
+    assert plan(m, k, n, 4096 + x_off, 4096 + w_off, sms=132) == Plan("mma_sync", 128, tiles_m * -(-n // 128), tiles_m)
+
+
+@pytest.mark.parametrize(
+    "m,k,n,want",
+    [
+        (1, 8, 8, Plan("sm90", 64, 1, 8)),  # one tile: N rounds up to one 64-wide tile
+        (1000, 40, 72, Plan("sm90", 64, 16, 64)),  # ragged M, N and K
+        (12545, 512, 2048, Plan("sm90", 256, 128, 32)),  # one row past an r50 shape
+        (128, 64, 40000, Plan("sm90", 64, 625, 8)),  # more N-tiles than SMs: one group, several waves
+    ],
+    ids=["one_tile", "ragged", "r50_plus_one_row", "wide"],
+)
+def test_plan_of_other_sm90_shapes(m, k, n, want):
+    assert plan(m, k, n, 0, 0, sms=132) == want
+
+
+def test_r50_shapes_are_what_resnet50_fused_launches(monkeypatch):
+    """R50_SHAPES (batch 256, 224 px) is what a train-mode forward of
+    resnet50(fused_stats=True) passes to conv1x1_stats, scaled from batch 1."""
+    seen = {}
+    real = cs.conv1x1_stats
+
+    def record(x2d, w):
+        key = (x2d.shape[0] * 256, x2d.shape[1], w.shape[0])
+        seen[key] = seen.get(key, 0) + 1
+        return real(x2d, w)
+
+    monkeypatch.setattr(cs, "conv1x1_stats", record)
+    torch.manual_seed(0)
+    model = resnet50(fused_stats=True).train()
+    with torch.no_grad():
+        model(torch.randn(1, 224, 224, 3))  # NHWC, as the JAX model takes it
+    assert seen == {(m, k, n): c for m, k, n, c in R50_SHAPES}

@@ -1,5 +1,6 @@
-"""The conv1x1 + BN-stats CUDA kernel against its plain PyTorch version, on
-the card (marked ``cuda``; skipped without a GPU).
+"""The conv1x1 + BN-stats CUDA kernels (sm90: TMA + wgmma; mma_sync: the
+general path) against their plain PyTorch version, on the card (marked
+``cuda``; skipped without a GPU).
 
 Tolerances: y equals the plain version's y except where the two f32 sums,
 taken in other orders, straddle a bf16 rounding boundary: there one bf16 ulp,
@@ -21,9 +22,20 @@ import math
 import pytest
 import torch
 
-from sota_imagenet_tpu_torch.ops.conv_stats import conv1x1_stats, conv1x1_stats_nhwc, conv1x1_stats_reference
+from sota_imagenet_tpu_torch.ops.conv_stats import (
+    choose_path,
+    conv1x1_stats,
+    conv1x1_stats_nhwc,
+    conv1x1_stats_reference,
+)
 
-SHAPES = [(12544, 512, 2048), (50176, 1024, 256), (1000, 40, 72), (257, 24, 3), (100, 13, 130)]
+# r50 shapes bound by operations (12544x512x2048) and by bytes (50176x1024x256,
+# 802816x256x64 at N = 64), ragged M at N and K multiples of 8 (sm90), and K
+# or N not a multiple of 8 (mma_sync)
+SHAPES = [
+    (12544, 512, 2048), (50176, 1024, 256), (1000, 40, 72), (257, 24, 3), (100, 13, 130),
+    (802816, 256, 64), (1000, 64, 72), (12545, 512, 2048),
+]
 
 
 @pytest.fixture
@@ -57,9 +69,11 @@ def test_kernel_matches_plain_version_on_card(cuda_device, shape):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.rand((m, k), generator=gen, device=cuda_device).to(torch.bfloat16)
     w = (torch.randn((n, k), generator=gen, device=cuda_device) * math.sqrt(2.0 / n)).to(torch.bfloat16)
-    before = conv1x1_stats.launches
+    path = "mma_sync" if k % 8 or n % 8 else "sm90"
+    assert choose_path(k, n, x.data_ptr(), w.data_ptr()) == path
+    before, before_path = conv1x1_stats.launches, conv1x1_stats.launches_by_path[path]
     y, s1, s2 = conv1x1_stats(x, w)
-    assert conv1x1_stats.launches == before + 1
+    assert conv1x1_stats.launches == before + 1 and conv1x1_stats.launches_by_path[path] == before_path + 1
     y_ref, _, _ = conv1x1_stats_reference(x, w)
     torch.cuda.synchronize()
     assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, n)
@@ -69,13 +83,15 @@ def test_kernel_matches_plain_version_on_card(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_unaligned_operand_takes_elementwise_loads(cuda_device):
-    """An operand that does not start on 16 bytes takes the kernel's
-    element-wise load path; the result is the same."""
+    """An operand that does not start on 16 bytes takes the mma_sync kernel
+    and its element-wise load path; the result is the same."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     base = torch.rand((300 * 64 + 1,), generator=gen, device=cuda_device).to(torch.bfloat16)
     x = base[1:].view(300, 64)  # 2-byte offset
     w = torch.randn((96, 64), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = conv1x1_stats.launches_by_path["mma_sync"]
     y, s1, s2 = conv1x1_stats(x, w)
+    assert conv1x1_stats.launches_by_path["mma_sync"] == before + 1
     y_ref, _, _ = conv1x1_stats_reference(x, w)
     torch.cuda.synchronize()
     _assert_y_close(x, w, y, y_ref)
@@ -125,3 +141,33 @@ def test_unused_sums_get_no_gradient_on_card(cuda_device):
     y.float().sum().backward()
     torch.cuda.synchronize()
     assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(802816, 64, 256), (50176, 1024, 512), (1000, 40, 72)], ids=lambda s: "x".join(map(str, s)))
+def test_sm90_is_bitwise_deterministic_on_card(cuda_device, shape):
+    """The same inputs give the same y and sums, bit for bit: every sum runs
+    in a fixed order, with no atomics."""
+    m, k, n = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((n, k), generator=gen, device=cuda_device).to(torch.bfloat16)
+    first = conv1x1_stats(x, w)
+    second = conv1x1_stats(x, w)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_launches_by_path_counts_each_kernel_on_card(cuda_device):
+    """launches counts every launch, launches_by_path the kernel it took."""
+    before, by_path = conv1x1_stats.launches, dict(conv1x1_stats.launches_by_path)
+    x = torch.randn((512, 64), device=cuda_device)
+    conv1x1_stats(x, torch.randn((128, 64), device=cuda_device))  # sm90
+    conv1x1_stats(x, torch.randn((64, 64), device=cuda_device))  # sm90
+    conv1x1_stats(x, torch.randn((100, 64), device=cuda_device))  # N % 8 != 0: mma_sync
+    conv1x1_stats(torch.empty((0, 64), device=cuda_device), torch.randn((64, 64), device=cuda_device))  # nothing to launch
+    torch.cuda.synchronize()
+    assert conv1x1_stats.launches == before + 3
+    assert conv1x1_stats.launches_by_path == {"sm90": by_path["sm90"] + 2, "mma_sync": by_path["mma_sync"] + 1}
