@@ -29,7 +29,8 @@ without a build; any failure exits non-zero and prints no result):
 3. model   — one f32 train step of full-width ResNet-50 (64 px, batch 8) on
              the card against the same step on the CPU, from the same seeded
              weights, unfused and with fused_stats (tolerances in
-             model_phase).
+             model_phase); and one f32 step of a full-width, depth-cut NFNet
+             with AdamW, accumulation 2 and the gain mask (nfnet_model_phase).
 4. trainer A — ``cli.main`` on configs/exp/1.r50_baseline.yaml (ResNet-50 at
              full width, batch 256 at 224 px, bf16, synthetic data, debug
              mode: 10 train steps and 20 val steps). Checks: finite loss, the
@@ -44,10 +45,21 @@ without a build; any failure exits non-zero and prints no result):
              every 1x1 conv + BatchNorm of a train step goes through the
              conv1x1_stats kernel, 36 launches per step, all on its sm90
              path.
-7. profile — trainers A and C once more with torch.profiler over steps 4-7:
-             device time per step by layer and the top kernels, and the
+7. trainer D — ``cli.main`` on configs/exp/15.eca_nfnet_l0.yaml as the file
+             says but for synthetic data, debug mode and one 1-epoch warmup
+             stage: full-width eca_nfnet_l0 (24.14M parameters), batch 256 at
+             224 px, bf16, accumulate_steps 2, EMA 0.9997, CutmixMixup, drop
+             rates 0.2/0.15, AdamW with ``filter_from_wd: [gain]``, the
+             augment kernel with all its stages live. Checks as trainer A,
+             and: the EMA differs from the weights, every gain sits in the
+             parameter group without weight decay.
+8. trainer E — ``cli.main`` on configs/tiny_synthetic.yaml as it stands (a
+             CModel, f32, 32 px, two debug epochs): the train loss falls.
+9. profile — trainers A, C and D once more with torch.profiler over steps
+             4-7: device time per step by layer and the top kernels, and the
              device's busy share (separate runs, so the trainers' times stay
-             clean).
+             clean). Trainer D's device time is attributed to the port's
+             layers by the op that launched each kernel (nfnet_breakdown).
 
 Every kernel counter is set to 0 just before each trainer's ``cli.main`` and
 read just after. The line before the last is the card's name and power
@@ -60,6 +72,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -190,29 +203,37 @@ def kernel_phase() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
-    for b, h, w in ((256, 224, 224), (3, 37, 53)):
+    # the shapes and types the trainers give it: (256, 224, 224) bf16 (r50_baseline with the stages
+    # off, the NFNet recipe with them on), (64, 32, 32) f32 with the stages off (tiny_synthetic,
+    # run.bf16 false: the kernel's float instantiation); and a toy shape with odd sides
+    for b, h, w, out_dtype in (
+        (256, 224, 224, torch.bfloat16),
+        (3, 37, 53, torch.bfloat16),
+        (64, 32, 32, torch.float32),
+    ):
         imgs = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, device="cuda", generator=gen)
         for stages in ("off", "on"):
             probs = (0.4, 0.2, 0.3) if stages == "on" else (0.0, 0.0, 0.0)
             kw = dict(color_twist_prob=probs[0], gray_prob=probs[1], re_prob=probs[2], re_count=3)
             scalars = draw_augment_scalars(gen, b, device="cuda", **kw)
-            out = fused_augment(imgs, scalars, out_dtype=torch.bfloat16, **kw)
-            ref = fused_augment_reference(imgs, scalars, out_dtype=torch.bfloat16, **kw)
+            out = fused_augment(imgs, scalars, out_dtype=out_dtype, **kw)
+            ref = fused_augment_reference(imgs, scalars, out_dtype=out_dtype, **kw)
             torch.cuda.synchronize()
             diff = (out.float() - ref.float()).abs().max().item()
-            n_bytes = imgs.numel() * (1 + 2) + scalars.numel() * 4  # u8 in, bf16 out, scalars
+            n_bytes = imgs.numel() * (1 + out.element_size()) + scalars.numel() * 4  # u8 in, out, scalars
 
             def call():
-                return fused_augment(imgs, scalars, out_dtype=torch.bfloat16, **kw)
+                return fused_augment(imgs, scalars, out_dtype=out_dtype, **kw)
 
             case = {
                 "shape": [b, h, w, 3],
+                "out_dtype": str(out_dtype).removeprefix("torch."),
                 "stages": stages,
                 "max_abs_err": diff,
                 "kernel_ms": device_ms(call, "fused_aug"),
                 "wrapper_ms": median_ms(call, 10, 20),
                 "plain_ms": median_ms(
-                    lambda: fused_augment_reference(imgs, scalars, out_dtype=torch.bfloat16, **kw), 5, 4
+                    lambda: fused_augment_reference(imgs, scalars, out_dtype=out_dtype, **kw), 5, 4
                 ),
                 "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
             }
@@ -220,7 +241,8 @@ def kernel_phase() -> dict:
                 case["host_us"] = host_us(call)
             print(f"[kernels] fused_aug {case}")
             if diff != 0.0:
-                raise AssertionError(f"fused_aug disagrees with its plain version at {case['shape']} {stages}: {diff}")
+                where = f"{case['shape']} {case['out_dtype']} stages {stages}"
+                raise AssertionError(f"fused_aug disagrees with its plain version at {where}: {diff}")
             cases.append(case)
     main = cases[0]  # B=256, 224x224, stages off: what r50_baseline runs
     return {
@@ -497,7 +519,7 @@ TRAINER_OVERRIDES = (
 )
 
 
-def _probe_callback(profile_window=None):
+def _probe_callback(profile_window=None, record_shapes=False):
     """A host callback that records a CUDA event after each train step is
     queued (no host sync: read once at epoch end), and where the run's
     parameters and batches live. With ``profile_window=(a, b)`` it also runs
@@ -523,7 +545,7 @@ def _probe_callback(profile_window=None):
             if profile_window and step == profile_window[0]:
                 torch.cuda.synchronize()
                 acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-                self.prof = torch.profiler.profile(activities=acts)
+                self.prof = torch.profiler.profile(activities=acts, record_shapes=record_shapes)
                 self.prof.start()
                 self.prof_t0 = time.perf_counter()
             elif profile_window and step == profile_window[1]:
@@ -537,6 +559,14 @@ def _probe_callback(profile_window=None):
             self.param_devices = {p.device.type for p in self.runner.state.model.parameters()}
             self.train_metrics = dict(train_metrics)
             self.batch_size = self.runner.batch_size
+            state = self.runner.state
+            self.ema_differs = state.ema is not None and any(
+                not torch.equal(a, b) for a, b in zip(state.ema.state_dict().values(), state.model.state_dict().values())
+            )
+            names = {id(p): n for n, p in state.model.named_parameters()}
+            self.weight_decay_of = {
+                names[id(p)]: g["weight_decay"] for g in state.optimizer.param_groups for p in g["params"]
+            }
 
     return Probe()
 
@@ -608,6 +638,100 @@ def model_phase(fused_stats: bool = False, norm_act: str = "relu", check: bool =
     return result
 
 
+def nfnet_model_phase() -> dict:
+    """One f32 train step of a full-width, depth-cut NFNet (one block per
+    stage, channels 256-512-1536-1536, ECA) on the card against the same step
+    on the CPU: same seeded weights with every skipinit_gain set to 1 (zero at
+    init, which would switch the branches off), one batch of 8 images at
+    64 px, AdamW (wd 1e-3, eps 1e-6) with the gain mask, accumulate_steps 2,
+    lr 0.01, TF32 off. SiLU is smooth, so the tolerances are loss rtol 1e-4,
+    grad_norm rtol 1e-2, updated state within relative L2 1e-2. Adam's first
+    step moves every weight by lr * g / (|g| + eps), so a gradient element
+    within rounding of zero could move its weight by up to 2 * lr the other
+    way; with eps 1e-6 few do: on an NVIDIA H100 80GB HBM3 (700 W) the card
+    was 6.9e-8 (loss), 2.6e-4 (grad_norm) and 4.4e-6 (state) off the CPU."""
+    import torch
+
+    from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
+    from sota_imagenet_tpu_torch.models import NFNet
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
+
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (8, 64, 64, 3), generator=gen).float().sub(127.5).mul(1 / 51.0)
+    labels = torch.nn.functional.one_hot(torch.randint(0, 1000, (8,), generator=gen), 1000).float()
+    optim = {"_target_": "adamw", "weight_decay": 1e-3, "eps": 1e-6}
+    runs = []  # (loss, grad_norm, flat state) on the CPU, then on the card
+    for dev in ("cpu", "cuda"):
+        model = NFNet(depths=(1, 1, 1, 1))
+        mask = filter_from_weight_decay(model.named_parameters(), ["gain"])
+        state = steps.init_state(
+            model, lambda m: build_optimizer(optim, m.named_parameters(), wd_mask=mask), device=dev, seed=0
+        )
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("skipinit_gain"):
+                    p.fill_(1.0)
+        step = steps.build_train_step(
+            CrossEntropyLoss(smoothing=0.1), lambda i: 0.01, accumulate_steps=2, input_dtype=torch.float32
+        )
+        state, m = step(state, {"image": images.to(dev), "label": labels.to(dev)})
+        flat = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
+        runs.append((float(m["loss"]), float(m["grad_norm"]), flat))
+    (loss_c, gn_c, sd_c), (loss_g, gn_g, sd_g) = runs
+    result = {
+        "phase": "model_nfnet",
+        "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+        "grad_norm_rel": abs(gn_g - gn_c) / abs(gn_c),
+        "state_rel_l2": float((sd_g - sd_c).norm() / sd_c.norm()),
+        "loss": [loss_c, loss_g],
+        "grad_norm": [gn_c, gn_g],
+    }
+    print(f"[model_nfnet] {json.dumps(result)}")
+    if not (result["loss_rel"] < 1e-4 and result["grad_norm_rel"] < 1e-2 and result["state_rel_l2"] < 1e-2):
+        raise AssertionError(f"NFNet train step on the card disagrees with the CPU: {result}")
+    return result
+
+
+def tiny_phase(gpu: str) -> dict:
+    """cli.main on configs/tiny_synthetic.yaml as it stands (a CModel of three
+    ConvActBlocks, f32, 32 px, batch 64, two debug epochs of 10 steps) on the
+    card: the train loss falls, one augment launch per step."""
+    import torch
+
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch.train.callbacks import Callback
+
+    class Record(Callback):
+        def on_begin(self):
+            self.losses = []
+
+        def on_epoch_end(self, epoch, train_metrics, val_metrics):
+            self.losses.append(train_metrics["loss"])
+            self.param_devices = {p.device.type for p in self.runner.state.model.parameters()}
+
+    rec = Record()
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory() as logdir:
+        for fn in counters.values():
+            fn.launches = 0  # counts from here are this path's
+        t0 = time.perf_counter()
+        val = cli.main(["-c", "configs/tiny_synthetic.yaml", f"log.dir={logdir}"], callbacks=[rec])
+        wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    result = {"phase": "trainer_e", "train_loss_by_epoch": rec.losses, "val": val, "kernel_launches": launches,
+              "wall_s": wall, "gpu": gpu}
+    print(f"[trainer_e] {json.dumps(result)}")
+    if len(rec.losses) != 2 or not all(math.isfinite(v) for v in (*rec.losses, *val.values())):
+        raise AssertionError(f"trainer_e: losses {rec.losses}, val {val}")
+    if not rec.losses[1] < rec.losses[0]:
+        raise AssertionError(f"trainer_e: the train loss did not fall: {rec.losses}")
+    if launches != {"fused_aug": 20, "conv1x1_stats": 0, "moments": 0} or rec.param_devices != {"cuda"}:
+        raise AssertionError(f"trainer_e: kernel launches {launches}, params on {rec.param_devices}")
+    return result
+
+
 def kernel_counters() -> dict:
     """name -> the wrapper whose ``launches`` counts that kernel's launches."""
     from sota_imagenet_tpu_torch.ops.conv_stats import conv1x1_stats
@@ -617,18 +741,24 @@ def kernel_counters() -> dict:
     return {"fused_aug": fused_augment, "conv1x1_stats": conv1x1_stats, "moments": moments}
 
 
-def trainer_phase(name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None) -> dict:
-    """cli.main on ``config`` (full-width ResNet-50, bs 256 @ 224, bf16);
-    ``per_step`` is each kernel's expected launches per train step."""
+def trainer_phase(
+    name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None, nfnet_recipe: bool = False
+) -> dict:
+    """cli.main on ``config`` (a full-width model, bs 256 @ 224, bf16);
+    ``per_step`` is each kernel's expected launches per train step. With
+    ``nfnet_recipe`` the run must also end with an EMA that differs from the
+    weights and every gain outside the weight decay, and a profile is
+    attributed to the port's layers (nfnet_breakdown)."""
     import glob
 
     import torch
 
     from sota_imagenet_tpu_torch import cli
 
-    probe = _probe_callback(profile_window)
+    probe = _probe_callback(profile_window, record_shapes=nfnet_recipe)
     counters = kernel_counters()
-    with tempfile.TemporaryDirectory() as logdir:
+    scopes = _layer_scopes() if (nfnet_recipe and profile_window) else contextlib.nullcontext()
+    with tempfile.TemporaryDirectory() as logdir, scopes:
         overrides = [*TRAINER_OVERRIDES, *extra, f"log.dir={logdir}"]
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
@@ -664,6 +794,16 @@ def trainer_phase(name: str, config: str, extra: tuple, gpu: str, per_step: dict
     }
     if probe.prof is not None:
         result["profile"] = _device_time_breakdown(probe.prof, probe.prof_wall_ms, profile_window)
+        if nfnet_recipe:
+            result["profile"]["by_layer_ms_per_step"] = nfnet_breakdown(probe.prof, profile_window)
+    if nfnet_recipe:
+        decay = probe.weight_decay_of
+        result["ema_differs_from_weights"] = probe.ema_differs
+        result["weight_decay_groups"] = {
+            "decayed": sum(1 for v in decay.values() if v > 0),
+            "not_decayed": sum(1 for v in decay.values() if v == 0),
+            "gains_decayed": sorted(k for k, v in decay.items() if "gain" in k and v > 0),
+        }
     print(f"[{name}] {json.dumps(result)}")
     if not math.isfinite(loss) or not all(math.isfinite(v) for v in val.values()):
         raise AssertionError(f"{name}: non-finite loss (train {loss}, val {val})")
@@ -676,6 +816,12 @@ def trainer_phase(name: str, config: str, extra: tuple, gpu: str, per_step: dict
         raise AssertionError(f"{name}: params on {probe.param_devices}, batches/metrics on {probe.metric_devices}")
     if not ckpts:
         raise AssertionError(f"{name}: model_last.ckpt was not written")
+    if nfnet_recipe:
+        groups = result["weight_decay_groups"]
+        if not probe.ema_differs:
+            raise AssertionError(f"{name}: the EMA equals the weights after {steps} steps")
+        if groups["gains_decayed"] or not groups["decayed"] or not any("gain" in k for k in probe.weight_decay_of):
+            raise AssertionError(f"{name}: weight decay groups {groups}")
     return result
 
 
@@ -697,8 +843,16 @@ def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
     window's wall time (busy share = device time / wall)."""
     from torch.autograd import DeviceType
 
+    averages = prof.key_averages()
+    # the profiler mirrors each record_function scope (the optimizer's own, the layer scopes) as a
+    # device event spanning its kernels and the gaps between them: not device work
+    scopes = {e.key for e in averages if e.device_type == DeviceType.CPU and e.is_user_annotation}
     rows = sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        (
+            (e.self_device_time_total / 1e3, e.count, e.key)
+            for e in averages
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.key not in scopes
+        ),
         reverse=True,
     )
     groups: dict = {}
@@ -718,9 +872,125 @@ def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
     }
 
 
-PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "profile")
+@contextlib.contextmanager
+def _layer_scopes():
+    """For a profiled run: wrap the weight standardisation, the ECA gate and
+    cutmix_mixup in torch.profiler.record_function scopes (``ws``, ``eca``,
+    ``mixup``), so nfnet_breakdown can tell their kernels from the other
+    elementwise ones. The originals are put back on exit; the scopes cost the
+    host a few microseconds each, which is why the timed trainer runs without
+    them."""
+    import functools
+
+    import torch
+
+    from sota_imagenet_tpu_torch.models.attention import ECA
+    from sota_imagenet_tpu_torch.models.layers import ScaledStdConv
+    from sota_imagenet_tpu_torch.train import callbacks
+
+    def scoped(label, fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+
+        return wrapper
+
+    targets = ((ScaledStdConv, "standardized_weight", "ws"), (ECA, "forward", "eca"), (callbacks, "cutmix_mixup", "mixup"))
+    originals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+    try:
+        for owner, attr, label in targets:
+            setattr(owner, attr, scoped(label, getattr(owner, attr)))
+        yield
+    finally:
+        for owner, attr, fn in originals:
+            setattr(owner, attr, fn)
+
+
+SCOPE_LAYERS = {"ws": "weight standardisation", "eca": "ECA", "mixup": "mixup"}
+CONV_OPS = {"aten::cudnn_convolution": (0, 1), "aten::convolution": (0, 1), "aten::_convolution": (0, 1),
+            "aten::conv2d": (0, 1), "aten::convolution_backward": (1, 2)}  # op -> positions of (input, weight)
+
+
+def nfnet_breakdown(prof, window) -> dict:
+    """Device ms per step by layer of the port, for a run profiled under
+    _layer_scopes with record_shapes. Each kernel belongs to the CPU op that
+    launched it (torch.profiler links them). A kernel's layer is, in this
+    order: the record_function scope around its op (ws, eca, mixup, the
+    optimizer's own ``Optimizer.step`` scope); for a backward op, the scope of
+    the forward op with the same autograd sequence number; grouped or dense
+    convs, by the op's input and weight shapes (groups = C_in / weight's
+    dim 1); ``_foreach`` ops outside the optimizer: the EMA; memcpy and
+    memset: copies; anything else launched by an op: elementwise and
+    activations (the activations, the residual and drop-path arithmetic, the
+    loss, dtype casts, gradient accumulation). fused_aug is launched by no
+    op: it is read from the kernel records by name, and what is left of the
+    device time is ``unattributed``."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+
+    def ancestors(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    def scope_of(e):
+        for a in ancestors(e):
+            if a.name in SCOPE_LAYERS:
+                return SCOPE_LAYERS[a.name]
+            if a.name.startswith("Optimizer.step"):
+                return "AdamW"
+        return None
+
+    forward_scope = {}  # autograd sequence number -> layer of the forward op
+    for e in cpu:
+        if e.sequence_nr >= 0 and not any(a.name.startswith("autograd::engine::evaluate_function") for a in ancestors(e)):
+            layer = scope_of(e)
+            if layer is not None:
+                forward_scope[e.sequence_nr] = layer
+
+    def layer_of(e):
+        layer = scope_of(e)
+        if layer is not None:
+            return layer
+        for a in ancestors(e):
+            if a.name.startswith("autograd::engine::evaluate_function") and a.sequence_nr in forward_scope:
+                return forward_scope[a.sequence_nr]
+        for a in ancestors(e):
+            if a.name in CONV_OPS and a.input_shapes:
+                i, w = (a.input_shapes[k] for k in CONV_OPS[a.name])
+                if len(w) == 4 and len(i) == 4 and w[1] > 0:
+                    return "grouped convs" if i[1] // w[1] > 1 else "dense convs"
+        if any("_foreach" in a.name for a in ancestors(e)):
+            return "EMA"
+        return "elementwise/activations"
+
+    layers: dict = {}
+    for e in cpu:
+        for k in e.kernels:
+            low = k.name.lower()
+            if "fused_aug" in low:
+                continue
+            layer = "copies" if ("memcpy" in low or "memset" in low) else layer_of(e)
+            layers[layer] = layers.get(layer, 0.0) + k.duration / 1e3
+    scopes = {e.name for e in cpu if e.is_user_annotation}  # mirrored on the device as spans, not work
+    device = [
+        e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.name not in scopes
+    ]
+    layers["fused_aug"] = sum(e.time_range.elapsed_us() for e in device if "fused_aug" in e.name) / 1e3
+    total = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    layers["unattributed"] = total - sum(layers.values())
+    steps = window[1] - window[0]
+    return {k: v / steps for k, v in sorted(layers.items(), key=lambda kv: -kv[1])}
+
+
+PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
+NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
+NFNET_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0, 0.01]}]",)  # the recipe's warmup, cut to the one debug epoch
 
 
 def main(argv=None) -> int:
@@ -768,6 +1038,7 @@ def main(argv=None) -> int:
         run("model", model_phase)
         run("model_fused_silu", model_phase, fused_stats=True, norm_act="silu")
         run("model_fused_relu", model_phase, fused_stats=True, check=False)
+        run("model_nfnet", nfnet_model_phase)
     aug_only = {"fused_aug": 1}
     if "trainer_a" in phases:
         run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only)
@@ -776,10 +1047,23 @@ def main(argv=None) -> int:
         run("trainer_b", trainer_phase, "trainer_b", hard, ("loader.re_prob=0.3",), gpu, aug_only)
     if "trainer_c" in phases:
         run("trainer_c", trainer_phase, "trainer_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36})
+    if "trainer_d" in phases:
+        run("trainer_d", trainer_phase, "trainer_d", NFNET, NFNET_STAGE, gpu, aug_only, nfnet_recipe=True)
+    if "trainer_e" in phases:
+        run("trainer_e", tiny_phase, gpu)
     if "profile" in phases:
         run("profile", trainer_phase, "profile", R50, (), gpu, aug_only, profile_window=(2, 6))
         run("profile_c", trainer_phase, "profile_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36},
             profile_window=(2, 6))
+        run("profile_d", trainer_phase, "profile_d", NFNET, NFNET_STAGE, gpu, aug_only, profile_window=(2, 6),
+            nfnet_recipe=True)
+    if "trainer_d" in results and "profile_d" in results:
+        # the profiler (shapes recorded, thousands of ops a step) slows trainer D's host far more than A's or C's:
+        # its device time per step over the unprofiled step time is the busy share of record
+        prof_d = results["profile_d"]["profile"]
+        device_ms_step = prof_d["device_ms"] / prof_d["steps"]
+        step_ms = results["trainer_d"]["ms_per_step_median_4_10"]
+        print(f"[profile_d] {json.dumps({'device_ms_per_step': device_ms_step, 'trainer_d_ms_per_step': step_ms, 'busy_share_unprofiled': device_ms_step / step_ms})}")
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1
@@ -787,10 +1071,13 @@ def main(argv=None) -> int:
         print(f"chip_smoke: ran only {phases}; a full run prints the result lines", file=sys.stderr)
         return 0
     kernels = [results["fused_aug"], results["conv1x1_stats"], results["moments"]]
-    # launches on each kernel's own main path: fused_aug on r50_baseline (trainer A),
-    # conv1x1_stats with fused_stats (trainer C); no path calls moments
+    # launches on each kernel's own main path: fused_aug on r50_baseline (trainer A; beside it
+    # the hard-aug recipe, the NFNet recipe and tiny_synthetic), conv1x1_stats with fused_stats
+    # (trainer C); no path calls moments
     kernels[0]["launches"] = results["trainer_a"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_hard_aug"] = results["trainer_b"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_nfnet_recipe"] = results["trainer_d"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_tiny_synthetic"] = results["trainer_e"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))

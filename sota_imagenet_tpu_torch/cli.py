@@ -28,11 +28,12 @@ from sota_imagenet_tpu_torch import config as C
 from sota_imagenet_tpu_torch.config import instantiate, parse_stages
 from sota_imagenet_tpu_torch.data.pipeline import DataManager
 from sota_imagenet_tpu_torch.optim import build_optimizer
+from sota_imagenet_tpu_torch.registry import NotPortedError
 from sota_imagenet_tpu_torch.train.callbacks import Callback, CheckpointSaver, ConsoleLogger, Timer
 from sota_imagenet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from sota_imagenet_tpu_torch.train.loop import Runner
 from sota_imagenet_tpu_torch.train.schedule import phases_from_stages
-from sota_imagenet_tpu_torch.utils.logging import setup_logger
+from sota_imagenet_tpu_torch.utils.logging import get_logger, setup_logger
 from sota_imagenet_tpu_torch.utils.misc import count_parameters, filter_from_weight_decay, resolve_device, set_random_seed
 
 
@@ -51,13 +52,39 @@ def reject_unported(cfg) -> None:
         (bool(cfg.weight_standardization), "weight_standardization", "Queue 1 item 10"),
         (bool(cfg.get("sigmoid_trick", False)), "sigmoid_trick", "Queue 1 item 11"),
         (bool(cfg.run.skip_nonfinite), "run.skip_nonfinite", "Queue 1 item 9"),
-        (bool(cfg.run.extra_callbacks), "run.extra_callbacks", "Queue 1 item 9"),
-        (int(cfg.run.accumulate_steps or 1) > 1, "run.accumulate_steps > 1", "Queue 1 item 9"),
         (bool(cfg.run.remat), "run.remat", "Queue 1 item 9"),
     )
     for bad, what, item in checks:
         if bad:
-            raise NotImplementedError(f"{what} is not ported to sota_imagenet_tpu_torch yet (ROADMAP.md {item})")
+            raise NotPortedError(what, item)
+
+
+def build_model(cfg):
+    """Instantiate ``cfg.model`` with the two keys the CLI derives for it. A
+    model that does not take one (CModel sizes its head and sets its norm
+    kwargs in the layer list; NFNet has no norm) is built without it, as in
+    the JAX CLI (cli.py:156-178). Only the TypeError that names the derived
+    key drops it: any other error of a constructor is raised."""
+    model_cfg = dict(cfg.model)
+    derived = {}
+    divisor = max(int(cfg.loader.get("classes_divisor", 1) or 1), 1)
+    if divisor > 1 and "num_classes" not in model_cfg:
+        # legacy classes_divisor: the classifier width follows the merged label space
+        derived["num_classes"] = -(-int(cfg.loader.num_classes) // divisor)
+    if cfg.bn_momentum != 0.1 and "bn_momentum" not in model_cfg:
+        derived["bn_momentum"] = cfg.bn_momentum  # patch_bn_mom equivalent (reference train.py:76)
+    while True:
+        try:
+            return instantiate({**model_cfg, **derived})
+        except TypeError as e:
+            key = next((k for k in derived if f"unexpected keyword argument '{k}'" in str(e)), None)
+            if key is None:
+                raise
+            if key == "num_classes":
+                get_logger().warning(
+                    f"classes_divisor={divisor}: model does not take num_classes; size the head in the config"
+                )
+            del derived[key]
 
 
 def _git_snapshot(run_dir: str) -> None:
@@ -116,14 +143,7 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
     input_dtype = torch.bfloat16 if cfg.run.bf16 else torch.float32
 
     log.info("Loading model")
-    model_cfg = dict(cfg.model)
-    divisor = max(int(cfg.loader.get("classes_divisor", 1) or 1), 1)
-    if divisor > 1 and "num_classes" not in model_cfg:
-        # legacy classes_divisor: the classifier width follows the merged label space
-        model_cfg["num_classes"] = -(-int(cfg.loader.num_classes) // divisor)
-    if cfg.bn_momentum != 0.1 and "bn_momentum" not in model_cfg:
-        model_cfg["bn_momentum"] = cfg.bn_momentum  # patch_bn_mom (reference train.py:76)
-    model = instantiate(model_cfg)
+    model = build_model(cfg)
     if cfg.log.print_model:
         log.info(str(model))
     criterion = instantiate(cfg.criterion)
@@ -142,6 +162,7 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
             Timer(),
             ConsoleLogger(),
             CheckpointSaver(run_dir, save_name="model.ckpt", include_optimizer=cfg.log.save_optim),
+            *(instantiate(clb_cfg) for clb_cfg in cfg.run.extra_callbacks or []),
             *callbacks,
         ],
         accumulate_steps=cfg.run.accumulate_steps,

@@ -7,8 +7,9 @@ train.py:64,81,92,143), resolved through this explicit registry — no
 
 Registered names are case-sensitive. Aliases let configs written against the
 reference keep working (e.g. ``pytorch_tools.models.resnet50`` → ``resnet50``).
-A name the JAX package knows but this port does not yet raises a KeyError
-that points at the ROADMAP queue item that ports it.
+A name this port does not have raises ``NotPortedError`` (a
+NotImplementedError) that points at the ROADMAP queue items that port the
+rest of the JAX package's names.
 """
 
 from __future__ import annotations
@@ -19,10 +20,17 @@ from typing import Callable, Dict, Optional
 _REGISTRY: Dict[str, Callable] = {}
 _ALIASES: Dict[str, str] = {}
 
-NOT_PORTED_HINT = (
-    "not ported to sota_imagenet_tpu_torch yet (ROADMAP.md Queue 1: model families are item 10, "
-    "CModel is item 7, losses item 11, callbacks item 9)"
-)
+
+class NotPortedError(NotImplementedError):
+    """A name or option of the JAX package that this port does not have yet.
+    The message names the ROADMAP item that ports it."""
+
+    def __init__(self, what: str, item: str, more: str = ""):
+        msg = f"{what} is not ported to sota_imagenet_tpu_torch yet (ROADMAP.md {item})"
+        super().__init__(f"{msg}; {more}" if more else msg)
+
+
+NOT_PORTED_ITEMS = "Queue 1: model families and optimizers are item 10, losses item 11, callbacks item 9"
 
 
 def register(name: Optional[str] = None, *, aliases: tuple = ()):
@@ -62,7 +70,7 @@ def resolve(target: str) -> Callable:
         return _REGISTRY[tail]
     if tail in _ALIASES:
         return _REGISTRY[_ALIASES[tail]]
-    raise KeyError(f"unknown target {target!r}: {NOT_PORTED_HINT}; known: {sorted(_REGISTRY)}")
+    raise NotPortedError(f"target {target!r}", NOT_PORTED_ITEMS, f"known: {sorted(_REGISTRY)}")
 
 
 _POPULATED = False
@@ -74,7 +82,11 @@ def _populate() -> None:
     if _POPULATED:
         return
     _POPULATED = True
-    for mod in ("sota_imagenet_tpu_torch.models", "sota_imagenet_tpu_torch.losses"):
+    for mod in (
+        "sota_imagenet_tpu_torch.models",
+        "sota_imagenet_tpu_torch.losses",
+        "sota_imagenet_tpu_torch.train.callbacks",
+    ):
         try:
             importlib.import_module(mod)
         except ImportError:

@@ -1,19 +1,31 @@
-"""Host callbacks (port of ``sota_imagenet_tpu/train/callbacks.py``:36-64,387-472;
+"""Callbacks (port of ``sota_imagenet_tpu/train/callbacks.py``:36-130,387-472;
 reference pytorch_tools fit_wrapper callbacks).
 
-Callbacks run between steps and observe the Runner (epoch, state, metrics).
-``on_batch_end`` receives the step's metrics as device tensors: reading one
-there would stall the device every step, so the callbacks here only read
-metrics the Runner has already reduced at epoch end. The TensorBoard and
-weight-histogram sinks are not ported yet (ROADMAP.md Queue 1 item 7).
+Two kinds, as in the JAX package:
+
+  * host callbacks run between steps and observe the Runner (epoch, state,
+    metrics). ``on_batch_end`` receives the step's metrics as device
+    tensors: reading one there would stall the device every step, so the
+    callbacks here only read metrics the Runner has already reduced at
+    epoch end;
+  * step contributors (CutmixMixup, Cutmix, Mixup) add options to the train
+    step through ``step_options()``; the Runner collects them when it builds
+    the steps of a stage.
+
+The callbacks of the JAX package that are not ported (SAM, the weight-norm
+and ortho family, AGC, the TensorBoard sinks, the profiler) are registered
+under their names and raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Any, Dict, Optional
 
+from sota_imagenet_tpu_torch import registry
+from sota_imagenet_tpu_torch.train.steps import cutmix_mixup
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 
 
@@ -39,6 +51,69 @@ class Callback:
 
     def on_end(self):
         pass
+
+    # contributions to the train step (mixup_fn)
+    def step_options(self) -> Dict[str, Any]:
+        return {}
+
+
+class CutmixMixup(Callback):
+    """Random cutmix-or-mixup per batch (reference callbacks.py:232-247), on
+    the device inside the train step."""
+
+    def __init__(
+        self,
+        cutmix_alpha: float = 1.0,
+        mixup_alpha: float = 0.2,
+        prob: float = 0.5,
+        stop_epoch: Optional[int] = None,
+    ):
+        self.cutmix_alpha = cutmix_alpha
+        self.mixup_alpha = mixup_alpha
+        self.prob = prob
+        # legacy progressive recipes turn cutmix OFF for a final clean stage:
+        # stages starting at/after stop_epoch build their train step without the mixup_fn
+        self.stop_epoch = stop_epoch
+
+    def step_options(self):
+        if self.stop_epoch is not None and getattr(self.runner, "base_epoch", 0) >= self.stop_epoch:
+            return {}
+        return {
+            "mixup_fn": functools.partial(
+                cutmix_mixup, cutmix_alpha=self.cutmix_alpha, mixup_alpha=self.mixup_alpha, prob=self.prob
+            )
+        }
+
+
+class Cutmix(Callback):
+    """Cutmix-only batch transform (reference pt_clb.Cutmix). ``num_classes``
+    is accepted for reference-config compatibility: labels are already one-hot."""
+
+    def __init__(self, alpha: float = 1.0, num_classes: Optional[int] = None, prob: float = 0.5):
+        self.alpha = alpha
+        self.prob = prob
+
+    def step_options(self):
+        return {
+            "mixup_fn": functools.partial(
+                cutmix_mixup, cutmix_alpha=self.alpha, mixup_alpha=1.0, prob=self.prob, choice_prob=1.0
+            )
+        }
+
+
+class Mixup(Callback):
+    """Mixup-only batch transform (reference pt_clb.Mixup)."""
+
+    def __init__(self, alpha: float = 0.2, num_classes: Optional[int] = None, prob: float = 0.5):
+        self.alpha = alpha
+        self.prob = prob
+
+    def step_options(self):
+        return {
+            "mixup_fn": functools.partial(
+                cutmix_mixup, cutmix_alpha=1.0, mixup_alpha=self.alpha, prob=self.prob, choice_prob=0.0
+            )
+        }
 
 
 class ConsoleLogger(Callback):
@@ -109,3 +184,30 @@ class CheckpointSaver(Callback):
             self._best = val
             save_checkpoint(self.save_dir, state, epoch, name="model_best.ckpt", include_optimizer=self.include_optimizer)
             get_logger().info(f"Epoch {epoch:3d} | new best {self.monitor}: {val:.4f}")
+
+
+# registry entries so configs instantiate these by target path
+registry.register("Callback", aliases=("pytorch_tools.fit_wrapper.callbacks.Callback",))(Callback)
+registry.register("CutmixMixup", aliases=("src.callbacks.CutmixMixup", "sota_imagenet.callbacks.CutmixMixup"))(
+    CutmixMixup
+)
+registry.register("Cutmix", aliases=("pytorch_tools.fit_wrapper.callbacks.Cutmix", "pt_clb.Cutmix"))(Cutmix)
+registry.register("Mixup", aliases=("pytorch_tools.fit_wrapper.callbacks.Mixup", "pt_clb.Mixup"))(Mixup)
+
+
+def _register_unported(name: str, item: str, aliases: tuple = ()) -> None:
+    def make(*args, **kwargs):
+        raise registry.NotPortedError(f"callback {name!r}", item)
+
+    registry.register(name, aliases=aliases)(make)
+
+
+for _name in ("SAM", "SAMOriginal", "ForwardWeightNorm", "ForwardSpectralNorm", "WeightNorm", "OrthoLossClb",
+              "NormLossClb", "OrthoInitClb"):
+    _register_unported(_name, "Queue 1 item 9", aliases=(f"src.callbacks.{_name}",))
+_register_unported(
+    "AdaptiveGradientClipping", "Queue 1 item 9", aliases=("pytorch_tools.fit_wrapper.callbacks.AdaptiveGradientClipping",)
+)
+for _name in ("WeightDistributionTB", "SpectralDistributionTB", "GradDistributionTB"):
+    _register_unported(_name, "Queue 1 item 7", aliases=(f"src.callbacks.{_name}",))
+_register_unported("Profiler", "Queue 1 item 9")

@@ -82,7 +82,15 @@ class Runner:
         )
         return self.state
 
+    def _collect_step_options(self) -> Dict[str, Any]:
+        opts: Dict[str, Any] = {}
+        for c in self.callbacks:
+            opts.update(c.step_options())
+        return opts
+
     def _build_steps(self, steps_per_epoch: int, base_epoch: int):
+        # visible to stage-aware callbacks (CutmixMixup.stop_epoch) when
+        # step_options are collected below
         self.base_epoch = base_epoch
         lr_schedule = make_lr_schedule(self.lr_phases, steps_per_epoch, base_epoch=base_epoch, base_step=self.state.step)
         self._train_step = steps_lib.build_train_step(
@@ -92,6 +100,7 @@ class Runner:
             ema_decay=self.ema_decay,
             remat=self.remat,
             input_dtype=self.input_dtype,
+            **self._collect_step_options(),
         )
         self._build_eval_steps()
 

@@ -6,6 +6,9 @@ and the BN running buffers (``batch_stats``), ``optimizer`` the momentum
 buffers (``opt_state``), ``ema`` a copy of the model whose params and
 buffers are the EMA (``ema_params`` / ``ema_batch_stats``). ``step`` is the
 global optimizer step, a host int (the lr schedule reads it on the host).
+``generator`` is the device generator of the step's random draws (mixup,
+dropout, drop-path); each step seeds it from ``seed`` and ``step``, so
+neither needs to be in a checkpoint beyond the step.
 """
 
 from __future__ import annotations
@@ -22,3 +25,5 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     ema: Optional[torch.nn.Module] = None
+    generator: Optional[torch.Generator] = None
+    seed: int = 0

@@ -1,17 +1,28 @@
-"""Train and eval steps (port of the core path of ``sota_imagenet_tpu/train/steps.py``:
-init_state :115-140, build_train_step :185-352, build_eval_step :355-406).
+"""Train and eval steps (port of ``sota_imagenet_tpu/train/steps.py``:
+cutmix_mixup :40-107, init_state :115-140, build_train_step :185-352,
+build_eval_step :355-406).
 
-One train step: forward (activation dtype) → loss (f32) → backward →
-grad_norm (global L2 norm of the raw gradients, before weight decay) → SGD
-with the schedule's lr for this step → EMA of params and BN buffers →
-metrics. Everything stays on the device: the lr is a host float computed
-from the host step count, and the metrics are device tensors the Runner
-reduces once per epoch, so no step reads the device.
+One train step: CutmixMixup on the whole batch -> the batch split into
+``accumulate_steps`` microbatches, each forward (activation dtype) -> loss
+(f32) -> backward, gradients summed then divided -> grad_norm (global L2
+norm of the averaged raw gradients, before weight decay) -> one optimizer
+step with the schedule's lr for this step -> one EMA update of params and BN
+buffers -> metrics over all the logits. Everything stays on the device: the
+lr is a host float computed from the host step count, the random draws are
+device tensors, and the metrics are device tensors the Runner reduces once
+per epoch, so no step reads the device.
 
-Step features of the JAX package that are not in this slice raise
-NotImplementedError naming the ROADMAP item: gradient accumulation, SAM,
-mixup/cutmix, remat, grad_transform (AGC), post_step_transform (WeightNorm),
-auxiliary losses, and the masked rectangular-val eval branch.
+Randomness: one ``torch.Generator`` on the device (``TrainState.generator``)
+serves mixup, dropout and drop-path. Each step seeds it from the run's seed
+and the step number before drawing, so a resumed run continues the stream.
+threefry and Philox cannot agree, so each random transform is a ``draw``
+function on a generator and an ``apply`` function on tensors: tests feed the
+JAX package's draws to ``apply``.
+
+Step features of the JAX package that are not ported raise
+NotImplementedError naming the ROADMAP item: SAM, remat, grad_transform
+(AGC), post_step_transform (WeightNorm), auxiliary losses, and the masked
+rectangular-val eval branch.
 """
 
 from __future__ import annotations
@@ -22,10 +33,132 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from sota_imagenet_tpu_torch.losses.base import call_criterion
+from sota_imagenet_tpu_torch.models.layers import bind_generator
+from sota_imagenet_tpu_torch.registry import NotPortedError
 from sota_imagenet_tpu_torch.train.metrics import classification_metrics
 from sota_imagenet_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
+MixupDraws = Dict[str, torch.Tensor]
+
+
+# --------------------------------------------------------------------------- #
+# Batch transforms (device-side)
+# --------------------------------------------------------------------------- #
+
+
+def resolve_choice_prob(cutmix_alpha: float, mixup_alpha: float, choice_prob: float) -> Optional[float]:
+    """P(cutmix | applied) once a zero alpha has disabled its transform: Beta(0, 0)
+    samples NaN, so a disabled branch is excluded statically, not by the 50/50
+    draw. None: both are disabled, the batch passes unchanged."""
+    if cutmix_alpha <= 0 and mixup_alpha <= 0:
+        return None
+    if mixup_alpha <= 0:
+        return 1.0
+    if cutmix_alpha <= 0:
+        return 0.0
+    return float(choice_prob)
+
+
+def _beta(generator: Optional[torch.Generator], alpha: float, device) -> torch.Tensor:
+    """One Beta(alpha, alpha) sample on ``device`` as a ratio of two float64 Gamma draws."""
+    g = torch._standard_gamma(torch.full((2,), alpha, dtype=torch.float64, device=device), generator=generator)
+    return (g[0] / (g[0] + g[1])).float()
+
+
+def draw_cutmix_mixup(
+    generator: Optional[torch.Generator],
+    height: int,
+    width: int,
+    device,
+    cutmix_alpha: float = 1.0,
+    mixup_alpha: float = 0.2,
+    prob: float = 1.0,
+    choice_prob: float = 0.5,
+) -> MixupDraws:
+    """The random values of one ``cutmix_mixup`` call, as 0-dim tensors on
+    ``device``: ``apply`` and ``use_cutmix`` (bool), ``lam_m`` and ``lam_c``
+    (float32; 1.0 for a disabled transform), the box centre ``cy``, ``cx``
+    (int64 in [0, height) and [0, width))."""
+    one = torch.ones((), device=device)
+    u = torch.rand((2,), generator=generator, device=device)
+    choice = resolve_choice_prob(float(cutmix_alpha), float(mixup_alpha), float(choice_prob))
+    return {
+        "apply": u[0] < float(prob),
+        "use_cutmix": u[1] < (0.0 if choice is None else choice),
+        "lam_m": _beta(generator, float(mixup_alpha), device) if mixup_alpha > 0 else one,
+        "lam_c": _beta(generator, float(cutmix_alpha), device) if cutmix_alpha > 0 else one,
+        "cy": torch.randint(0, height, (), generator=generator, device=device),
+        "cx": torch.randint(0, width, (), generator=generator, device=device),
+    }
+
+
+def apply_cutmix_mixup(
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    draws: MixupDraws,
+    cutmix_alpha: float = 1.0,
+    mixup_alpha: float = 0.2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cutmix OR mixup on a batch of NHWC images and soft labels, from drawn
+    values (steps.py:40-107 of the JAX package). The partner of sample i is
+    sample B-1-i. Mixup blends with ``lam_m``; cutmix pastes the partner's
+    box of area ``1 - lam_c`` around (cy, cx), clipped to the image, and
+    mixes the labels by the clipped box's exact area. Both are computed and
+    ``use_cutmix`` chooses; ``apply`` then chooses between that and the
+    untouched batch (apply-then-choose, as the JAX package). The blend runs
+    in float32 (float64 for float64 images) and is cast back."""
+    if resolve_choice_prob(float(cutmix_alpha), float(mixup_alpha), 0.5) is None:
+        return images, labels
+    _, h, w, _ = images.shape
+    dev = images.device
+    x = images.to(torch.promote_types(images.dtype, torch.float32))
+    perm_x, perm_labels = x.flip(0), labels.flip(0)
+
+    lam_m = draws["lam_m"]
+    mix_img = lam_m * x + (1.0 - lam_m) * perm_x
+    mix_lab = lam_m * labels + (1.0 - lam_m) * perm_labels
+
+    ratio = torch.sqrt(1.0 - draws["lam_c"])
+    cut_h, cut_w = (ratio * h).to(torch.int64), (ratio * w).to(torch.int64)
+    cy, cx = draws["cy"], draws["cx"]
+    y0, y1 = (cy - cut_h // 2).clamp(0, h), (cy + cut_h // 2).clamp(0, h)
+    x0, x1 = (cx - cut_w // 2).clamp(0, w), (cx + cut_w // 2).clamp(0, w)
+    yy = torch.arange(h, device=dev).view(1, h, 1, 1)
+    xx = torch.arange(w, device=dev).view(1, 1, w, 1)
+    in_box = (yy >= y0) & (yy < y1) & (xx >= x0) & (xx < x1)
+    cut_img = torch.where(in_box, perm_x, x)
+    lam_adj = 1.0 - ((y1 - y0) * (x1 - x0)).to(torch.float32) / (h * w)  # exact area after clipping
+    cut_lab = lam_adj * labels + (1.0 - lam_adj) * perm_labels
+
+    out_img = torch.where(draws["use_cutmix"], cut_img, mix_img)
+    out_lab = torch.where(draws["use_cutmix"], cut_lab, mix_lab)
+    return (
+        torch.where(draws["apply"], out_img, x).to(images.dtype),
+        torch.where(draws["apply"], out_lab, labels),
+    )
+
+
+def cutmix_mixup(
+    generator: Optional[torch.Generator],
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    cutmix_alpha: float = 1.0,
+    mixup_alpha: float = 0.2,
+    prob: float = 1.0,
+    choice_prob: float = 0.5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Randomly apply cutmix OR mixup to a batch (reference CutmixMixup;
+    ``choice_prob`` = P(cutmix | applied): 1.0 gives the standalone Cutmix,
+    0.0 the standalone Mixup). Labels must be soft/one-hot."""
+    _, h, w, _ = images.shape
+    draws = draw_cutmix_mixup(generator, h, w, images.device, cutmix_alpha, mixup_alpha, prob, choice_prob)
+    return apply_cutmix_mixup(images, labels, draws, cutmix_alpha, mixup_alpha)
+
+
+# --------------------------------------------------------------------------- #
+# State init
+# --------------------------------------------------------------------------- #
 
 
 def init_state(
@@ -38,16 +171,30 @@ def init_state(
 ) -> TrainState:
     """Initialize the model's parameters from ``seed`` (on the host, so the
     weights do not depend on the device), move it to ``device`` in
-    channels_last memory, and build its optimizer and EMA copy."""
+    channels_last memory, and build its optimizer, its EMA copy and the
+    step's random generator on the device (bound to the model's dropout and
+    drop-path modules)."""
     if hasattr(model, "reset_parameters"):
         model.reset_parameters(torch.Generator().manual_seed(int(seed)))
     model.to(device=device, memory_format=torch.channels_last)
     ema = copy.deepcopy(model).requires_grad_(False) if ema_decay else None
-    return TrainState(step=0, model=model, optimizer=optimizer_factory(model), ema=ema)
+    generator = torch.Generator(device=device)
+    bind_generator(model, generator)
+    return TrainState(
+        step=0, model=model, optimizer=optimizer_factory(model), ema=ema, generator=generator, seed=int(seed)
+    )
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to sota_imagenet_tpu_torch yet (ROADMAP.md {item})")
+def step_seed(seed: int, step: int) -> int:
+    """The generator's seed for one train step: a function of the run's seed
+    and the step only, so a run resumed at ``step`` draws what the
+    uninterrupted run would have drawn."""
+    return (int(seed) * 1_000_003 + int(step)) % (2**63)
+
+
+# --------------------------------------------------------------------------- #
+# Train / eval steps
+# --------------------------------------------------------------------------- #
 
 
 def build_train_step(
@@ -56,7 +203,7 @@ def build_train_step(
     *,
     accumulate_steps: int = 1,
     ema_decay: float = 0.0,
-    mixup_fn: Optional[Callable] = None,
+    mixup_fn: Optional[Callable] = None,  # fn(generator, images, labels) -> (images, labels)
     aux_loss: Optional[Callable] = None,
     sam: Optional[Dict[str, Any]] = None,
     grad_transform: Optional[Callable] = None,
@@ -64,27 +211,43 @@ def build_train_step(
     remat: Any = False,
     input_dtype: torch.dtype = torch.bfloat16,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, Any]]]:
-    if accumulate_steps > 1:
-        raise _not_ported("run.accumulate_steps > 1", "Queue 1 item 9")
     if sam:
-        raise _not_ported("SAM", "Queue 1 item 9")
-    if mixup_fn is not None:
-        raise _not_ported("cutmix/mixup", "Queue 1 item 9")
+        raise NotPortedError("SAM", "Queue 1 item 9")
     if remat:
-        raise _not_ported("run.remat", "Queue 1 item 9")
+        raise NotPortedError("run.remat", "Queue 1 item 9")
     if grad_transform is not None or post_step_transform is not None or aux_loss is not None:
-        raise _not_ported("grad_transform / post_step_transform / aux_loss", "Queue 1 item 9")
+        raise NotPortedError("grad_transform / post_step_transform / aux_loss", "Queue 1 item 9")
+    accumulate_steps = max(int(accumulate_steps or 1), 1)
 
     def train_step(state: TrainState, batch: Batch):
         model, opt = state.model, state.optimizer
         model.train()
+        if state.generator is not None:
+            state.generator.manual_seed(step_seed(state.seed, state.step))
         images, labels = batch["image"], batch["label"]
-        logits = model(images.to(input_dtype))
-        loss, _ = call_criterion(criterion, logits, labels)
+        if mixup_fn is not None:
+            # on the whole batch, before the split: the partner of sample i is B-1-i of the whole batch
+            with torch.no_grad():
+                images, labels = mixup_fn(state.generator, images, labels)
         opt.zero_grad(set_to_none=True)
-        loss.backward()
+        # the loader's batch is split, not several batches gathered; BN buffers chain
+        # through the microbatches and the dropout stream runs on through them
+        mb = images.shape[0] // accumulate_steps
+        images, labels = images[: mb * accumulate_steps], labels[: mb * accumulate_steps]
+        loss_sum, all_logits = 0.0, []
+        for im, lb in zip(images.split(mb), labels.split(mb)):
+            mb_logits = model(im.to(input_dtype))
+            mb_loss, _ = call_criterion(criterion, mb_logits, lb)
+            mb_loss.backward()  # sums into .grad
+            loss_sum = loss_sum + mb_loss.detach()
+            all_logits.append(mb_logits.detach())
+        loss = loss_sum / accumulate_steps
+        logits = torch.cat(all_logits)
         params = [p for group in opt.param_groups for p in group["params"]]
-        grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params])
+        grads = [p.grad for p in params]
+        if accumulate_steps > 1:
+            torch._foreach_div_(grads, float(accumulate_steps))
+        grad_norm = torch.nn.utils.get_total_norm(grads)
         lr = lr_schedule(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -97,7 +260,7 @@ def build_train_step(
                 # (the reference ModelEma averages the full state_dict)
                 torch._foreach_mul_(ema_t, ema_decay)
                 torch._foreach_add_(ema_t, new_t, alpha=1.0 - ema_decay)
-        metrics = classification_metrics(logits.detach(), labels, loss)
+        metrics = classification_metrics(logits, labels, loss)
         metrics["grad_norm"] = grad_norm
         metrics["lr"] = lr
         state.step += 1
@@ -111,7 +274,7 @@ def build_eval_step(
 ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     def eval_step(state: TrainState, batch: Batch):
         if "mask" in batch:
-            raise _not_ported("masked (rectangular / padded) validation", "Queue 1 item 12")
+            raise NotPortedError("masked (rectangular / padded) validation", "Queue 1 item 12")
         model = state.ema if (use_ema and state.ema is not None) else state.model
         model.eval()
         with torch.no_grad():

@@ -1,4 +1,4 @@
-"""Carry JAX-package ResNet weights into the port's ResNet.
+"""Carry JAX-package weights into the port's models.
 
 ``flax_to_torch`` is the inverse of ``sota_imagenet_tpu/utils/torch_import.py``
 ``convert_resnet_state_dict`` (torch_import.py:29-65): it maps the JAX
@@ -13,6 +13,16 @@ its ``fconv1``/``fconv3``/``fdown`` (``Conv1x1BNStats``: kernel, scale, bias;
 batch_stats mean, var) map to the port's modules of the same names, and its
 remaining 3x3 conv (and the 1x1 conv1 when ``groups > 1``) sit at flax's
 auto names ``Conv_i``/``_NormAct_i``, numbered from 0.
+
+``flax_to_torch_model`` does the same for the port's NFNet and CModel (and
+any module built from the layers they use). It walks the torch module and
+reads, for each kind of module, the leaves its JAX counterpart creates.
+NFNet names its children (``stem_conv{i}``, ``stage{s}_block{b}/conv1``...;
+the inverse of ``torch_import.convert_nfnet_state_dict``); where the JAX
+module names nothing, flax names each child by its class and the order of
+construction (``ScaledStdConv_0``, ``ConvActBlock_2``), and a ``repeat``
+builds the module that many times, so the walk counts classes in layer
+order.
 """
 
 from __future__ import annotations
@@ -22,9 +32,12 @@ from typing import Any, Dict, Mapping, Sequence
 import numpy as np
 import torch
 
+from sota_imagenet_tpu_torch.models import attention, blocks, cmodel, layers, nfnet, norms
+
 
 def _get(tree: Mapping, path: str, used: set) -> np.ndarray:
     node: Any = tree
+    path = path.strip("/")  # a module converted on its own has the empty path
     for p in path.split("/"):
         node = node[p]
     used.add(path)
@@ -101,4 +114,94 @@ def flax_to_torch(
     left = (_leaf_paths(params) - used_p) | (_leaf_paths(batch_stats) - used_s)
     if left:
         raise KeyError(f"flax_to_torch left leaves unmapped: {sorted(left)[:10]}")
+    return sd
+
+
+def _oihw(kernel: np.ndarray) -> torch.Tensor:
+    """flax HWIO conv kernel -> torch OIHW (grouped convs included: I is in/groups in both)."""
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(kernel, (3, 2, 0, 1))))
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def flax_to_torch_model(model: torch.nn.Module, params: Mapping, batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
+    """JAX ``params``/``batch_stats`` (numpy) of the JAX counterpart of
+    ``model`` -> ``model``'s ``state_dict``. Raises if a leaf of either tree
+    is left unmapped or a key of the state_dict is not produced."""
+    batch_stats = batch_stats or {}
+    used_p: set = set()
+    used_s: set = set()
+    sd: Dict[str, torch.Tensor] = {}
+
+    def dense(src: str, dst: str, bias: bool):
+        sd[dst + "weight"] = torch.from_numpy(np.ascontiguousarray(_get(params, src + "/kernel", used_p).T))
+        if bias:
+            sd[dst + "bias"] = _tensor(_get(params, src + "/bias", used_p))
+
+    def walk(m: torch.nn.Module, src: str, dst: str):
+        """``src``: the flax path of ``m``; ``dst``: its state_dict prefix (ends with a dot, or empty)."""
+        if isinstance(m, layers.ScaledStdConv):
+            sd[dst + "weight"] = _oihw(_get(params, src + "/kernel", used_p))
+            for leaf in ("gain", "bias"):
+                if getattr(m, leaf) is not None:
+                    sd[dst + leaf] = _tensor(_get(params, f"{src}/{leaf}", used_p))
+        elif isinstance(m, layers.Conv):
+            sd[dst + "weight"] = _oihw(_get(params, src + "/Conv_0/kernel", used_p))
+            if m.bias is not None:
+                sd[dst + "bias"] = _tensor(_get(params, src + "/Conv_0/bias", used_p))
+        elif isinstance(m, layers.Linear):
+            dense(src + "/Dense_0", dst, m.bias is not None)
+        elif isinstance(m, norms.BatchNorm):
+            for leaf, name in (("scale", "weight"), ("bias", "bias")):
+                sd[dst + name] = _tensor(_get(params, f"{src}/BatchNorm_0/{leaf}", used_p))
+            for leaf in ("mean", "var"):
+                sd[f"{dst}running_{leaf}"] = _tensor(_get(batch_stats, f"{src}/BatchNorm_0/{leaf}", used_s))
+        elif isinstance(m, attention.ECA):
+            sd[dst + "weight"] = _tensor(np.transpose(_get(params, src + "/kernel", used_p), (2, 1, 0)))
+        elif isinstance(m, attention.SE):
+            dense(src + "/Dense_0", dst + "fc1.", True)
+            dense(src + "/Dense_1", dst + "fc2.", True)
+        elif isinstance(m, attention.SEVar3):
+            walk(m.conv, f"{src}/{type(m.conv).__name__}_0", dst + "conv.")
+        elif isinstance(m, blocks.ConvActBlock):
+            walk(m.conv, src + "/ScaledStdConv_0", dst + "conv.")
+            if m.sse is not None:
+                walk(m.sse, src + "/SEVar3_0", dst + "sse.")
+        elif isinstance(m, blocks.ConvBnAct):
+            walk(m.conv, src + "/Conv_0", dst + "conv.")
+            walk(m.bn, src + "/BatchNorm_0", dst + "bn.")
+        elif isinstance(m, nfnet.NFBlock):
+            for name in ("conv1", "conv2", "conv2b", "conv3", "downsample"):
+                if getattr(m, name) is not None:
+                    walk(getattr(m, name), f"{src}/{name}", f"{dst}{name}.")
+            if m.attn is not None:
+                walk(m.attn, f"{src}/{type(m.attn).__name__}_0", dst + "attn.")
+            if m.skipinit_gain is not None:
+                sd[dst + "skipinit_gain"] = _tensor(_get(params, src + "/skipinit_gain", used_p)).reshape(())
+        elif isinstance(m, nfnet.NFNet):
+            for name, child in m.named_children():
+                if name == "fc":
+                    dense("fc", "fc.", True)
+                else:
+                    walk(child, name, name + ".")
+        elif isinstance(m, cmodel.CModel):
+            seen: Dict[str, int] = {}
+            for idx, mods in enumerate(m.layers):
+                for r, mod in enumerate(mods):
+                    cls = type(mod).__name__
+                    seen[cls] = seen.get(cls, 0) + 1
+                    walk(mod, f"{cls}_{seen[cls] - 1}", f"layers.{idx}.{r}.")
+        elif m.state_dict():
+            # a module with state that this walk does not know would be skipped silently
+            raise KeyError(f"flax_to_torch_model does not know {type(m).__name__} at {src!r}")
+
+    walk(model, "", "")
+    left = (_leaf_paths(params) - used_p) | (_leaf_paths(batch_stats) - used_s)
+    if left:
+        raise KeyError(f"flax_to_torch_model left leaves unmapped: {sorted(left)[:10]}")
+    missing = set(model.state_dict()) - set(sd)
+    if missing:
+        raise KeyError(f"flax_to_torch_model produced no value for: {sorted(missing)[:10]}")
     return sd

@@ -3,7 +3,13 @@ a ResNet-18 at 32 px (synthetic data, f32, debug: 10 train / 20 val steps,
 one 1-epoch warmup stage), then an eval of its last checkpoint, which must
 reproduce the run's final val metrics exactly. The same for a full-width
 ResNet-50 with ``fused_stats`` (every 1x1 conv + BN through conv1x1_stats,
-whose CPU path is the kernel's plain version)."""
+whose CPU path is the kernel's plain version).
+
+Then ``configs/tiny_synthetic.yaml`` as it stands (a CModel, two debug
+epochs: the train loss falls, and the eval+resume drive reproduces the final
+val metrics exactly), and the NFNet/AdamW recipe ``15.eca_nfnet_l0.yaml``
+(accumulation 2, CutmixMixup, EMA, drop rates, ``filter_from_wd: [gain]``)
+with a narrow NFNet at 32 px."""
 
 import glob
 import math
@@ -41,8 +47,12 @@ def _one_torch_thread():
 
 
 class _Record(Callback):
+    def on_begin(self):
+        self.losses = []
+
     def on_epoch_end(self, epoch, train_metrics, val_metrics):
         self.train_metrics = dict(train_metrics)
+        self.losses.append(train_metrics["loss"])
         self.steps = self.runner.state.step
 
 
@@ -104,8 +114,8 @@ def test_main_defaults_to_cuda():
 
 @pytest.mark.parametrize(
     "override",
-    ["run.accumulate_steps=2", "mesh.data=2", "run.bn_stats=local", "weight_standardization=true",
-     "loader.device_cache=true"],
+    ["run.remat=true", "mesh.data=2", "run.bn_stats=local", "weight_standardization=true",
+     "loader.device_cache=true", "run.skip_nonfinite=2"],
 )
 def test_unported_options_raise(override, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -153,3 +163,139 @@ def test_fused_stats_eval_of_last_checkpoint_reproduces_val_metrics(trained_fuse
         device="cpu",
     )
     assert metrics == trained_fused["val"]
+
+
+# --------------------------------------------------------------------------- #
+# tiny_synthetic (CModel) and the NFNet/AdamW recipe
+# --------------------------------------------------------------------------- #
+
+CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
+TINY = os.path.join(CONFIGS, "tiny_synthetic.yaml")
+NFNET = os.path.join(CONFIGS, "exp", "15.eca_nfnet_l0.yaml")
+NFNET_OVERRIDES = [
+    "loader.backend=synthetic",
+    "val_loader.backend=synthetic",
+    "loader.image_size=32",
+    "loader.batch_size=8",
+    "val_loader.batch_size=8",
+    "run.bf16=false",
+    "debug=true",
+    "model={_target_: NFNet, depths: [1, 1], channels: [32, 64], stem_chs: [8, 8, 8, 16], group_size: 16, "
+    "drop_rate: 0.2, drop_path_rate: 0.15}",
+    "run.stages=[{start: 0, end: 1, lr: [0, 0.01]}]",
+]
+
+
+@pytest.fixture(scope="module")
+def trained_tiny(tmp_path_factory):
+    logdir = tmp_path_factory.mktemp("logs_tiny")
+    rec = _Record()
+    val = cli.main(["-c", TINY, f"log.dir={logdir}"], device="cpu", callbacks=[rec])
+    (run_dir,) = glob.glob(os.path.join(logdir, "*_tiny_synthetic", "*"))
+    return {"val": val, "record": rec, "run_dir": run_dir}
+
+
+def test_tiny_synthetic_trains_with_a_falling_loss(trained_tiny):
+    rec = trained_tiny["record"]
+    assert rec.steps == 20 and len(rec.losses) == 2  # two debug epochs of 10 steps
+    assert all(math.isfinite(v) for v in rec.losses) and rec.losses[1] < rec.losses[0] - 0.05
+    files = set(os.listdir(trained_tiny["run_dir"]))
+    assert {"config.yaml", "logs.txt", "model.ckpt", "model_last.ckpt"} <= files
+    disk = torch.load(os.path.join(trained_tiny["run_dir"], "model_last.ckpt"), weights_only=True)
+    assert "layers.1.1.conv.gain" in disk["state"]["model"]  # the CModel's layer list, repeat included
+
+
+def test_tiny_synthetic_eval_of_last_checkpoint_reproduces_val_metrics(trained_tiny, tmp_path):
+    ckpt = os.path.join(trained_tiny["run_dir"], "model_last.ckpt")
+    metrics = cli.main(["-c", TINY, f"log.dir={tmp_path}", "run.evaluate=true", f"run.resume={ckpt}"], device="cpu")
+    assert metrics == trained_tiny["val"]
+
+
+@pytest.fixture(scope="module")
+def trained_nfnet(tmp_path_factory):
+    logdir = tmp_path_factory.mktemp("logs_nfnet")
+    rec = _Record()
+    val = cli.main(["-c", NFNET, *NFNET_OVERRIDES, f"log.dir={logdir}"], device="cpu", callbacks=[rec])
+    (run_dir,) = glob.glob(os.path.join(logdir, "*_eca_nfnet_l0", "*"))
+    return {"val": val, "record": rec, "run_dir": run_dir}
+
+
+def test_nfnet_recipe_runs_to_model_last(trained_nfnet):
+    """accumulate_steps 2, CutmixMixup, EMA 0.9997, AdamW and the gain mask through cli.main."""
+    rec = trained_nfnet["record"]
+    assert rec.steps == 10 and math.isfinite(rec.train_metrics["loss"])
+    assert all(math.isfinite(v) for v in trained_nfnet["val"].values())
+    disk = torch.load(os.path.join(trained_nfnet["run_dir"], "model_last.ckpt"), weights_only=True)["state"]
+    model, ema = disk["model"], disk["ema"]
+    assert set(model) == set(ema) and all(v.is_floating_point() for v in ema.values())
+    # ten AdamW steps moved the weights, and the EMA (decay 0.9997) lags them
+    moved = [k for k in model if not torch.equal(model[k], ema[k])]
+    assert len(moved) == len(model)
+    # two parameter groups: the mask keeps gains and the other 1-d leaves out of the decay
+    groups = disk["optimizer"]["param_groups"]
+    assert [g["weight_decay"] for g in groups] == [1e-3, 0.0]
+    n_no_decay = sum(1 for v in model.values() if v.dim() <= 1)
+    assert len(groups[1]["params"]) == n_no_decay and len(groups[0]["params"]) == len(model) - n_no_decay
+    assert all(int(s["step"]) == 10 for s in disk["optimizer"]["state"].values())  # one optimizer step per train step
+
+
+def test_nfnet_eval_of_last_checkpoint_reads_the_weights_and_its_ema_reproduces_val_metrics(trained_nfnet, tmp_path):
+    """A run with an EMA validates with the EMA weights; run.evaluate scores
+    the checkpoint's own weights (Runner.evaluate's default, as in the JAX
+    CLI). So the checkpoint's EMA, put in the weights' place, reproduces the
+    run's final val metrics exactly (eval draws nothing random), and the
+    checkpoint as saved scores differently: ten AdamW steps against an EMA
+    of decay 0.9997 that has barely left the initial weights."""
+    ckpt = os.path.join(trained_nfnet["run_dir"], "model_last.ckpt")
+    disk = torch.load(ckpt, weights_only=True)
+    disk["state"]["model"] = disk["state"]["ema"]
+    swapped = os.path.join(tmp_path, "ema_as_model.ckpt")
+    torch.save(disk, swapped)
+
+    def evaluate(path):
+        return cli.main(
+            ["-c", NFNET, *NFNET_OVERRIDES, f"log.dir={tmp_path}", "run.evaluate=true", f"run.resume={path}"],
+            device="cpu",
+        )
+
+    assert evaluate(swapped) == trained_nfnet["val"]
+    metrics = evaluate(ckpt)
+    assert set(metrics) == {"loss", "Acc@1", "Acc@5"} and all(math.isfinite(v) for v in metrics.values())
+    assert metrics["loss"] != trained_nfnet["val"]["loss"]
+    assert evaluate(ckpt) == metrics
+
+
+@pytest.mark.parametrize(
+    "callback, item",
+    [("OrthoLossClb", "item 9"), ("src.callbacks.SAM", "item 9"), ("WeightDistributionTB", "item 7")],
+)
+def test_unported_callback_names_its_roadmap_item(callback, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}") as e:
+        cli.main(
+            ["-c", CONFIG, *OVERRIDES, f"run.extra_callbacks=[{{_target_: {callback}}}]", f"log.dir={tmp_path}"],
+            device="cpu",
+        )
+    assert callback.rsplit(".", 1)[-1] in str(e.value)
+
+
+@pytest.mark.parametrize(
+    "model, takes_it",
+    [
+        ("{_target_: resnet18}", True),
+        ("{_target_: NFNet, depths: [1], channels: [32], stem_chs: [8, 8, 8, 16], group_size: 16}", False),
+        ("{_target_: CModel, layer_config: [[-1, 1, ConvBnAct, [3, 8]]]}", False),
+    ],
+    ids=["resnet18", "nfnet", "cmodel"],
+)
+def test_bn_momentum_reaches_only_models_that_take_it(model, takes_it):
+    """cfg.bn_momentum != 0.1 is passed to the model; one that does not take the
+    keyword is built without it, as the JAX CLI does (cli.py:170-178)."""
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.models.norms import BatchNorm
+
+    cfg = C.load(CONFIG, overrides=[f"model={model}", "bn_momentum=0.03"], strict_env=False)
+    built = cli.build_model(cfg)
+    momenta = {m.momentum for m in built.modules() if isinstance(m, BatchNorm)}
+    assert momenta == ({0.03} if takes_it else momenta - {0.03})
+    if takes_it:
+        assert momenta

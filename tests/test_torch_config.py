@@ -1,9 +1,12 @@
 """The port's config loader composes every YAML under configs/ to the same
 tree as the JAX package's (as plain dicts), and raises the same error type
-where the JAX loader raises."""
+where the JAX loader raises. Every ``configs/exp`` file either builds its
+model and optimizer in the port or raises NotImplementedError naming a
+ROADMAP item, never another exception."""
 
 import glob
 import os
+import re
 
 import pytest
 
@@ -51,10 +54,60 @@ def test_registry_knows_the_slice_and_names_the_roadmap_for_the_rest():
     for name in ("resnet18", "resnet34", "resnet50", "resnet101", "pytorch_tools.models.resnet50", "cross_entropy",
                  "CrossEntropyLoss"):
         assert callable(registry.resolve(name))
-    with pytest.raises(KeyError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.resolve("bresnet50")
-    with pytest.raises(KeyError, match="ROADMAP"):  # never imports the JAX package to find a name
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # never imports the JAX package to find a name
         registry.resolve("sota_imagenet_tpu.models.bresnet50")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        build_optimizer({"_target_": "adamw"}, [])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_optimizer({"_target_": "lamb"}, [])
+    for name in ("eca_nfnet_l0", "timm.models.eca_nfnet_l1", "CModel", "src.model.CModel", "CutmixMixup",
+                 "pt_clb.Cutmix", "pytorch_tools.fit_wrapper.callbacks.Mixup", "Callback"):
+        assert callable(registry.resolve(name))
     assert build_optimizer({"_target_": "fused_sgd", "momentum": 0.9}, []).defaults["momentum"] == 0.9
+
+
+EXP_YAML = sorted(glob.glob(os.path.join(CONFIG_DIR, "exp", "*.yaml")))
+# configs/exp files whose model and optimizer build in the port (ROADMAP.md records the count)
+N_EXP_CONFIGS_THAT_BUILD = 16
+
+
+def _build_model_and_optimizer(path):
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
+
+    cfg = TC.load(path, strict_env=False)
+    cli.reject_unported(cfg)
+    model = cli.build_model(cfg)
+    mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd) if cfg.filter_from_wd is not None else None
+    build_optimizer(dict(cfg.optim), model.named_parameters(), wd_mask=mask)
+    TC.instantiate(cfg.criterion)
+    for clb in cfg.run.extra_callbacks or []:
+        TC.instantiate(clb)
+
+
+@pytest.fixture(scope="module")
+def exp_outcomes():
+    out = {}
+    for path in EXP_YAML:
+        try:
+            _build_model_and_optimizer(path)
+            out[path] = None
+        except Exception as e:  # held to NotImplementedError below
+            out[path] = e
+    return out
+
+
+@pytest.mark.parametrize("path", EXP_YAML, ids=[os.path.basename(p) for p in EXP_YAML])
+def test_exp_config_builds_or_names_a_roadmap_item(path, exp_outcomes):
+    err = exp_outcomes[path]
+    if err is not None:
+        assert isinstance(err, NotImplementedError), repr(err)
+        assert re.search(r"ROADMAP\.md Queue 1.* item \d+", str(err)), str(err)
+
+
+def test_count_of_exp_configs_that_build(exp_outcomes):
+    built = sorted(os.path.basename(p) for p, e in exp_outcomes.items() if e is None)
+    assert len(EXP_YAML) == 108
+    assert "15.eca_nfnet_l0.yaml" in built and "1.r50_baseline.yaml" in built
+    assert len(built) == N_EXP_CONFIGS_THAT_BUILD, built

@@ -46,7 +46,7 @@ def test_importing_every_module_leaves_jax_out():
         "[importlib.import_module(n) for n in names]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 34, names\n"
         "print(len(names))\n" % (FORBIDDEN,)
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

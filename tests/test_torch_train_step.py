@@ -21,7 +21,15 @@ Tolerances: per-step loss, grad_norm and lr within rtol 1e-4 (port f32) /
 1e-7 (port f64); final params, BN buffers (biased running variance) and the
 EMA trees within relative L2 1e-4 / 1e-7. Both weight-decay modes of the JAX
 CLI are held: no mask (every parameter decayed, the r50_baseline case) and
-``filter_from_wd`` (ndim <= 1 parameters excluded)."""
+``filter_from_wd`` (ndim <= 1 parameters excluded).
+
+The NFNet/AdamW recipe's step features are held at the end of the file: two
+float32 steps of a small NFNet with ``accumulate_steps=2``, EMA, AdamW,
+``filter_from_wd=[gain]`` and CutmixMixup on the JAX step's own draws; and
+one float64 step of a ResNet-18 layout whose BN buffers chain through the
+two microbatches."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +50,7 @@ from sota_imagenet_tpu_torch.optim import build_optimizer
 from sota_imagenet_tpu_torch.train import steps
 from sota_imagenet_tpu_torch.train.schedule import make_lr_schedule
 from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
-from sota_imagenet_tpu_torch.utils.weights import flax_to_torch
+from sota_imagenet_tpu_torch.utils.weights import flax_to_torch, flax_to_torch_model
 
 N_STEPS, BATCH, SIZE, CLASSES = 3, 16, 32, 10
 LAYOUT = dict(layers=(1, 1, 1, 1), bottleneck=True)
@@ -261,3 +269,201 @@ def test_fused_stats_step_matches_jax(jax_fused_step):
     assert update < FUSED_TOL["update"], f"parameter update: relative L2 {update}"
     assert bn < FUSED_TOL["bn"], f"bn: relative L2 {bn}"
     assert any(k.endswith("fdown.running_var") for k in buffers)  # the fused layout was compared
+
+
+# --------------------------------------------------------------------------- #
+# The NFNet/AdamW recipe's step: accumulation, mixup, EMA, AdamW, the gain mask
+# --------------------------------------------------------------------------- #
+
+NF = dict(depths=(1, 2), channels=(64, 128), stem_chs=(8, 8, 16, 32), group_size=32, num_classes=CLASSES)
+NF_OPTIM = {"_target_": "adamw", "weight_decay": 1e-3, "eps": 1e-6}
+NF_MIX = dict(cutmix_alpha=1.0, mixup_alpha=0.2, prob=1.0)
+NF_STEPS, NF_EMA, ACCUM = 2, 0.9, 2
+# Two float32 steps against the JAX float32 steps (SiLU, no norm layers): loss
+# rtol 1e-5, grad_norm rtol 1e-3, updated params and EMA within relative L2 1e-4.
+NF_TOL = {"loss": 1e-5, "grad_norm": 1e-3, "state": 1e-4}
+
+
+def _nonzero_gains(params, rng):
+    """skipinit gains are zero at init, which switches every branch off: draw them, and the ECA kernels."""
+    flat, treedef = jax.tree_util.tree_flatten_with_path(params)
+    leaves = []
+    for path, leaf in flat:
+        name = "/".join(str(getattr(k, "key", k)) for k in path)
+        leaf = np.asarray(leaf)
+        if name.endswith("skipinit_gain"):
+            leaf = np.asarray(rng.uniform(0.5, 1.5), leaf.dtype)
+        elif "ECA_0" in name:
+            leaf = rng.standard_normal(leaf.shape).astype(leaf.dtype)
+        leaves.append(leaf)
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+def _jax_mixup_draws(key, h, w):
+    """What the JAX cutmix_mixup draws from ``key`` (steps.py:66-103), as the port's draws."""
+    k_apply, k_choice, k_lam_m, k_lam_c, k_box = jax.random.split(key, 5)
+    draws = {
+        "apply": jax.random.bernoulli(k_apply, NF_MIX["prob"]),
+        "use_cutmix": jax.random.bernoulli(k_choice, 0.5),
+        "lam_m": jax.random.beta(k_lam_m, NF_MIX["mixup_alpha"], NF_MIX["mixup_alpha"]),
+        "lam_c": jax.random.beta(k_lam_c, NF_MIX["cutmix_alpha"], NF_MIX["cutmix_alpha"]),
+        "cy": jax.random.randint(k_box, (), 0, h),
+        "cx": jax.random.randint(jax.random.fold_in(k_box, 1), (), 0, w),
+    }
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in draws.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_nfnet_steps():
+    """NF_STEPS JAX float32 steps of the small NFNet with the recipe's step
+    features, and the mixup draws each step made from its key."""
+    from sota_imagenet_tpu.models.nfnet import NFNet as JNFNet
+
+    images, labels = _batches()
+    rng = np.random.default_rng(7)
+    jmodel = JNFNet(**NF)
+    sched = jax_make_lr_schedule(PHASES, steps_per_epoch=4)
+    params = _nonzero_gains(jmodel.init(jax.random.PRNGKey(0), jnp.zeros((2, SIZE, SIZE, 3)), train=False)["params"], rng)
+    tx = jax_build_optimizer(NF_OPTIM, sched, wd_mask=jax_filter_wd(params, ["gain"]))
+    state = jsteps.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params, batch_stats={}, opt_state=tx.init(params),
+        ema_params=params, ema_batch_stats={},
+    )
+    step = jax.jit(
+        jsteps.build_train_step(
+            jmodel, JCrossEntropyLoss(smoothing=0.1), tx, sched, accumulate_steps=ACCUM, ema_decay=NF_EMA,
+            mixup_fn=functools.partial(jsteps.cutmix_mixup, **NF_MIX), input_dtype=jnp.float32,
+        )
+    )
+    run_key = jax.random.PRNGKey(1)
+    metrics, draws = [], []
+    for i in range(NF_STEPS):
+        k_mix, _, _ = jax.random.split(jax.random.fold_in(run_key, i), 3)  # steps.py:258-259
+        draws.append(_jax_mixup_draws(k_mix, SIZE, SIZE))
+        batch = {"image": jnp.asarray(images[i], jnp.float32), "label": jnp.asarray(labels[i], jnp.float32)}
+        state, m = step(state, batch, run_key)
+        metrics.append({k: float(v) for k, v in m.items()})
+    host = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    return {"init": params, "metrics": metrics, "draws": draws, "final": host(state.params), "final_ema": host(state.ema_params)}
+
+
+def test_nfnet_accumulated_adamw_mixup_ema_steps_match_jax(jax_nfnet_steps):
+    from sota_imagenet_tpu_torch.models import NFNet
+
+    images, labels = _batches()
+    model = NFNet(**NF)
+    mask = filter_from_weight_decay(model.named_parameters(), ["gain"])
+    state = steps.init_state(
+        model, lambda m: build_optimizer(NF_OPTIM, m.named_parameters(), wd_mask=mask), device="cpu", ema_decay=NF_EMA
+    )
+    init = flax_to_torch_model(model, jax_nfnet_steps["init"])
+    for m in (state.model, state.ema):
+        m.load_state_dict(init)
+    fed = iter(jax_nfnet_steps["draws"])
+    tstep = steps.build_train_step(
+        CrossEntropyLoss(smoothing=0.1), make_lr_schedule(PHASES, steps_per_epoch=4), accumulate_steps=ACCUM,
+        ema_decay=NF_EMA, input_dtype=torch.float32,
+        mixup_fn=lambda gen, im, lb: steps.apply_cutmix_mixup(im, lb, next(fed), NF_MIX["cutmix_alpha"], NF_MIX["mixup_alpha"]),
+    )
+    for i in range(NF_STEPS):
+        batch = {"image": torch.from_numpy(images[i]).float(), "label": torch.from_numpy(labels[i]).float()}
+        state, m = tstep(state, batch)
+        want = jax_nfnet_steps["metrics"][i]
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[k]), want[k], rtol=NF_TOL[k], err_msg=f"step {i} {k}")
+        for k in ("lr", "Acc@1", "Acc@5"):  # the metrics see all the logits of the step
+            np.testing.assert_allclose(float(m[k]), want[k], rtol=1e-6, err_msg=f"step {i} {k}")
+    assert state.step == NF_STEPS  # one optimizer step per train step, whatever the microbatches
+    assert all(int(s["step"]) == NF_STEPS for s in state.optimizer.state.values())
+    want = _np(flax_to_torch_model(model, jax_nfnet_steps["final"]))
+    want_ema = _np(flax_to_torch_model(model, jax_nfnet_steps["final_ema"]))
+    got, got_ema = _np(state.model.state_dict()), _np(state.ema.state_dict())
+    assert _rel_l2(got, want) < NF_TOL["state"] and _rel_l2(got_ema, want_ema) < NF_TOL["state"]
+    # per group too: the decayed kernels, and the gains the mask keeps out of the decay
+    for frag in ("weight", "gain"):
+        keys = [k for k in want if frag in k]
+        assert _rel_l2({k: got[k] for k in keys}, {k: want[k] for k in keys}) < NF_TOL["state"], frag
+    assert _rel_l2(want, _np(init)) > 1e-3 and _rel_l2(want_ema, want) > 1e-4  # weights moved; the EMA lags them
+
+
+def test_train_step_seeds_the_generator_from_seed_and_step():
+    """Dropout and drop-path draw from the state's generator, which each step
+    seeds from (seed, step): a state resumed at a step draws what the
+    uninterrupted run drew, and another seed draws something else."""
+    from sota_imagenet_tpu_torch.models import NFNet
+
+    images, labels = _batches()
+    batch = {"image": torch.from_numpy(images[0]).float(), "label": torch.from_numpy(labels[0]).float()}
+
+    def run(seed, first_step, n):
+        model = NFNet(**NF, drop_rate=0.3, drop_path_rate=0.5)
+        state = steps.init_state(model, lambda m: build_optimizer({"_target_": "sgd"}, m.named_parameters()), device="cpu", seed=seed)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("skipinit_gain"):
+                    p.fill_(1.0)
+        state.step = first_step
+        tstep = steps.build_train_step(CrossEntropyLoss(), lambda i: 0.0, accumulate_steps=ACCUM, input_dtype=torch.float32)
+        return [float(tstep(state, batch)[1]["loss"]) for _ in range(n)]
+
+    whole = run(0, 0, 3)
+    assert run(0, 2, 1) == whole[2:]  # lr 0: the weights stand still, only the draws differ by step
+    assert len(set(whole)) == 3 and run(1, 0, 1) != whole[:1]
+
+
+@pytest.fixture(scope="module")
+def jax_resnet18_accumulated_step():
+    """One JAX float64 step of a BasicBlock ResNet with accumulate_steps 2 and 1."""
+    from sota_imagenet_tpu.models.resnet import BasicBlock as JBasicBlock
+
+    images, labels = _batches()
+    out = {}
+    with jax.enable_x64(True):
+        to64 = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), jnp.float64), t)
+        jmodel = JResNet(block=JBasicBlock, layers=(1, 1, 1, 1), num_classes=CLASSES)
+        sched = jax_make_lr_schedule(PHASES, steps_per_epoch=4)
+        variables = jax.jit(lambda k: jmodel.init(k, jnp.zeros((2, SIZE, SIZE, 3)), train=False))(jax.random.PRNGKey(0))
+        params, stats = to64(variables["params"]), to64(variables["batch_stats"])
+        tx = jax_build_optimizer(OPTIM, sched)
+        host = lambda t: jax.tree_util.tree_map(np.asarray, t)
+        out["init"] = flax_to_torch(host(params), host(stats), layers=(1, 1, 1, 1), bottleneck=False)
+        for accum in (ACCUM, 1):
+            state = jsteps.TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats, opt_state=tx.init(params))
+            step = jax.jit(
+                jsteps.build_train_step(
+                    jmodel, JCrossEntropyLoss(smoothing=0.1), tx, sched, accumulate_steps=accum, input_dtype=jnp.float64
+                )
+            )
+            batch = {"image": jnp.asarray(images[0], jnp.float64), "label": jnp.asarray(labels[0], jnp.float64)}
+            state, m = step(state, batch, jax.random.PRNGKey(1))
+            out[accum] = {
+                "metrics": {k: float(v) for k, v in m.items()},
+                "final": _np(flax_to_torch(host(state.params), host(state.batch_stats), layers=(1, 1, 1, 1), bottleneck=False)),
+            }
+    return out
+
+
+def test_bn_buffers_chain_through_the_microbatches_as_in_jax(jax_resnet18_accumulated_step):
+    from sota_imagenet_tpu_torch.models.resnet import BasicBlock
+
+    ref = jax_resnet18_accumulated_step
+    images, labels = _batches()
+    model = ResNet(block=BasicBlock, layers=(1, 1, 1, 1), num_classes=CLASSES)
+    state = steps.init_state(model, lambda m: build_optimizer(OPTIM, m.named_parameters()), device="cpu")
+    model.load_state_dict(ref["init"])
+    model.to(torch.float64)
+    tstep = steps.build_train_step(
+        CrossEntropyLoss(smoothing=0.1), make_lr_schedule(PHASES, steps_per_epoch=4), accumulate_steps=ACCUM, input_dtype=torch.float64
+    )
+    state, m = tstep(state, {"image": torch.from_numpy(images[0]), "label": torch.from_numpy(labels[0])})
+    want = ref[ACCUM]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m[k]), want["metrics"][k], rtol=1e-7, err_msg=k)
+    got = _np(state.model.state_dict())
+    buffers = [k for k in got if "running" in k]
+    params = [k for k in got if "running" not in k]
+    assert _rel_l2({k: got[k] for k in buffers}, {k: want["final"][k] for k in buffers}) < 1e-7
+    assert _rel_l2({k: got[k] for k in params}, {k: want["final"][k] for k in params}) < 1e-7
+    # two microbatches update the buffers twice: not what one pass over the whole batch leaves
+    whole = ref[1]["final"]
+    assert _rel_l2({k: got[k] for k in buffers}, {k: whole[k] for k in buffers}) > 1e-3
