@@ -48,14 +48,39 @@ without a build; any failure exits non-zero and prints no result):
 7. trainer D — ``cli.main`` on configs/exp/15.eca_nfnet_l0.yaml as the file
              says but for synthetic data, debug mode and one 1-epoch warmup
              stage: full-width eca_nfnet_l0 (24.14M parameters), batch 256 at
-             224 px, bf16, accumulate_steps 2, EMA 0.9997, CutmixMixup, drop
+             224 px, bf16, accumulate_steps 2 (a loader batch of 512 as two
+             microbatches of 256), EMA 0.9997, CutmixMixup, drop
              rates 0.2/0.15, AdamW with ``filter_from_wd: [gain]``, the
              augment kernel with all its stages live. Checks as trainer A,
              and: the EMA differs from the weights, every gain sits in the
              parameter group without weight decay.
 8. trainer E — ``cli.main`` on configs/tiny_synthetic.yaml as it stands (a
              CModel, f32, 32 px, two debug epochs): the train loss falls.
-9. profile — trainers A, C and D once more with torch.profiler over steps
+9. data    — writes a JPEG ImageFolder from a seed into a temporary
+             directory (10 classes; 2,560 train images, 600 val; ~500x375,
+             375x500 and 400x400, every 128th 1440x1080 or 1080x1440; one PNG
+             and one grayscale JPEG per split; the class's colour over
+             low-frequency noise), then: which decoder runs (the native
+             libjpeg core, or PIL where it cannot be built) and the host's
+             cores; device_resample of one loader batch (256 canvases of 560
+             px) on the card against the CPU, at most 1 step on at most 0.1%
+             of the values, and its time; the CPU resample against
+             decode_train's host resize within 1 step; host decode img/s on 1
+             and 6 threads (data_phase).
+10. trainer F — ``cli.main`` on configs/exp/2.r50_rand_interp.yaml (ResNet-50,
+             bs 256 @ 224, bf16, random interpolation) from that tree, debug
+             mode, two epochs (the second, which starts with an empty
+             prefetch buffer, is reported): checks as trainer A, 20 augment
+             launches, and the val pass scores all 600
+             images once (the masked tail: the val batches' ``_weight`` sum
+             to 600). Prints ms/step, img/s, input_utilization, data_time_s,
+             the decoder's counts, the val pass's wall and the H2D MB per
+             batch.
+11. trainer G — the same tree on r50_baseline with loader.device_resample=true
+             and val_loader.rectangular=true: 560 px canvases resampled on the
+             card, then the augment kernel; val in three aspect shapes,
+             weighted by ``_weight``.
+12. profile — trainers A, C and D once more with torch.profiler over steps
              4-7: device time per step by layer and the top kernels, and the
              device's busy share (separate runs, so the trainers' times stay
              clean). Trainer D's device time is attributed to the port's
@@ -204,12 +229,14 @@ def kernel_phase() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     # the shapes and types the trainers give it: (256, 224, 224) bf16 (r50_baseline with the stages
-    # off, the NFNet recipe with them on), (64, 32, 32) f32 with the stages off (tiny_synthetic,
+    # off, the folder trainers), (512, 224, 224) bf16 (the NFNet recipe's loader batch, 2 x 256
+    # under accumulate_steps 2, stages on), (64, 32, 32) f32 with the stages off (tiny_synthetic,
     # run.bf16 false: the kernel's float instantiation); and a toy shape with odd sides
     for b, h, w, out_dtype in (
         (256, 224, 224, torch.bfloat16),
         (3, 37, 53, torch.bfloat16),
         (64, 32, 32, torch.float32),
+        (512, 224, 224, torch.bfloat16),
     ):
         imgs = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, device="cuda", generator=gen)
         for stages in ("off", "on"):
@@ -511,12 +538,222 @@ def moments_phase() -> dict:
     }
 
 
+# --------------------------------------------------------------------------- #
+# The folder data path: a JPEG ImageFolder written from a seed
+# --------------------------------------------------------------------------- #
+
+FOLDER_CLASSES, FOLDER_TRAIN, FOLDER_VAL = 10, 2560, 600  # 10 full steps at batch 256; val 600 = 2 x 250 + a padded 100
+FOLDER_SIZES = ((500, 375), (375, 500), (400, 400))  # (w, h) around ImageNet's, one per rect bucket
+FOLDER_BIG = ((1440, 1080), (1080, 1440))  # crops past the 560 px canvas: decode_train_scaled's host resize
+
+
+def _folder_image(split: int, i: int, seed: int):
+    """(PIL image, file suffix) of image i of a split: the class's colour over
+    low-frequency noise (a 6x8 random image scaled up), so the files stay
+    small and the class can be learned from the colour. Train image 3 and val
+    image 3 are PNGs, image 4 of each a grayscale JPEG; every 128th image is
+    large."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng((seed, split, i))
+    c = i % FOLDER_CLASSES
+    w, h = FOLDER_BIG[(i // 128) % 2] if i % 128 == 127 else FOLDER_SIZES[i % 3]
+    colour = np.array([(37 * c) % 256, (101 * c + 60) % 256, (173 * c + 120) % 256], np.float32)
+    noise = rng.integers(-40, 41, (6, 8, 3)).astype(np.float32)
+    small = np.clip(colour + noise, 0, 255).astype(np.uint8)
+    img = Image.fromarray(small).resize((w, h), Image.BILINEAR)
+    if i == 4:
+        img = img.convert("L")
+    return img, (".png" if i == 3 else ".jpg")
+
+
+def write_imagefolder(root: str, seed: int = 0) -> dict:
+    """root/{train,val}/class_<c>/<i>.jpg with FOLDER_TRAIN and FOLDER_VAL
+    images, written by a thread per core; returns counts and seconds."""
+    t0 = time.perf_counter()
+
+    def write(job):
+        split, i = job
+        img, suffix = _folder_image(split, i, seed)
+        d = os.path.join(root, ("train", "val")[split], f"class_{i % FOLDER_CLASSES:02d}")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{i:05d}{suffix}")
+        img.save(path, quality=90) if suffix == ".jpg" else img.save(path)
+        return os.path.getsize(path)
+
+    jobs = [(0, i) for i in range(FOLDER_TRAIN)] + [(1, i) for i in range(FOLDER_VAL)]
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        sizes = list(pool.map(write, jobs))
+    return {"train": FOLDER_TRAIN, "val": FOLDER_VAL, "classes": FOLDER_CLASSES, "mbytes": sum(sizes) / 1e6,
+            "write_s": time.perf_counter() - t0}
+
+
+def _decode_rate(fn, paths, workers: int) -> float:
+    """Images per second of ``fn(path, generator)`` over ``paths`` on ``workers`` threads."""
+    import numpy as np
+
+    jobs = [(p, np.random.default_rng((0, 0, k))) for k, p in enumerate(paths)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        for _ in pool.map(lambda job: fn(*job), jobs):
+            pass
+    return len(paths) / (time.perf_counter() - t0)
+
+
+def data_phase(tree: str, gpu: str) -> dict:
+    """The host half of the folder path and the device resample.
+
+    1. The decoder this process uses (the native libjpeg core, or PIL where
+       the library cannot be built) and the host's cores.
+    2. One batch of the device-resample loader (256 canvases of 560 px from
+       the tree, random interpolation) resampled to 224 px on the card
+       against the same call on the CPU: at most 1 uint8 step anywhere, on at
+       most 0.1% of the values; and its time on the card (CUDA events);
+       then what pinning that 240.8 MB batch costs the host, and its copy to
+       the card.
+    3. The CPU resample of decode_train_scaled's canvas against decode_train's
+       host resize of the same file with the same generator, 72 files: within
+       1 step where both decode the same pixels (tests/test_device_resample.py
+       holds JAX so). PIL decodes a large source in draft mode at a reduced
+       DCT scale for decode_train but at full size for the canvas, so the
+       large files (FOLDER_BIG) are reported, not held, when PIL decodes.
+    4. Host decode rates (img/s) of decode_train and decode_train_scaled at
+       224 px, on 1 thread and on loader.workers (6) threads, and of one epoch
+       of the train FolderLoader alone (batch 256, 6 workers), host resize
+       and device-resample canvases: the host side's ceiling for trainers F
+       and G."""
+    import numpy as np
+    import torch
+
+    from sota_imagenet_tpu_torch.data import decode as D
+    from sota_imagenet_tpu_torch.data import native
+    from sota_imagenet_tpu_torch.data.pipeline import FolderLoader, scan_image_folder
+    from sota_imagenet_tpu_torch.ops.resample import device_resample
+
+    decoder = "native" if native.available() else "pil"
+    train = os.path.join(tree, "train")
+    loader = FolderLoader(train, is_train=True, batch_size=256, image_size=224, workers=6,
+                          random_interpolation=True, device_resample=True)
+    it = iter(loader)
+    canvases, _, meta = next(it)
+    it.close()
+    x, m = torch.from_numpy(canvases), torch.from_numpy(meta)
+    on_cpu = device_resample(x, m, out_size=224)
+    xd, md = x.cuda(), m.cuda()
+    on_card = device_resample(xd, md, out_size=224).cpu()
+    diff = (on_card - on_cpu).abs()
+    card_vs_cpu = {"max_abs_err": float(diff.max()), "frac_diff": float((diff > 0).float().mean())}
+    resample_ms = median_ms(lambda: device_resample(xd, md, out_size=224), 5, 3)
+    del xd, md
+    # what the feed's producer and copy stream pay for one 240.8 MB batch of canvases
+    pin_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pinned = x.pin_memory()
+        pin_s.append(time.perf_counter() - t0)
+    h2d_ms = median_ms(lambda: pinned.to("cuda", non_blocking=True), 3, 2)
+    copy = {"batch_mb": x.numel() / 1e6, "pin_ms": [t * 1e3 for t in pin_s], "h2d_ms": h2d_ms,
+            "h2d_gb_per_s": x.numel() / h2d_ms / 1e6}
+    del pinned
+
+    files, _, _ = scan_image_folder(train)
+    picks = [p for p in files if os.path.basename(p).startswith(("00003", "00004"))]  # the PNG and the gray JPEG
+    picks += files[::40][:64] + [p for p in files if int(os.path.basename(p)[:5]) % 128 == 127][:6]
+    held, n_held, big = 0, 0, []
+    for k, path in enumerate(picks):
+        host = D.decode_train(path, np.random.default_rng((7, k)), 224, random_interpolation=True)
+        canvas, sh, sw, filt = D.decode_train_scaled(path, np.random.default_rng((7, k)), 224, random_interpolation=True)
+        dev = device_resample(torch.from_numpy(canvas[None]), torch.tensor([[sh, sw, filt]]), out_size=224)[0]
+        err = int(np.abs(dev.numpy().astype(int) - host.astype(int)).max())
+        is_big = int(os.path.basename(path)[:5]) % 128 == 127
+        if is_big and decoder == "pil":
+            big.append(err)
+        else:
+            held, n_held = max(held, err), n_held + 1
+    sample = files[::5]
+
+    def loader_rate(device_resample: bool) -> float:
+        """img/s of one epoch of the train FolderLoader alone (batch 256, 6 workers): the host side's ceiling."""
+        ld = FolderLoader(train, is_train=True, batch_size=256, image_size=224, workers=6,
+                          random_interpolation=True, device_resample=device_resample)
+        t0 = time.perf_counter()
+        n = sum(batch[0].shape[0] for batch in ld)
+        return n / (time.perf_counter() - t0)
+
+    rates = {
+        "folder_loader_host_resize_6": loader_rate(False),
+        "folder_loader_device_resample_6": loader_rate(True),
+        "decode_train_1": _decode_rate(lambda p, g: D.decode_train(p, g, 224, random_interpolation=True), sample[:96], 1),
+        "decode_train_6": _decode_rate(lambda p, g: D.decode_train(p, g, 224, random_interpolation=True), sample[:512], 6),
+        "decode_train_scaled_1": _decode_rate(lambda p, g: D.decode_train_scaled(p, g, 224), sample[:96], 1),
+        "decode_train_scaled_6": _decode_rate(lambda p, g: D.decode_train_scaled(p, g, 224), sample[:512], 6),
+    }
+    result = {
+        "phase": "data",
+        "decoder": decoder,
+        "native_library": native.LIB_PATH if decoder == "native" else None,
+        "cpu_count": os.cpu_count(),
+        "resample_card_vs_cpu": card_vs_cpu,
+        "resample_ms_b256_560_to_224": resample_ms,
+        "canvas_batch_pin_and_copy": copy,
+        "host_vs_device_resample_max_step": held,
+        "host_vs_device_resample_files_held": n_held,
+        "host_vs_device_resample_big_sources_pil": big,
+        "decode_img_per_s": rates,
+        "gpu": gpu,
+    }
+    print(f"[data] {json.dumps(result)}")
+    if card_vs_cpu["max_abs_err"] > 1.0 or card_vs_cpu["frac_diff"] > 1e-3:
+        raise AssertionError(f"device_resample on the card disagrees with the CPU: {card_vs_cpu}")
+    if held > 1:
+        raise AssertionError(f"the CPU resample is {held} steps off decode_train's host resize")
+    return result
+
+
+@contextlib.contextmanager
+def _count_h2d(counter: dict):
+    """Count the bytes DeviceFeed copies to the card, per train and val batch."""
+    from sota_imagenet_tpu_torch.data.pipeline import DeviceFeed
+
+    original = DeviceFeed._to_device
+
+    def counted(self, tensors, copy_stream):
+        split = "train" if getattr(self.host, "is_train", False) else "val"
+        counter[split + "_bytes"] = counter.get(split + "_bytes", 0) + sum(t.numel() * t.element_size() for t in tensors)
+        counter[split + "_batches"] = counter.get(split + "_batches", 0) + 1
+        return original(self, tensors, copy_stream)
+
+    DeviceFeed._to_device = counted
+    try:
+        yield counter
+    finally:
+        DeviceFeed._to_device = original
+
+
 TRAINER_OVERRIDES = (
     "loader.backend=synthetic",
     "val_loader.backend=synthetic",
     "debug=true",  # 10 train steps, 20 val steps
     "run.stages=[{start: 0, end: 1, lr: [0.001, 1.0]}]",
 )
+
+
+def folder_overrides(tree: str) -> tuple:
+    """The JPEG ImageFolder at ``tree`` for train and val, debug mode, and two
+    epochs: the feed's producer decodes ahead into up to five batches (its
+    queue of 2, 3 copied to the card) while the first step waits on cuDNN's
+    autotuning, so the first epoch's later steps run from that buffer. The
+    second epoch starts with an empty buffer and shows the steady state,
+    which the probe reports."""
+    return (
+        "loader.backend=folder",
+        "val_loader.backend=folder",
+        f"loader.root_data_dir={tree}",
+        f"val_loader.root_data_dir={tree}",
+        "debug=true",  # 10 train steps, 20 val steps an epoch
+        "run.stages=[{start: 0, end: 2, lr: [0.001, 1.0]}]",
+    )
 
 
 def _probe_callback(profile_window=None, record_shapes=False):
@@ -536,6 +773,18 @@ def _probe_callback(profile_window=None, record_shapes=False):
             self.events = [torch.cuda.Event(enable_timing=True)]
             self.events[0].record()
             self.metric_devices = set()
+            self.val_batches = []  # (_weight tensor or None, image shape) of each val batch
+            for name in ("_eval_step", "_eval_step_ema"):  # built by now; wrapped once
+                step = getattr(self.runner, name)
+                if not getattr(step, "probed", False):
+
+                    def probed(state, batch, step=step):
+                        m = step(state, batch)
+                        self.val_batches.append((m.get("_weight"), tuple(batch["image"].shape)))
+                        return m
+
+                    probed.probed = True
+                    setattr(self.runner, name, probed)
 
         def on_batch_end(self, step, metrics):
             ev = torch.cuda.Event(enable_timing=True)
@@ -552,9 +801,16 @@ def _probe_callback(profile_window=None, record_shapes=False):
                 torch.cuda.synchronize()
                 self.prof_wall_ms = (time.perf_counter() - self.prof_t0) * 1e3
                 self.prof.stop()
+            self.last_step_t = time.perf_counter()
 
         def on_epoch_end(self, epoch, train_metrics, val_metrics):
             torch.cuda.synchronize()
+            self.epoch_times_s = [*getattr(self, "epoch_times_s", []), train_metrics["epoch_time_s"]]
+            # the val pass's wall, from the last train step's dispatch: its decode, copies and
+            # (rectangular val) cuDNN's autotuning of each new shape, not a steady-state time
+            self.val_pass_s = [*getattr(self, "val_pass_s", []), time.perf_counter() - self.last_step_t]
+            self.val_weights = [None if w is None else float(w) for w, _ in self.val_batches]
+            self.val_shapes = sorted({shape for _, shape in self.val_batches})
             self.step_ms = [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
             self.param_devices = {p.device.type for p in self.runner.state.model.parameters()}
             self.train_metrics = dict(train_metrics)
@@ -742,30 +998,40 @@ def kernel_counters() -> dict:
 
 
 def trainer_phase(
-    name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None, nfnet_recipe: bool = False
+    name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None, nfnet_recipe: bool = False,
+    tree: str = None, val_shapes: int = 1,
 ) -> dict:
     """cli.main on ``config`` (a full-width model, bs 256 @ 224, bf16);
     ``per_step`` is each kernel's expected launches per train step. With
     ``nfnet_recipe`` the run must also end with an EMA that differs from the
     weights and every gain outside the weight decay, and a profile is
-    attributed to the port's layers (nfnet_breakdown)."""
+    attributed to the port's layers (nfnet_breakdown). With ``tree`` it reads
+    that JPEG ImageFolder (train and val) instead of synthetic data, for two
+    epochs (folder_overrides), and reports the second: every
+    val image must be scored once (the sum of the masked val batches'
+    ``_weight``), and it reports the decoder's counts, ``input_utilization``,
+    ``data_time_s``, the val pass's wall and the bytes copied to the card
+    per train batch; the val batches must come in ``val_shapes`` shapes."""
     import glob
 
     import torch
 
     from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch.data import decode
 
     probe = _probe_callback(profile_window, record_shapes=nfnet_recipe)
     counters = kernel_counters()
     scopes = _layer_scopes() if (nfnet_recipe and profile_window) else contextlib.nullcontext()
-    with tempfile.TemporaryDirectory() as logdir, scopes:
-        overrides = [*TRAINER_OVERRIDES, *extra, f"log.dir={logdir}"]
+    data = TRAINER_OVERRIDES if tree is None else folder_overrides(tree)
+    with tempfile.TemporaryDirectory() as logdir, scopes, _count_h2d({}) as h2d:
+        overrides = [*data, *extra, f"log.dir={logdir}"]
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0  # counts from here are this path's
         by_path = counters["conv1x1_stats"].launches_by_path
         for path in by_path:
             by_path[path] = 0
+        decoded0 = dict(decode.decoded)
         t0 = time.perf_counter()
         val = cli.main(["-c", config, *overrides], callbacks=[probe])
         wall = time.perf_counter() - t0
@@ -788,10 +1054,26 @@ def trainer_phase(
         "ms_per_step_median_4_10": ms_step,
         "step_ms": probe.step_ms,
         "img_per_s": probe.batch_size / ms_step * 1e3,
+        "input_utilization": probe.train_metrics.get("input_utilization"),
+        "data_time_s": probe.train_metrics.get("data_time_s"),
+        "epoch_time_s": probe.train_metrics.get("epoch_time_s"),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         "wall_s": wall,
         "gpu": gpu,
     }
+    if tree is not None:
+        result.update({
+            "decoded": {k: decode.decoded[k] - decoded0[k] for k in decoded0},
+            "h2d_mb_per_train_batch": h2d.get("train_bytes", 0) / max(h2d.get("train_batches", 1), 1) / 1e6,
+            "h2d_mb_per_val_batch": h2d.get("val_bytes", 0) / max(h2d.get("val_batches", 1), 1) / 1e6,
+            "val_weights": probe.val_weights,
+            "val_shapes": probe.val_shapes,
+            "val_pass_s": probe.val_pass_s,  # by epoch: G's first autotunes cuDNN for its three val shapes
+            # each epoch's 10 steps: the first epoch's first step waits on the prefetch, and 10 steps
+            # are too few for a steady state (the feed holds up to 5 decoded batches)
+            "epoch_times_s": probe.epoch_times_s,
+            "epoch_img_per_s": [steps * probe.batch_size / t for t in probe.epoch_times_s],
+        })
     if probe.prof is not None:
         result["profile"] = _device_time_breakdown(probe.prof, probe.prof_wall_ms, profile_window)
         if nfnet_recipe:
@@ -807,15 +1089,20 @@ def trainer_phase(
     print(f"[{name}] {json.dumps(result)}")
     if not math.isfinite(loss) or not all(math.isfinite(v) for v in val.values()):
         raise AssertionError(f"{name}: non-finite loss (train {loss}, val {val})")
-    want = {k: per_step.get(k, 0) * steps for k in counters}
+    epochs = 1 if tree is None else 2
+    want = {k: per_step.get(k, 0) * steps * epochs for k in counters}
     if steps != 10 or launches != want:
-        raise AssertionError(f"{name}: kernel launches {launches} in {steps} train steps, want {want} in 10 steps")
+        raise AssertionError(f"{name}: kernel launches {launches} in {epochs} x {steps} train steps, want {want}")
     if by_path != {"sm90": want["conv1x1_stats"], "mma_sync": 0}:
         raise AssertionError(f"{name}: conv1x1_stats launches by path {by_path}, want all {want['conv1x1_stats']} on sm90")
     if probe.param_devices != {"cuda"} or probe.metric_devices != {"cuda"}:
         raise AssertionError(f"{name}: params on {probe.param_devices}, batches/metrics on {probe.metric_devices}")
     if not ckpts:
         raise AssertionError(f"{name}: model_last.ckpt was not written")
+    if tree is not None and (None in probe.val_weights or sum(probe.val_weights) != FOLDER_VAL):
+        raise AssertionError(f"{name}: val batches weighed {probe.val_weights}, want masks summing to {FOLDER_VAL}")
+    if tree is not None and len(probe.val_shapes) != val_shapes:
+        raise AssertionError(f"{name}: val batches of shapes {probe.val_shapes}, want {val_shapes} shapes")
     if nfnet_recipe:
         groups = result["weight_decay_groups"]
         if not probe.ema_differs:
@@ -986,10 +1273,13 @@ def nfnet_breakdown(prof, window) -> dict:
     return {k: v / steps for k, v in sorted(layers.items(), key=lambda kv: -kv[1])}
 
 
-PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "profile")
+PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "data",
+          "trainer_f", "trainer_g", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
+RAND_INTERP = "configs/exp/2.r50_rand_interp.yaml"
+DEVICE_RESAMPLE = ("loader.device_resample=true", "val_loader.rectangular=true")
 NFNET_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0, 0.01]}]",)  # the recipe's warmup, cut to the one debug epoch
 
 
@@ -1051,6 +1341,17 @@ def main(argv=None) -> int:
         run("trainer_d", trainer_phase, "trainer_d", NFNET, NFNET_STAGE, gpu, aug_only, nfnet_recipe=True)
     if "trainer_e" in phases:
         run("trainer_e", tiny_phase, gpu)
+    with tempfile.TemporaryDirectory() as data_root:
+        if {"data", "trainer_f", "trainer_g"} & set(phases):
+            run("imagefolder", write_imagefolder, data_root)
+            print(f"[data] ImageFolder of JPEGs written: {json.dumps(results.get('imagefolder'))}", flush=True)
+        if "data" in phases:
+            run("data", data_phase, data_root, gpu)
+        if "trainer_f" in phases:
+            run("trainer_f", trainer_phase, "trainer_f", RAND_INTERP, (), gpu, aug_only, tree=data_root)
+        if "trainer_g" in phases:
+            run("trainer_g", trainer_phase, "trainer_g", R50, DEVICE_RESAMPLE, gpu, aug_only, tree=data_root,
+                val_shapes=3)
     if "profile" in phases:
         run("profile", trainer_phase, "profile", R50, (), gpu, aug_only, profile_window=(2, 6))
         run("profile_c", trainer_phase, "profile_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36},
@@ -1072,12 +1373,14 @@ def main(argv=None) -> int:
         return 0
     kernels = [results["fused_aug"], results["conv1x1_stats"], results["moments"]]
     # launches on each kernel's own main path: fused_aug on r50_baseline (trainer A; beside it
-    # the hard-aug recipe, the NFNet recipe and tiny_synthetic), conv1x1_stats with fused_stats
+    # the hard-aug recipe, the NFNet recipe, tiny_synthetic and the two folder trainers), conv1x1_stats with fused_stats
     # (trainer C); no path calls moments
     kernels[0]["launches"] = results["trainer_a"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_hard_aug"] = results["trainer_b"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_nfnet_recipe"] = results["trainer_d"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_tiny_synthetic"] = results["trainer_e"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_folder"] = results["trainer_f"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_folder_device_resample"] = results["trainer_g"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))

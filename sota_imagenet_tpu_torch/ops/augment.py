@@ -1,7 +1,8 @@
 """On-device augmentation (port of ``sota_imagenet_tpu/ops/augment.py``:46-78,
-119-145,172-243,306-314; the DALI GPU-augment replacement).
+119-145,172-243,283-314; the DALI GPU-augment replacement).
 
-The host ships raw uint8 NHWC crops; on the device the train augment runs
+The host ships raw uint8 NHWC crops (or, under loader.device_resample,
+canvases that ops/resample.py resizes first); on the device the train augment runs
 blur (a per-sample-sigma depthwise conv), then the fused colour twist /
 grayscale / erase / normalize kernel (ops/fused_aug.py, CUDA), then the
 mirror, then one-hot labels — the reference pipeline's order
@@ -78,6 +79,13 @@ def _batch_gaussian_blur(images: torch.Tensor, sigmas: torch.Tensor, window: int
     return x.reshape(b, c, h, w).permute(0, 2, 3, 1).contiguous()
 
 
+def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """float32 one-hot rows; a label outside [0, num_classes), such as the -1
+    of a padded val sample, gives a zero row (as ``jax.nn.one_hot``)."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels.long()[:, None] == classes).to(torch.float32)
+
+
 def build_train_augment(
     *,
     num_classes: int = 1000,
@@ -92,9 +100,10 @@ def build_train_augment(
     resample_to: int = None,
 ) -> Callable:
     """Returns fn(generator, images_u8, labels) -> {'image', 'label'}:
-    images (B, H, W, 3) ``out_dtype`` NHWC, labels one-hot float32."""
-    if resample_to is not None:
-        raise NotImplementedError("loader.device_resample is not ported yet (ROADMAP.md Queue 1 item 12)")
+    images (B, H, W, 3) ``out_dtype`` NHWC, labels one-hot float32. With
+    ``resample_to`` it is fn(generator, canvases_u8, labels, meta): the device
+    resample (ops/resample.py) to ``resample_to`` px comes first, and its
+    uint8 batch enters the augment (augment.py:283-303 of the JAX package)."""
     from sota_imagenet_tpu_torch.ops.fused_aug import draw_augment_scalars, fused_augment
 
     kernel_kw = dict(color_twist_prob=color_twist_prob, gray_prob=gray_prob, re_prob=re_prob, re_count=re_count)
@@ -122,10 +131,19 @@ def build_train_augment(
         # Mirror commutes with the pointwise normalize inside the kernel.
         mirror = (torch.rand(bsz, generator=generator, device=dev) < 0.5).view(bsz, 1, 1, 1)
         images = torch.where(mirror, images.flip(2), images)
-        onehot = F.one_hot(labels.long(), num_classes).to(torch.float32)
-        return {"image": images, "label": onehot}
+        return {"image": images, "label": one_hot(labels, num_classes)}
 
-    return augment
+    if resample_to is None:
+        return augment
+    from sota_imagenet_tpu_torch.ops.resample import device_resample
+
+    def with_resample(generator: torch.Generator, images_u8: torch.Tensor, labels: torch.Tensor, meta: torch.Tensor):
+        # dense NHWC, as the kernel reads it (the einsum may hand back a permuted view)
+        resampled = device_resample(images_u8, meta, out_size=resample_to)
+        resampled = resampled.to(torch.uint8, memory_format=torch.contiguous_format)
+        return augment(generator, resampled, labels)
+
+    return with_resample
 
 
 def build_val_augment(*, num_classes: int = 1000, out_dtype: torch.dtype = torch.bfloat16) -> Callable:
@@ -134,7 +152,6 @@ def build_val_augment(*, num_classes: int = 1000, out_dtype: torch.dtype = torch
         # XLA evaluates the JAX package's (x - mean) / std as a multiply by
         # f32(1/std) (bit for bit), which is also the train kernel's normalize
         images = ((images_u8.to(torch.float32) - DATA_MEAN) * (1.0 / DATA_STD)).to(out_dtype)
-        onehot = F.one_hot(labels.long(), num_classes).to(torch.float32)
-        return {"image": images, "label": onehot}
+        return {"image": images, "label": one_hot(labels, num_classes)}
 
     return augment

@@ -24,10 +24,20 @@ from sota_imagenet_tpu_torch.utils.misc import resolve_device
 
 def reduce_metrics(dev_metrics: List[Dict[str, Any]]) -> Dict[str, float]:
     """Mean of each metric over a list of per-step dicts, with ONE device read
-    for all tensor-valued metrics (host floats such as lr are averaged in f32)."""
+    for all tensor-valued metrics (host floats such as lr are averaged in f32).
+
+    Masked val batches carry ``_weight``, their real sample count: then each
+    metric is the mean weighted by it (loop.py:305-312 of the JAX package),
+    so padded and all-padding batches count only their real samples, and
+    ``_weight`` itself is not returned."""
     if not dev_metrics:
         return {}
     keys = list(dev_metrics[0])
+    if "_weight" in keys:
+        keys.remove("_weight")
+        rows = torch.stack([torch.stack([m[k].float() for k in (*keys, "_weight")]) for m in dev_metrics]).tolist()
+        total = sum(row[-1] for row in rows)
+        return {k: sum(row[i] * row[-1] for row in rows) / max(total, 1.0) for i, k in enumerate(keys)}
     tensor_keys = [k for k in keys if isinstance(dev_metrics[0][k], torch.Tensor)]
     out: Dict[str, float] = {}
     if tensor_keys:

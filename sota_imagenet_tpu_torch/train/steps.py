@@ -1,6 +1,6 @@
 """Train and eval steps (port of ``sota_imagenet_tpu/train/steps.py``:
 cutmix_mixup :40-107, init_state :115-140, build_train_step :185-352,
-build_eval_step :355-406).
+build_eval_step :355-406, its masked branch included).
 
 One train step: CutmixMixup on the whole batch -> the batch split into
 ``accumulate_steps`` microbatches, each forward (activation dtype) -> loss
@@ -21,8 +21,7 @@ JAX package's draws to ``apply``.
 
 Step features of the JAX package that are not ported raise
 NotImplementedError naming the ROADMAP item: SAM, remat, grad_transform
-(AGC), post_step_transform (WeightNorm), auxiliary losses, and the masked
-rectangular-val eval branch.
+(AGC), post_step_transform (WeightNorm) and auxiliary losses.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ import torch
 from sota_imagenet_tpu_torch.losses.base import call_criterion
 from sota_imagenet_tpu_torch.models.layers import bind_generator
 from sota_imagenet_tpu_torch.registry import NotPortedError
-from sota_imagenet_tpu_torch.train.metrics import classification_metrics
+from sota_imagenet_tpu_torch.train.metrics import accuracy_topk, classification_metrics
 from sota_imagenet_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -273,13 +272,37 @@ def build_eval_step(
     criterion: Callable, *, input_dtype: torch.dtype = torch.bfloat16, use_ema: bool = False
 ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     def eval_step(state: TrainState, batch: Batch):
-        if "mask" in batch:
-            raise NotPortedError("masked (rectangular / padded) validation", "Queue 1 item 12")
         model = state.ema if (use_ema and state.ema is not None) else state.model
         model.eval()
         with torch.no_grad():
             logits = model(batch["image"].to(input_dtype))
-            loss, _ = call_criterion(criterion, logits, batch["label"])
-            return classification_metrics(logits, batch["label"], loss)
+            labels = batch["label"]
+            if "mask" not in batch:
+                loss, _ = call_criterion(criterion, logits, labels)
+                return classification_metrics(logits, labels, loss)
+            # padded (rectangular or tail) val batch: padded samples are masked
+            # out; metrics are exact masked means, and "_weight" carries the
+            # real sample count so Runner.evaluate can weight the batches
+            mask = batch["mask"].to(torch.float32)
+            n_real = mask.sum()  # true sample count (0 for an all-padding batch)
+            n = torch.clamp(n_real, min=1.0)  # division floor only
+            m = {
+                "Acc@1": (accuracy_topk(logits, labels, 1, mean=False) * mask).sum() / n,
+                "Acc@5": (accuracy_topk(logits, labels, 5, mean=False) * mask).sum() / n,
+            }
+            if hasattr(criterion, "reduction"):
+                per_sample_criterion = copy.copy(criterion)
+                per_sample_criterion.reduction = "none"
+                per_sample, _ = call_criterion(per_sample_criterion, logits, labels)
+                if per_sample.dim() > 1:  # e.g. a (B, C) elementwise loss
+                    per_sample = per_sample.mean(dim=tuple(range(1, per_sample.dim())))
+                m["loss"] = (per_sample.to(torch.float32) * mask).sum() / n
+            else:  # criteria without a per-sample form: the loss over the full batch, pads included
+                loss, _ = call_criterion(criterion, logits, labels)
+                m["loss"] = loss.to(torch.float32)
+            # weight by the true count, so an all-padding batch contributes 0,
+            # not a phantom sample of accuracy 0
+            m["_weight"] = n_real
+            return m
 
     return eval_step

@@ -19,6 +19,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def process_index() -> int:
+    """This process's rank among the processes that share a run (for
+    ``jax.process_index()``): the ``torch.distributed`` rank when a process
+    group is up, else 0. Loaders shard their files by it."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_rank()
+    return 0
+
+
+def process_count() -> int:
+    """How many processes share a run (for ``jax.process_count()``): the
+    ``torch.distributed`` world size when a process group is up, else 1."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_world_size()
+    return 1
+
+
 def set_random_seed(seed: int) -> None:
     """Seed the host RNGs (reference pt.utils.misc.set_random_seed,
     train.py:56). Model init and augment draws use explicit generators."""

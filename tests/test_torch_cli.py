@@ -299,3 +299,122 @@ def test_bn_momentum_reaches_only_models_that_take_it(model, takes_it):
     assert momenta == ({0.03} if takes_it else momenta - {0.03})
     if takes_it:
         assert momenta
+
+
+# --------------------------------------------------------------------------- #
+# tiny_synthetic from an ImageFolder tree of JPEGs (the folder backend)
+# --------------------------------------------------------------------------- #
+
+N_FOLDER_TRAIN, N_FOLDER_VAL = 40, 13
+
+
+def _write_folder_tree(root):
+    """root/{train,val}/class_<c>/*: 32-96 px JPEGs of low-frequency content,
+    the class tied to the colour; one PNG and one grayscale JPEG per split."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for split, n in (("train", N_FOLDER_TRAIN), ("val", N_FOLDER_VAL)):
+        for i in range(n):
+            c = i % 4
+            os.makedirs(os.path.join(root, split, f"class_{c}"), exist_ok=True)
+            w, h = (int(v) for v in rng.integers(32, 97, 2))
+            base = np.clip(rng.integers(0, 64, (4, 5, 3)) + np.array([60 * c, 200 - 50 * c, 120]), 0, 255)
+            img = Image.fromarray(base.astype(np.uint8)).resize((w, h), Image.BILINEAR)
+            stem = os.path.join(root, split, f"class_{c}", f"{i:03d}")
+            if i == 3:
+                img.save(stem + ".png")
+            elif i == 4:
+                img.convert("L").save(stem + ".jpg", quality=90)
+            else:
+                img.save(stem + ".jpg", quality=90)
+    return str(root)
+
+
+def _folder_overrides(root):
+    return ["loader.backend=folder", "val_loader.backend=folder", f"loader.root_data_dir={root}",
+            f"val_loader.root_data_dir={root}", "loader.batch_size=8", "val_loader.batch_size=5",
+            "loader.workers=2", "val_loader.workers=2"]
+
+
+class _EvalProbe(Callback):
+    """Wraps the Runner's eval steps once they are built, recording each val
+    batch's real sample count (``_weight``) and batch size."""
+
+    def on_begin(self):
+        self.passes = []
+
+    def on_epoch_begin(self, epoch):
+        self.passes.append([])
+        for name in ("_eval_step", "_eval_step_ema"):
+            step = getattr(self.runner, name)
+            if getattr(step, "probed", False):
+                continue
+
+            def probed(state, batch, step=step):
+                m = step(state, batch)
+                self.passes[-1].append((float(m["_weight"]), batch["image"].shape[0]))
+                return m
+
+            probed.probed = True
+            setattr(self.runner, name, probed)
+
+
+@pytest.fixture(scope="module")
+def trained_folder(tmp_path_factory):
+    root = _write_folder_tree(tmp_path_factory.mktemp("imagefolder"))
+    logdir = tmp_path_factory.mktemp("logs_folder")
+    rec, probe = _Record(), _EvalProbe()
+    val = cli.main(["-c", TINY, *_folder_overrides(root), f"log.dir={logdir}"], device="cpu", callbacks=[rec, probe])
+    (run_dir,) = glob.glob(os.path.join(logdir, "*_tiny_synthetic", "*"))
+    return {"val": val, "record": rec, "probe": probe, "run_dir": run_dir, "root": root}
+
+
+def test_folder_backend_trains_and_scores_every_val_image_once(trained_folder):
+    rec, probe = trained_folder["record"], trained_folder["probe"]
+    assert rec.steps == 2 * (N_FOLDER_TRAIN // 8) and len(rec.losses) == 2  # two epochs of 5 full batches
+    assert all(math.isfinite(v) for v in (*rec.losses, *trained_folder["val"].values()))
+    assert set(trained_folder["val"]) == {"loss", "Acc@1", "Acc@5"}
+    assert len(probe.passes) == 2
+    for batches in probe.passes:  # 13 images: two full batches of 5 and a tail of 3 padded to 5
+        assert batches == [(5.0, 5), (5.0, 5), (3.0, 5)]
+    assert os.path.exists(os.path.join(trained_folder["run_dir"], "model_last.ckpt"))
+
+
+def test_folder_backend_eval_of_last_checkpoint_reproduces_val_metrics(trained_folder, tmp_path):
+    ckpt = os.path.join(trained_folder["run_dir"], "model_last.ckpt")
+    metrics = cli.main(
+        ["-c", TINY, *_folder_overrides(trained_folder["root"]), f"log.dir={tmp_path}", "run.evaluate=true",
+         f"run.resume={ckpt}"],
+        device="cpu",
+    )
+    assert metrics == trained_folder["val"]
+
+
+def test_rectangular_val_with_device_resample_runs(trained_folder, tmp_path):
+    val = cli.main(
+        ["-c", TINY, *_folder_overrides(trained_folder["root"]), f"log.dir={tmp_path}", "loader.device_resample=true",
+         "val_loader.rectangular=true", "run.stages=[{start: 0, end: 1, lr: [0.05, 0]}]"],
+        device="cpu",
+    )
+    assert set(val) == {"loss", "Acc@1", "Acc@5"} and all(math.isfinite(v) for v in val.values())
+
+
+def test_imagenet_dir_resolves_alike_in_both_config_loaders(trained_folder, monkeypatch):
+    """``root_data_dir: ${env:IMAGENET_DIR}`` (config.py:69 of the JAX package)
+    resolves to the same path in both loaders, and the auto backend then
+    finds the folder tree; unset, both leave the same placeholder."""
+    from sota_imagenet_tpu import config as JC
+    from sota_imagenet_tpu_torch import config as TC
+    from sota_imagenet_tpu_torch.data import pipeline as P
+
+    monkeypatch.delenv("IMAGENET_DIR", raising=False)
+    unset = (TC.load(CONFIG, strict_env=False), JC.load(CONFIG, strict_env=False))
+    assert unset[0].loader.root_data_dir == unset[1].loader.root_data_dir
+    monkeypatch.setenv("IMAGENET_DIR", trained_folder["root"])
+    cfg, jcfg = TC.load(CONFIG, strict_env=False), JC.load(CONFIG, strict_env=False)
+    for split in ("loader", "val_loader"):
+        assert cfg[split].root_data_dir == jcfg[split].root_data_dir == trained_folder["root"]
+    assert isinstance(P._build_host_loader(cfg.loader, True), P.FolderLoader)
+    assert isinstance(P._build_host_loader(cfg.val_loader, False), P.FolderLoader)
