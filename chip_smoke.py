@@ -711,12 +711,133 @@ def data_phase(tree: str, gpu: str) -> dict:
     return result
 
 
+def pack_tree(tree: str, out: str) -> dict:
+    """Packed records of the JPEG tree at 224 px, written by a process per
+    core (spawned: this process holds CUDA); what it took."""
+    from sota_imagenet_tpu_torch.data import native, records
+    from sota_imagenet_tpu_torch.data.packed import create_packed_records
+
+    workers = os.cpu_count() or 8
+    t0 = time.perf_counter()
+    create_packed_records(tree, out, image_size=224, workers=workers)
+    seconds = time.perf_counter() - t0
+    n = FOLDER_TRAIN + FOLDER_VAL
+    return {"images": n, "seconds": seconds, "img_per_s": n / seconds, "workers": workers, "crc32c": records.CRC32C,
+            "decoder": "native" if native.available() else "pil"}
+
+
+def packed_phase(packed_root: str, packing: dict, gpu: str) -> dict:
+    """The packed tier and the device cache, apart from a trainer.
+
+    1. One epoch of the train PackedLoader alone (batch 256, 6 workers): img/s.
+    2. The cache's fill of the train split from a PackedLoader, chunked (256
+       MB) and monolithic: MB, seconds and MB/s (the loader's reading
+       included); the two caches hold the same bytes.
+    3. One batch of the cache (the identity in place of the augment) against
+       the packed records it came from: the rows the cache drew, epoch 0's
+       permutation from (0x5EED, 0, 0), are the records at those positions
+       of the loader's epoch-0 order (seed 42), pixel for pixel, and their
+       labels.
+    4. The gather of one batch (torch.index_select of 256 rows) on the card,
+       CUDA events, against its bound: 2 x 38.5 MB at 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
+    from sota_imagenet_tpu_torch.data.packed import PackedLoader
+
+    def loader(workers=6):
+        return PackedLoader(packed_root, is_train=True, batch_size=256, image_size=224, workers=workers)
+
+    t0 = time.perf_counter()
+    n = sum(batch[0].shape[0] for batch in loader())
+    loader_rate = n / (time.perf_counter() - t0)
+
+    def identity(generator, images, labels):
+        return {"image": images, "label": labels}
+
+    fills, caches = {}, {}
+    for mode, chunk_mb in (("chunked_256mb", 256), ("monolithic", 0)):
+        feed = DeviceCacheFeed(loader(), identity, device="cuda", fill_chunk_mb=chunk_mb)
+        feed.ensure_filled()
+        fills[mode] = {"mb": feed.fill_mb, "s": feed.fill_s, "mb_per_s": feed.fill_mb / feed.fill_s}
+        caches[mode] = feed
+    chunked, mono = caches["chunked_256mb"], caches["monolithic"]
+    n_per = chunked._n_per_shard
+    same = (n_per == mono._n_per_shard and torch.equal(chunked.images[:n_per], mono.images[:n_per])
+            and torch.equal(chunked.labels[:n_per], mono.labels[:n_per]))
+    del mono, caches
+
+    batch = next(iter(chunked))
+    rows = np.random.default_rng((0x5EED, 0, 0)).permutation(n_per)[:256]
+    ref = loader(workers=1)
+    order = np.arange(len(ref.entries))
+    np.random.default_rng(ref.seed + 0).shuffle(order)  # the stream the fill read: epoch 0's order
+    want = [ref._load_one(ref.entries[order[r]]) for r in rows]
+    images_equal = bool((batch["image"].cpu().numpy() == np.stack([w[0] for w in want])).all())
+    labels_equal = batch["label"].cpu().tolist() == [w[1] for w in want]
+
+    idx = torch.from_numpy(rows).cuda()
+    gather_ms = median_ms(lambda: torch.index_select(chunked.images, 0, idx), 10, 20)
+    gather_bytes = 2 * 256 * 224 * 224 * 3
+    result = {
+        "phase": "packed",
+        "packing": packing,
+        "loader_img_per_s_6_workers": loader_rate,
+        "fill": fills,
+        "caches_equal": same,
+        "batch_equals_records": images_equal and labels_equal,
+        "gather_ms_b256": gather_ms,
+        "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3,
+        "cache_rows": n_per,
+        "gpu": gpu,
+    }
+    print(f"[packed] {json.dumps(result)}")
+    if not same:
+        raise AssertionError("the chunked fill's cache differs from the monolithic fill's")
+    if not (images_equal and labels_equal):
+        raise AssertionError(f"a cache batch differs from its records: images {images_equal}, labels {labels_equal}")
+    if n_per != FOLDER_TRAIN:
+        raise AssertionError(f"the train cache holds {n_per} rows, want {FOLDER_TRAIN}")
+    return result
+
+
+def learn_phase(gpu: str) -> dict:
+    """tools/accuracy_proof.main, 30 epochs on the hue corpus with
+    configs/tpu_accuracy.yaml as it stands: best val Acc@1 >= 90, the
+    script's own criterion, and one augment launch per train step (2,000
+    images at batch 64 with drop-last: 31 steps an epoch)."""
+    from sota_imagenet_tpu_torch.tools import accuracy_proof
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0  # counts from here are this path's
+    t0 = time.perf_counter()
+    proof = accuracy_proof.main(["--epochs", str(LEARN_EPOCHS)])
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    result = {"phase": "learn", **proof, "wall_s": wall, "kernel_launches": launches, "gpu": gpu}
+    print(f"[learn] {json.dumps(result)}")
+    if not proof["ok"]:
+        raise AssertionError(f"learn: best val Acc@1 {proof['best_acc1']} below 90 in {LEARN_EPOCHS} epochs")
+    steps = LEARN_EPOCHS * (accuracy_proof.N_CLASSES * accuracy_proof.TRAIN_PER_CLASS // 64)
+    if launches != {"fused_aug": steps, "conv1x1_stats": 0, "moments": 0}:
+        raise AssertionError(f"learn: kernel launches {launches}, want {steps} augment launches")
+    return result
+
+
+LEARN_EPOCHS = 30
+
+
 @contextlib.contextmanager
 def _count_h2d(counter: dict):
-    """Count the bytes DeviceFeed copies to the card, per train and val batch."""
+    """Count the bytes DeviceFeed copies to the card, per train and val
+    batch, and the bytes the device cache copies after its fill (its index
+    rows), per split."""
+    from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
     from sota_imagenet_tpu_torch.data.pipeline import DeviceFeed
 
-    original = DeviceFeed._to_device
+    original, original_cache = DeviceFeed._to_device, DeviceCacheFeed._to_device
 
     def counted(self, tensors, copy_stream):
         split = "train" if getattr(self.host, "is_train", False) else "val"
@@ -724,11 +845,16 @@ def _count_h2d(counter: dict):
         counter[split + "_batches"] = counter.get(split + "_batches", 0) + 1
         return original(self, tensors, copy_stream)
 
-    DeviceFeed._to_device = counted
+    def counted_cache(self, array):
+        key = "cache_" + ("train" if self.is_train else "val") + "_bytes"
+        counter[key] = counter.get(key, 0) + array.nbytes
+        return original_cache(self, array)
+
+    DeviceFeed._to_device, DeviceCacheFeed._to_device = counted, counted_cache
     try:
         yield counter
     finally:
-        DeviceFeed._to_device = original
+        DeviceFeed._to_device, DeviceCacheFeed._to_device = original, original_cache
 
 
 TRAINER_OVERRIDES = (
@@ -736,6 +862,12 @@ TRAINER_OVERRIDES = (
     "val_loader.backend=synthetic",
     "debug=true",  # 10 train steps, 20 val steps
     "run.stages=[{start: 0, end: 1, lr: [0.001, 1.0]}]",
+)
+
+
+CACHE_OVERRIDES = (
+    "debug=true",  # 10 train steps, 20 val steps an epoch
+    "run.stages=[{start: 0, end: 2, lr: [0.001, 1.0]}]",
 )
 
 
@@ -814,6 +946,7 @@ def _probe_callback(profile_window=None, record_shapes=False):
             self.step_ms = [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
             self.param_devices = {p.device.type for p in self.runner.state.model.parameters()}
             self.train_metrics = dict(train_metrics)
+            self.train_metrics_by_epoch = [*getattr(self, "train_metrics_by_epoch", []), dict(train_metrics)]
             self.batch_size = self.runner.batch_size
             state = self.runner.state
             self.ema_differs = state.ema is not None and any(
@@ -999,7 +1132,7 @@ def kernel_counters() -> dict:
 
 def trainer_phase(
     name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None, nfnet_recipe: bool = False,
-    tree: str = None, val_shapes: int = 1,
+    tree: str = None, val_shapes: int = 1, cache: bool = False,
 ) -> dict:
     """cli.main on ``config`` (a full-width model, bs 256 @ 224, bf16);
     ``per_step`` is each kernel's expected launches per train step. With
@@ -1011,19 +1144,25 @@ def trainer_phase(
     val image must be scored once (the sum of the masked val batches'
     ``_weight``), and it reports the decoder's counts, ``input_utilization``,
     ``data_time_s``, the val pass's wall and the bytes copied to the card
-    per train batch; the val batches must come in ``val_shapes`` shapes."""
+    per train batch; the val batches must come in ``val_shapes`` shapes.
+    With ``cache`` the tree is a packed one, read through IMAGENET_DIR by a
+    config that caches it on the card (cache_overrides), and the run also
+    reports the cache's fill (the first epoch's ``cache_fill_s`` and
+    ``cache_mb``) and the bytes it copies to the card per train step."""
     import glob
 
     import torch
 
     from sota_imagenet_tpu_torch import cli
     from sota_imagenet_tpu_torch.data import decode
+    from sota_imagenet_tpu_torch.tools.accuracy_proof import imagenet_dir
 
     probe = _probe_callback(profile_window, record_shapes=nfnet_recipe)
     counters = kernel_counters()
     scopes = _layer_scopes() if (nfnet_recipe and profile_window) else contextlib.nullcontext()
-    data = TRAINER_OVERRIDES if tree is None else folder_overrides(tree)
-    with tempfile.TemporaryDirectory() as logdir, scopes, _count_h2d({}) as h2d:
+    data = TRAINER_OVERRIDES if tree is None else CACHE_OVERRIDES if cache else folder_overrides(tree)
+    env = imagenet_dir(tree) if cache else contextlib.nullcontext()
+    with tempfile.TemporaryDirectory() as logdir, scopes, _count_h2d({}) as h2d, env:
         overrides = [*data, *extra, f"log.dir={logdir}"]
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
@@ -1074,6 +1213,16 @@ def trainer_phase(
             "epoch_times_s": probe.epoch_times_s,
             "epoch_img_per_s": [steps * probe.batch_size / t for t in probe.epoch_times_s],
         })
+    if cache:
+        first = probe.train_metrics_by_epoch[0]
+        result.update({
+            "cache_fill_s": first.get("cache_fill_s"),
+            "cache_mb": first.get("cache_mb"),
+            "input_utilization_by_epoch": [m.get("input_utilization") for m in probe.train_metrics_by_epoch],
+            # the index rows, copied once an epoch: the steady state's only H2D traffic
+            "h2d_mb_per_train_step": h2d.get("cache_train_bytes", 0) / (2 * steps) / 1e6,
+            "h2d_mb_val_per_epoch": h2d.get("cache_val_bytes", 0) / 2 / 1e6,
+        })
     if probe.prof is not None:
         result["profile"] = _device_time_breakdown(probe.prof, probe.prof_wall_ms, profile_window)
         if nfnet_recipe:
@@ -1099,6 +1248,8 @@ def trainer_phase(
         raise AssertionError(f"{name}: params on {probe.param_devices}, batches/metrics on {probe.metric_devices}")
     if not ckpts:
         raise AssertionError(f"{name}: model_last.ckpt was not written")
+    if cache and (result["cache_mb"] != FOLDER_TRAIN * 224 * 224 * 3 / 1e6 or sum(result["decoded"].values())):
+        raise AssertionError(f"{name}: cache of {result['cache_mb']} MB, images decoded {result['decoded']}")
     if tree is not None and (None in probe.val_weights or sum(probe.val_weights) != FOLDER_VAL):
         raise AssertionError(f"{name}: val batches weighed {probe.val_weights}, want masks summing to {FOLDER_VAL}")
     if tree is not None and len(probe.val_shapes) != val_shapes:
@@ -1118,6 +1269,9 @@ KERNEL_GROUPS = (
     # before conv/matmul, whose fragment "conv" would claim conv1x1_stats_kernel
     ("conv1x1_stats", ("conv1x1_stats",)),
     ("moments", ("moments_kernel",)),
+    # the device cache's torch.index_select: vectorized_gather_kernel for the image rows, the
+    # scatter/gather kernel for the labels (not gatherTopK: that is the Acc@5 metric's top-k)
+    ("gather", ("vectorized_gather", "scatter_gather", "indexselect", "index_select")),
     ("memcpy", ("memcpy", "memset")),
     ("conv/matmul", ("conv", "gemm", "sm90", "xmma", "cutlass", "wgrad", "dgrad", "fprop", "cudnn")),
     ("batchnorm", ("batch_norm", "batchnorm", "bn_")),
@@ -1143,10 +1297,12 @@ def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
         reverse=True,
     )
     groups: dict = {}
-    for ms, _, key in rows:
+    members: dict = {}  # group -> its kernels, largest first
+    for ms, n, key in rows:
         low = key.lower()
         group = next((g for g, frags in KERNEL_GROUPS if any(f in low for f in frags)), "other")
         groups[group] = groups.get(group, 0.0) + ms
+        members.setdefault(group, []).append({"ms_per_step": ms / (window[1] - window[0]), "calls": n, "name": key[:100]})
     device_ms = sum(ms for ms, _, _ in rows)
     steps = window[1] - window[0]
     return {
@@ -1156,6 +1312,14 @@ def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
         "busy_share": device_ms / wall_ms if wall_ms > 0 else None,
         "by_group_ms_per_step": {g: ms / steps for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"ms_per_step": ms / steps, "calls": n, "name": key[:120]} for ms, n, key in rows[:15]],
+        "top_kernels_by_group": {g: m[:3] for g, m in members.items() if g != "other"},
+        # where the host's time goes: a host that runs ahead of the card blocks in the launch that finds
+        # CUDA's queue full, or in a call that waits for the card
+        "top_host_ops": [
+            {"ms_per_step": e.self_cpu_time_total / 1e3 / steps, "calls": e.count, "name": e.key[:80]}
+            for e in sorted((e for e in averages if e.device_type == DeviceType.CPU and not e.is_user_annotation),
+                            key=lambda e: -e.self_cpu_time_total)[:8]
+        ],
     }
 
 
@@ -1274,12 +1438,13 @@ def nfnet_breakdown(prof, window) -> dict:
 
 
 PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "data",
-          "trainer_f", "trainer_g", "profile")
+          "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
 RAND_INTERP = "configs/exp/2.r50_rand_interp.yaml"
 DEVICE_RESAMPLE = ("loader.device_resample=true", "val_loader.rectangular=true")
+HBM_CACHE = "configs/exp/r50_hbm_cache.yaml"
 NFNET_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0, 0.01]}]",)  # the recipe's warmup, cut to the one debug epoch
 
 
@@ -1341,8 +1506,9 @@ def main(argv=None) -> int:
         run("trainer_d", trainer_phase, "trainer_d", NFNET, NFNET_STAGE, gpu, aug_only, nfnet_recipe=True)
     if "trainer_e" in phases:
         run("trainer_e", tiny_phase, gpu)
+    cached = {"packed", "trainer_h"} & set(phases) or "profile" in phases
     with tempfile.TemporaryDirectory() as data_root:
-        if {"data", "trainer_f", "trainer_g"} & set(phases):
+        if {"data", "trainer_f", "trainer_g"} & set(phases) or cached:
             run("imagefolder", write_imagefolder, data_root)
             print(f"[data] ImageFolder of JPEGs written: {json.dumps(results.get('imagefolder'))}", flush=True)
         if "data" in phases:
@@ -1352,12 +1518,35 @@ def main(argv=None) -> int:
         if "trainer_g" in phases:
             run("trainer_g", trainer_phase, "trainer_g", R50, DEVICE_RESAMPLE, gpu, aug_only, tree=data_root,
                 val_shapes=3)
-    if "profile" in phases:
-        run("profile", trainer_phase, "profile", R50, (), gpu, aug_only, profile_window=(2, 6))
-        run("profile_c", trainer_phase, "profile_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36},
-            profile_window=(2, 6))
-        run("profile_d", trainer_phase, "profile_d", NFNET, NFNET_STAGE, gpu, aug_only, profile_window=(2, 6),
-            nfnet_recipe=True)
+        packed_root = os.path.join(data_root, "packed")
+        if cached:
+            run("packing", pack_tree, data_root, packed_root)
+            print(f"[packed] records written: {json.dumps(results.get('packing'))}", flush=True)
+        if "packed" in phases:
+            run("packed", packed_phase, packed_root, results.get("packing"), gpu)
+        if "trainer_h" in phases:
+            run("trainer_h", trainer_phase, "trainer_h", HBM_CACHE, (), gpu, aug_only, tree=packed_root, cache=True)
+        if "learn" in phases:
+            run("learn", learn_phase, gpu)
+        if "profile" in phases:
+            run("profile", trainer_phase, "profile", R50, (), gpu, aug_only, profile_window=(2, 6))
+            run("profile_c", trainer_phase, "profile_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36},
+                profile_window=(2, 6))
+            run("profile_d", trainer_phase, "profile_d", NFNET, NFNET_STAGE, gpu, aug_only, profile_window=(2, 6),
+                nfnet_recipe=True)
+            run("profile_h", trainer_phase, "profile_h", HBM_CACHE, (), gpu, aug_only, profile_window=(2, 6),
+                tree=packed_root, cache=True)
+    if "profile_h" in results:
+        # the cache's input stage inside H's step: the gather and the augment kernel, as shares of its device time
+        by_group = results["profile_h"]["profile"]["by_group_ms_per_step"]
+        device_step = results["profile_h"]["profile"]["device_ms"] / results["profile_h"]["profile"]["steps"]
+        shares = {g: {"ms_per_step": by_group.get(g, 0.0), "share_of_step": by_group.get(g, 0.0) / device_step}
+                  for g in ("gather", "fused_aug", "memcpy")}
+        print(f"[profile_h] {json.dumps({'device_ms_per_step': device_step, 'input_stage': shares})}")
+        results["profile_h"]["input_stage"] = shares
+    if "trainer_a" in results and "trainer_h" in results:
+        a, h = results["trainer_a"], results["trainer_h"]
+        print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median_4_10'], 'ms_per_step_a': a['ms_per_step_median_4_10'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
     if "trainer_d" in results and "profile_d" in results:
         # the profiler (shapes recorded, thousands of ops a step) slows trainer D's host far more than A's or C's:
         # its device time per step over the unprofiled step time is the busy share of record
@@ -1381,6 +1570,8 @@ def main(argv=None) -> int:
     kernels[0]["launches_tiny_synthetic"] = results["trainer_e"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_folder"] = results["trainer_f"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_folder_device_resample"] = results["trainer_g"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_hbm_cache"] = results["trainer_h"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_learn"] = results["learn"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))

@@ -4,6 +4,7 @@ train.py).
 Usage:
     python -m sota_imagenet_tpu_torch.cli -c configs/exp/1.r50_baseline.yaml [key=value ...]
     python -m sota_imagenet_tpu_torch.cli -c <yaml> run.evaluate=true run.resume=<run_dir>/model_last.ckpt
+    python -m sota_imagenet_tpu_torch.cli records packed <data_dir> [--size 224] ...   (records_main)
 
 Mirrors the reference main() flow (reference train.py:22-185): config →
 run dir + git snapshot → model / criterion / optimizer → resume → callbacks
@@ -19,6 +20,7 @@ import argparse
 import glob
 import os
 import subprocess
+import sys
 import time
 from typing import Iterable, Optional
 
@@ -220,5 +222,55 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
     return vm
 
 
+def records_main(argv=None):
+    """Dataset prep (port of ``sota_imagenet_tpu/cli.py:411-460``, the JAX
+    package's ``sota-records``). Subcommands:
+
+      records packed   <data_dir> [--out DIR] [--size 224] [--workers N]
+                       [--crops-per-image K] [--val-full-crop]
+      records tfrecord <data_dir> [--out DIR] [--workers N]    (not ported: item 12)
+      records resize   <data_dir> [--size 512] [--workers N]   (not ported: item 13)
+    """
+    parser = argparse.ArgumentParser(description="sota_imagenet_tpu_torch dataset prep")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("tfrecord", help="ImageFolder tree -> sharded TFRecords (+DALI-style .idx)")
+    p.add_argument("data_dir")
+    p.add_argument("--out", default=None)
+    p.add_argument("--workers", type=int, default=os.cpu_count())
+
+    p = sub.add_parser("packed", help="ImageFolder tree -> decode-free packed uint8 records")
+    p.add_argument("data_dir")
+    p.add_argument("--out", default=None)
+    p.add_argument("--size", type=int, default=224)
+    p.add_argument("--workers", type=int, default=os.cpu_count())
+    p.add_argument("--crops-per-image", type=int, default=1)
+    p.add_argument("--val-full-crop", action="store_true")
+
+    p = sub.add_parser("resize", help="pre-resize an ImageFolder tree (reference resize_imagenet.py)")
+    p.add_argument("data_dir")
+    p.add_argument("--size", type=int, default=512)
+    p.add_argument("--workers", type=int, default=os.cpu_count())
+
+    args = parser.parse_args(argv)
+    if args.cmd == "tfrecord":
+        raise NotPortedError("records tfrecord (create_records)", "Queue 1 item 12")
+    if args.cmd == "resize":
+        raise NotPortedError("records resize (resize_tool)", "Queue 1 item 13")
+    from sota_imagenet_tpu_torch.data.packed import create_packed_records
+
+    create_packed_records(
+        args.data_dir,
+        out_dir=args.out,
+        image_size=args.size,
+        workers=args.workers,
+        crops_per_image=args.crops_per_image,
+        full_crop=args.val_full_crop,
+    )
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["records"]:
+        records_main(sys.argv[2:])
+    else:
+        main()

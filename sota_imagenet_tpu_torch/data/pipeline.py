@@ -6,18 +6,21 @@ DataManager :650).
 
 Layering (replaces DALI, reference dali_dataloader.py):
 
-  host loader (synthetic | folder | rectangular val)
+  host loader (synthetic | folder | rectangular val | packed, data/packed.py)
       — yields (uint8 NHWC, int labels[, meta or val mask])
     └─ DeviceFeed: pinned host memory → H2D on a side CUDA stream → device
        augment (ops/augment.py: the device resample when the loader ships
        canvases, then the fused CUDA kernel) → prefetch
+    └─ or, with loader.device_cache, DeviceCacheFeed (data/device_cache.py):
+       the whole split copied to the card once, then a gather and the same
+       augment every step
          └─ batches {'image': (B,H,W,3) bf16 on the device, 'label': one-hot f32
                      [, 'mask': f32 (B,) for padded val batches]}
 
 Per-process sharding: each process reads files[rank::world_size]
 (utils/misc.process_index/process_count; one process unless a
-torch.distributed group is up). The tfrecord and packed backends and the
-device cache raise NotImplementedError naming the ROADMAP item.
+torch.distributed group is up). The tfrecord backend raises
+NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ import torch
 from sota_imagenet_tpu_torch.config import ConfigNode, DataStage, parse_stages
 from sota_imagenet_tpu_torch.data import decode as D
 from sota_imagenet_tpu_torch.data import native
+from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
+from sota_imagenet_tpu_torch.data.packed import PackedLoader
 from sota_imagenet_tpu_torch.ops.augment import build_train_augment, build_val_augment
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
@@ -506,8 +511,17 @@ def _build_host_loader(loader_cfg: ConfigNode, is_train: bool):
             drop_last=is_train,
             device_resample=is_train and bool(loader_cfg.get("device_resample", False)),
         )
-    if backend in ("packed", "tfrecord"):
-        raise _not_ported(f"the {backend!r} data backend", "Queue 1 item 12")
+    if backend == "packed":
+        return PackedLoader(
+            root,
+            is_train=is_train,
+            batch_size=batch_size,
+            image_size=loader_cfg.image_size,
+            workers=loader_cfg.get("workers", 6),
+            drop_last=is_train,  # val: pad + mask the tail (see FolderLoader)
+        )
+    if backend == "tfrecord":
+        raise _not_ported("the 'tfrecord' data backend", "Queue 1 item 12")
     raise ValueError(f"unknown data backend {backend!r}")
 
 
@@ -519,8 +533,6 @@ def build_loader(loader_cfg: ConfigNode, is_train: bool, *, device, seed: int = 
             "val_loader.device_cache is incompatible with val_loader.rectangular "
             "(the cache stores one fixed shape; use the square masked val or drop device_cache)"
         )
-    if loader_cfg.get("device_cache", False):
-        raise _not_ported("loader.device_cache", "Queue 1 item 12")
     host = _build_host_loader(loader_cfg, is_train)
     # legacy classes_divisor: labels are merged host-side (DeviceFeed), so the
     # one-hot width shrinks to the effective class count
@@ -541,6 +553,16 @@ def build_loader(loader_cfg: ConfigNode, is_train: bool, *, device, seed: int = 
         )
     else:
         aug = build_val_augment(num_classes=eff_classes, out_dtype=out_dtype)
+    if loader_cfg.get("device_cache", False):
+        return DeviceCacheFeed(
+            host,
+            aug,
+            device=device,
+            seed=seed,
+            label_divisor=divisor,
+            is_train=is_train,
+            fill_chunk_mb=loader_cfg.get("fill_chunk_mb", 256),
+        )
     return DeviceFeed(
         host, aug, device=device, seed=seed, prefetch=loader_cfg.get("prefetch", 2), label_divisor=divisor
     )

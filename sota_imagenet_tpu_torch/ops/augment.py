@@ -16,6 +16,7 @@ explicit ``torch.Generator`` on the batch's device.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Tuple
 
 import torch
@@ -28,6 +29,14 @@ from sota_imagenet_tpu_torch.constants import DATA_MEAN, DATA_STD
 # saturating round-to-uint8 at the end of each DALI op.
 RGB2YIQ = ((0.299, 0.587, 0.114), (0.596, -0.274, -0.321), (0.211, -0.523, 0.311))
 YIQ2RGB = ((1.0, 0.956, 0.621), (1.0, -0.272, -0.647), (1.0, -1.107, 1.705))
+
+
+@functools.lru_cache(maxsize=None)
+def _yiq_matrices(device: torch.device, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(YIQ2RGB, RGB2YIQ) on ``device``, built once per device and dtype: a
+    tensor made from host data copies it to the card and waits for the
+    stream, which on every train step would hold the host to the card."""
+    return torch.tensor(YIQ2RGB, dtype=dtype, device=device), torch.tensor(RGB2YIQ, dtype=dtype, device=device)
 
 
 def dali_color_matrix(hue_deg, saturation, contrast, brightness):
@@ -49,8 +58,7 @@ def dali_color_matrix(hue_deg, saturation, contrast, brightness):
         ],
         -2,
     )
-    yiq2rgb = torch.tensor(YIQ2RGB, dtype=h.dtype, device=h.device)
-    rgb2yiq = torch.tensor(RGB2YIQ, dtype=h.dtype, device=h.device)
+    yiq2rgb, rgb2yiq = _yiq_matrices(h.device, h.dtype)
     m = yiq2rgb @ chroma @ rgb2yiq
     a = (brightness * contrast)[..., None, None] * m
     off = brightness * 128.0 * (1.0 - contrast)

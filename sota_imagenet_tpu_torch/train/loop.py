@@ -15,10 +15,12 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
 from sota_imagenet_tpu_torch.train import steps as steps_lib
 from sota_imagenet_tpu_torch.train.callbacks import Callback
 from sota_imagenet_tpu_torch.train.schedule import make_lr_schedule
 from sota_imagenet_tpu_torch.train.state import TrainState
+from sota_imagenet_tpu_torch.utils.logging import get_logger
 from sota_imagenet_tpu_torch.utils.misc import resolve_device
 
 
@@ -137,6 +139,10 @@ class Runner:
         if self.state is None:
             raise RuntimeError("call init_state() first")
         self._ensure_began()
+        cached = isinstance(loader, DeviceCacheFeed)
+        if cached:
+            loader.ensure_filled()  # before the first epoch's clock starts, as the JAX loop fills in fused_step
+            get_logger().info("Device-cache input path: gather + augment on the device")
         spe = steps_per_epoch or len(loader)
         self.batch_size = loader.batch_size
         self._build_steps(spe, base_epoch=start_epoch)
@@ -175,6 +181,9 @@ class Runner:
             # HOST-WAIT PROXY, not measured device utilization: 1 - fraction of
             # the epoch the host spent blocked waiting for the next batch
             self.train_metrics["input_utilization"] = max(1.0 - data_time / max(wall, 1e-9), 0.0)
+            if cached and epoch == start_epoch:
+                self.train_metrics["cache_fill_s"] = loader.fill_s
+                self.train_metrics["cache_mb"] = loader.fill_mb
             # validate with EMA weights when EMA is on (reference ModelEma, train.py:135)
             self.val_metrics = (
                 self.evaluate(val_loader, steps=val_steps, use_ema=self.ema_decay > 0, _internal=True)

@@ -160,3 +160,20 @@ def test_train_augment_with_every_stage_runs_on_cpu():
     out = aug(torch.Generator().manual_seed(1), torch.from_numpy(imgs), torch.arange(6) % 5)
     assert out["image"].dtype == torch.bfloat16 and tuple(out["image"].shape) == (6, 24, 20, 3)
     assert torch.isfinite(out["image"].float()).all()
+
+
+def test_train_augment_builds_no_tensor_from_host_data_per_step(monkeypatch):
+    """The colour matrices are made once per device: a tensor built from host
+    data on every step would be a copy to the card and a wait for its stream
+    (two a step on the H100 before this was repaired), which holds the host
+    to the card."""
+    aug = build_train_augment(num_classes=10, color_twist_prob=0.5, out_dtype=torch.float32)
+    imgs, labels = torch.from_numpy(_imgs(4, 8, 8)), torch.arange(4)
+    aug(torch.Generator().manual_seed(0), imgs, labels)  # the first step may build them
+
+    def from_host(*a, **kw):
+        raise AssertionError("torch.tensor called in a train step")
+
+    monkeypatch.setattr(torch, "tensor", from_host)
+    out = aug(torch.Generator().manual_seed(1), imgs, labels)
+    assert out["image"].shape == (4, 8, 8, 3)

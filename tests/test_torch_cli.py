@@ -9,7 +9,9 @@ Then ``configs/tiny_synthetic.yaml`` as it stands (a CModel, two debug
 epochs: the train loss falls, and the eval+resume drive reproduces the final
 val metrics exactly), and the NFNet/AdamW recipe ``15.eca_nfnet_l0.yaml``
 (accumulation 2, CutmixMixup, EMA, drop rates, ``filter_from_wd: [gain]``)
-with a narrow NFNet at 32 px."""
+with a narrow NFNet at 32 px. Last, the folder backend from a JPEG tree,
+and ``configs/exp/r50_hbm_cache.yaml`` from packed records of that tree
+through the device cache, train and val."""
 
 import glob
 import math
@@ -115,7 +117,7 @@ def test_main_defaults_to_cuda():
 @pytest.mark.parametrize(
     "override",
     ["run.remat=true", "mesh.data=2", "run.bn_stats=local", "weight_standardization=true",
-     "loader.device_cache=true", "run.skip_nonfinite=2"],
+     "loader.backend=tfrecord", "run.skip_nonfinite=2"],
 )
 def test_unported_options_raise(override, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -418,3 +420,66 @@ def test_imagenet_dir_resolves_alike_in_both_config_loaders(trained_folder, monk
         assert cfg[split].root_data_dir == jcfg[split].root_data_dir == trained_folder["root"]
     assert isinstance(P._build_host_loader(cfg.loader, True), P.FolderLoader)
     assert isinstance(P._build_host_loader(cfg.val_loader, False), P.FolderLoader)
+
+
+# --------------------------------------------------------------------------- #
+# r50_hbm_cache.yaml: packed records of the tree, through the device cache
+# --------------------------------------------------------------------------- #
+
+HBM_CACHE = os.path.join(CONFIGS, "exp", "r50_hbm_cache.yaml")
+
+
+@pytest.fixture(scope="module")
+def trained_cache(trained_folder, tmp_path_factory):
+    """The tree packed at 32 px by the records CLI, then r50_hbm_cache.yaml
+    (use_packed and device_cache for train and val) with IMAGENET_DIR at the
+    packed tree, a ResNet-18 and one 2-epoch stage."""
+    packed = str(tmp_path_factory.mktemp("packed"))
+    cli.records_main(["packed", trained_folder["root"], "--out", packed, "--size", "32", "--workers", "1"])
+    logdir = tmp_path_factory.mktemp("logs_cache")
+    overrides = ["model={_target_: resnet18, num_classes: 4}", "loader.image_size=32", "loader.num_classes=4",
+                 "val_loader.num_classes=4", "loader.batch_size=8", "val_loader.batch_size=5", "run.bf16=false",
+                 "loader.fill_chunk_mb=0.01", "run.stages=[{start: 0, end: 2, lr: [0.05, 0.0]}]"]
+    rec, probe = _Record(), _EvalProbe()
+    epochs = []
+
+    class Metrics(Callback):
+        def on_epoch_end(self, epoch, train_metrics, val_metrics):
+            epochs.append(dict(train_metrics))
+
+    from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
+
+    sweeps = {True: 0, False: 0}  # epochs iterated through a cache, by is_train
+    original = DeviceCacheFeed.__iter__
+
+    def counted(feed):
+        sweeps[feed.is_train] += 1
+        return original(feed)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("IMAGENET_DIR", packed)
+        mp.setattr(DeviceCacheFeed, "__iter__", counted)
+        val = cli.main(["-c", HBM_CACHE, *overrides, f"log.dir={logdir}"], device="cpu", callbacks=[rec, probe, Metrics()])
+    (run_dir,) = glob.glob(os.path.join(logdir, "*_r50_hbm_cache", "*"))
+    return {"val": val, "record": rec, "probe": probe, "epochs": epochs, "run_dir": run_dir, "packed": packed,
+            "overrides": overrides, "sweeps": sweeps}
+
+
+def test_hbm_cache_config_trains_from_packed_records(trained_cache):
+    assert trained_cache["sweeps"] == {True: 2, False: 2}, "train and val went through the cache, two epochs each"
+    rec, probe, epochs = trained_cache["record"], trained_cache["probe"], trained_cache["epochs"]
+    assert rec.steps == 2 * (N_FOLDER_TRAIN // 8) and all(math.isfinite(v) for v in rec.losses)
+    for batches in probe.passes:  # 13 cached val images: 5 + 5 + 3 of a padded 5, each epoch
+        assert batches == [(5.0, 5), (5.0, 5), (3.0, 5)]
+    assert epochs[0]["cache_mb"] == N_FOLDER_TRAIN * 32 * 32 * 3 / 1e6 and epochs[0]["cache_fill_s"] > 0
+    assert "cache_mb" not in epochs[1]
+    assert all(math.isfinite(v) for v in trained_cache["val"].values())
+    assert os.path.exists(os.path.join(trained_cache["run_dir"], "model_last.ckpt"))
+
+
+def test_hbm_cache_eval_of_last_checkpoint_reproduces_val_metrics(trained_cache, tmp_path, monkeypatch):
+    monkeypatch.setenv("IMAGENET_DIR", trained_cache["packed"])
+    ckpt = os.path.join(trained_cache["run_dir"], "model_last.ckpt")
+    metrics = cli.main(["-c", HBM_CACHE, *trained_cache["overrides"], f"log.dir={tmp_path}", "run.evaluate=true",
+                        f"run.resume={ckpt}"], device="cpu")
+    assert metrics == trained_cache["val"]

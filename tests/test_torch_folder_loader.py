@@ -260,8 +260,7 @@ def test_build_loader_composes_the_resample(tree):
     assert tuple(batches[0]["image"].shape) == (8, 32, 32, 3) and tuple(batches[0]["label"].shape) == (8, 1000)
 
 
-@pytest.mark.parametrize("override", ["loader.backend=packed", "loader.backend=tfrecord", "loader.use_packed=true",
-                                      "loader.use_tfrecords=true", "loader.device_cache=true"])
+@pytest.mark.parametrize("override", ["loader.backend=tfrecord", "loader.use_tfrecords=true"])
 def test_other_input_tiers_raise_naming_item_12(tree, override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
         P.build_loader(_cfg(tree, override).loader, True, device="cpu")

@@ -1,0 +1,123 @@
+"""The port's learning tools (``sota_imagenet_tpu_torch.tools``) against the
+JAX package's scripts: the same corpora (pixel for pixel), the same curve
+criterion and stage overrides; then each tool driven end to end on the CPU
+at a toy size (a ResNet-18 at 32 px, debug epochs), which checks the wiring,
+not the accuracy: that is measured on the card."""
+
+import importlib.util
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from sota_imagenet_tpu_torch.tools import accuracy_proof as A
+from sota_imagenet_tpu_torch.tools import recipe_rehearsal as RR
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(f"_jax_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def jax_proof():
+    return _script("tpu_accuracy_proof")
+
+
+@pytest.fixture(scope="module")
+def jax_rehearsal():
+    return _script("tpu_recipe_rehearsal")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("corpus", ["hue", "texture"])
+def test_accuracy_corpus_images_match_the_jax_script(jax_proof, corpus):
+    make, jmake = (A._make_image, jax_proof._make_image) if corpus == "hue" else (
+        A._make_texture_image, jax_proof._make_texture_image)
+    assert (A.N_CLASSES, A.TRAIN_PER_CLASS, A.VAL_PER_CLASS, A.SRC_SIZE) == (
+        jax_proof.N_CLASSES, jax_proof.TRAIN_PER_CLASS, jax_proof.VAL_PER_CLASS, jax_proof.SRC_SIZE)
+    rng, jrng = np.random.default_rng(0), np.random.default_rng(0)
+    for cls in range(A.N_CLASSES):
+        np.testing.assert_array_equal(make(rng, cls), jmake(jrng, cls))
+
+
+def test_rehearsal_corpus_images_match_the_jax_script(jax_rehearsal):
+    assert (RR.N_CLASSES, RR.TRAIN_PER_CLASS, RR.VAL_PER_CLASS, RR.SRC_SIZE) == (
+        jax_rehearsal.N_CLASSES, jax_rehearsal.TRAIN_PER_CLASS, jax_rehearsal.VAL_PER_CLASS, jax_rehearsal.SRC_SIZE)
+    for cls in range(0, RR.N_CLASSES, 7):
+        rng, jrng = np.random.default_rng(cls), np.random.default_rng(cls)
+        np.testing.assert_array_equal(RR._make_image(rng, cls), jax_rehearsal._make_image(jrng, cls))
+
+
+CURVES = [
+    [10, 50, 90, 96, 97, 97.5, 98, 98],
+    [10, 50, 99, 80, 97, 97.5, 98, 98],  # a crater mid-run
+    [10, 50, 90, 96, 97, 97.5, 99, 95],  # a late regression
+    [10, 20, 30, 40],
+    [99.0],
+]
+
+
+@pytest.mark.parametrize("curve", range(len(CURVES)))
+def test_check_curve_matches_the_jax_script(jax_rehearsal, curve):
+    accs = CURVES[curve]
+    assert RR.check_curve(accs, 95.0) == jax_rehearsal.check_curve(accs, 95.0)
+
+
+def test_rehearsal_recipes_and_stages_match_the_jax_script(jax_rehearsal):
+    for name in ("r50_baseline", "nfnet"):
+        assert RR.RECIPES[name] == jax_rehearsal.RECIPES[name]
+    # the string the JAX script builds for the r50 shape over 30 epochs (tpu_recipe_rehearsal.py:212-219)
+    assert RR.stages_override(RR.RECIPES["r50_baseline"], 30) == (
+        "run.stages=[{start: 0, end: 3, lr: [0.001, 1.0]}, {start: 3, end: 30, lr: [1.0, 0.0], lr_mode: cos}]"
+    )
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        RR.main(["--recipe", "nf_lamb"], device="cpu")
+
+
+SMALL = ["model={_target_: resnet18, num_classes: 20}", "loader.image_size=32", "loader.batch_size=16",
+         "val_loader.batch_size=20", "run.bf16=false", "debug=true"]
+
+
+def test_accuracy_proof_drives_the_cli_and_reports_each_epoch(capsys):
+    result = A.main(["--epochs", "3", "--threshold", "0"], device="cpu", overrides=SMALL)
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == json.loads(json.dumps(result))
+    assert len(result["curve"]) == 3 and all(0 <= a <= 100 for a in result["curve"])
+    assert result["final_acc1"] == result["curve"][-1] and result["best_acc1"] == max(result["curve"])
+    assert 0 <= result["final_acc1_raw_weights"] <= 100  # the raw weights, scored after the EMA's val pass
+    assert result["ok"] and result["corpus"] == "hue" and result["config"] == "tpu_accuracy.yaml"
+
+
+def test_recipe_rehearsal_packs_its_corpus_for_the_cached_run(tmp_path, monkeypatch):
+    """--data reuses a corpus; the use_packed override packs it at the run's
+    sizes first (a writer per core: one here, in this process), and the run
+    reads the packed tree through the cache."""
+    monkeypatch.setattr(os, "cpu_count", lambda: 1)
+    for split, n in (("train", 16), ("val", 4)):
+        for i in range(n):
+            d = tmp_path / split / f"class_{i % 4:03d}"
+            d.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(RR._make_image(np.random.default_rng(i), i % 4)).save(d / f"{i}.jpg", quality=92)
+    overrides = [f"--override={o}" for o in ("model={_target_: resnet18, num_classes: 100}", "loader.batch_size=8",
+                                               "val_loader.batch_size=4", "loader.image_size=32", "run.bf16=false",
+                                               "loader.use_packed=true", "loader.device_cache=true",
+                                               "val_loader.use_packed=true", "val_loader.device_cache=true")]
+    result = RR.main(["--data", str(tmp_path), "--epochs", "2", "--threshold", "0", *overrides], device="cpu")
+    assert result["train_size"] == result["val_size"] == 32 and result["pack_s"] > 0
+    assert len(result["val_curve"]) == 2 and result["epochs"] == 2
+    assert "corpus_s" not in result  # the corpus was reused, not written

@@ -467,3 +467,140 @@ def test_bn_buffers_chain_through_the_microbatches_as_in_jax(jax_resnet18_accumu
     # two microbatches update the buffers twice: not what one pass over the whole batch leaves
     whole = ref[1]["final"]
     assert _rel_l2({k: got[k] for k in buffers}, {k: whole[k] for k in buffers}) > 1e-3
+
+
+# --------------------------------------------------------------------------- #
+# The float64 trajectory gate: nine steps in the three variants of
+# tests/test_trajectory_parity.py (plain SGD; EMA + cutmix/mixup; AdamW)
+# --------------------------------------------------------------------------- #
+
+TRAJ_STEPS, TRAJ_BATCH, TRAJ_WD, TRAJ_EMA = 9, 8, 1e-2, 0.99
+TRAJ_OPTIM = {
+    "sgd": {"_target_": "sgd", "momentum": 0.9, "weight_decay": TRAJ_WD},
+    "adamw": {"_target_": "adamw", "betas": [0.9, 0.999], "eps": 1e-8, "weight_decay": TRAJ_WD},
+}
+TRAJ_PEAK = {"sgd": 0.02, "adamw": 1e-3}  # tests/test_trajectory_parity.py:159
+TRAJ_MIX = dict(cutmix_alpha=1.0, mixup_alpha=0.2, prob=1.0)
+# Tolerances: loss (a float32 metric in both packages) and grad_norm rtol 1e-7
+# at every step; the change of the params, BN buffers and EMA over the nine
+# steps within relative L2 1e-6, except AdamW's params: 1e-5. Measured by this
+# test (CPU): grad_norm within 2e-8, state 4.1e-8 (plain), and AdamW's params
+# 1.34e-6, all of it in a few weights: AdamW divides each gradient element by
+# its running RMS + eps (1e-8), so an element whose gradient lies below eps
+# moves by lr/eps = 1e5 times its float64 rounding difference (with eps 1e-4
+# the same run is 7.6e-8 apart).
+TRAJ_TOL = {"loss": 1e-7, "state": 1e-6, "adamw_params": 1e-5}
+R18_1 = dict(layers=(1, 1, 1, 1), bottleneck=False)
+
+
+def _traj_batches():
+    """Four batches, cycled: the trajectory test's inputs (normal images, a
+    shifted label per sample)."""
+    rng = np.random.default_rng(0)
+    images = rng.normal(0, 1, (4, TRAJ_BATCH, SIZE, SIZE, 3))
+    labels = np.eye(CLASSES)[np.stack([(np.arange(TRAJ_BATCH) + i) % CLASSES for i in range(4)])]
+    return images, labels
+
+
+def _traj_phases(optim):
+    return [{"ep": (0, 1), "lr": (TRAJ_PEAK[optim] / 20, TRAJ_PEAK[optim]), "mode": "linear"}]
+
+
+@pytest.fixture(scope="module", params=["plain", "ema_mixup", "adamw"])
+def jax_trajectory(request):
+    """The JAX float64 trajectory of a ReLU ResNet (one BasicBlock a stage):
+    per-step metrics, the mixup draws each step took from its key, and the
+    initial and final states (numpy, port layout)."""
+    from sota_imagenet_tpu.models.resnet import BasicBlock as JBasicBlock
+
+    variant = request.param
+    optim = "adamw" if variant == "adamw" else "sgd"
+    mixed = variant == "ema_mixup"
+    ema = TRAJ_EMA if mixed else 0.0
+    images, labels = _traj_batches()
+    host = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    with jax.enable_x64(True):
+        to64 = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), jnp.float64), t)
+        jmodel = JResNet(block=JBasicBlock, layers=R18_1["layers"], num_classes=CLASSES)
+        sched = jax_make_lr_schedule(_traj_phases(optim), steps_per_epoch=20)
+        variables = jax.jit(lambda k: jmodel.init(k, jnp.zeros((2, SIZE, SIZE, 3)), train=False))(jax.random.PRNGKey(0))
+        params, stats = to64(variables["params"]), to64(variables["batch_stats"])
+        tx = jax_build_optimizer(TRAJ_OPTIM[optim], sched, wd_mask=jax_filter_wd(params, []))
+        state = jsteps.TrainState(
+            step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats, opt_state=tx.init(params),
+            ema_params=params if ema else None, ema_batch_stats=stats if ema else None,
+        )
+        mixup_fn = functools.partial(jsteps.cutmix_mixup, **TRAJ_MIX) if mixed else None
+        step = jax.jit(jsteps.build_train_step(jmodel, JCrossEntropyLoss(smoothing=0.1), tx, sched, ema_decay=ema,
+                                               mixup_fn=mixup_fn, input_dtype=jnp.float64))
+        run_key = jax.random.PRNGKey(1)
+        metrics, draws = [], []
+        for i in range(TRAJ_STEPS):
+            if mixed:
+                k_mix, _, _ = jax.random.split(jax.random.fold_in(run_key, i), 3)  # steps.py:258-259
+                k_apply, k_choice, k_lam_m, k_lam_c, k_box = jax.random.split(k_mix, 5)  # steps.py:66
+                d = {
+                    "apply": jax.random.bernoulli(k_apply, TRAJ_MIX["prob"]),
+                    "use_cutmix": jax.random.bernoulli(k_choice, 0.5),
+                    "lam_m": jax.random.beta(k_lam_m, TRAJ_MIX["mixup_alpha"], TRAJ_MIX["mixup_alpha"]),
+                    "lam_c": jax.random.beta(k_lam_c, TRAJ_MIX["cutmix_alpha"], TRAJ_MIX["cutmix_alpha"]),
+                    "cy": jax.random.randint(k_box, (), 0, SIZE),
+                    "cx": jax.random.randint(jax.random.fold_in(k_box, 1), (), 0, SIZE),
+                }
+                draws.append({k: torch.from_numpy(np.array(v)) for k, v in d.items()})
+            b = i % images.shape[0]
+            batch = {"image": jnp.asarray(images[b], jnp.float64), "label": jnp.asarray(labels[b], jnp.float64)}
+            state, m = step(state, batch, run_key)
+            metrics.append({k: float(v) for k, v in m.items()})
+        return {
+            "variant": variant, "optim": optim, "ema": ema, "metrics": metrics, "draws": draws,
+            "init": flax_to_torch(host(params), host(stats), **R18_1),
+            "final": _np(flax_to_torch(host(state.params), host(state.batch_stats), **R18_1)),
+            "final_ema": _np(flax_to_torch(host(state.ema_params), host(state.ema_batch_stats), **R18_1)) if ema else None,
+        }
+
+
+def _rel_l2_delta(got: dict, want: dict, init: dict, keys) -> float:
+    """Relative L2 of the port's change from ``init`` against the JAX change."""
+    return _rel_l2({k: got[k] - init[k] for k in keys}, {k: want[k] - init[k] for k in keys})
+
+
+def test_nine_float64_steps_track_jax(jax_trajectory):
+    """The port's build_train_step in float64 against JAX's for nine steps
+    (the mixup variant on the JAX step's own draws), at TRAJ_TOL."""
+    from sota_imagenet_tpu_torch.models.resnet import BasicBlock
+
+    ref = jax_trajectory
+    images, labels = _traj_batches()
+    model = ResNet(block=BasicBlock, layers=R18_1["layers"], num_classes=CLASSES)
+    mask = filter_from_weight_decay(model.named_parameters(), [])
+    state = steps.init_state(model, lambda m: build_optimizer(TRAJ_OPTIM[ref["optim"]], m.named_parameters(), wd_mask=mask),
+                             device="cpu", ema_decay=ref["ema"])
+    for m in (state.model, state.ema) if ref["ema"] else (state.model,):
+        m.load_state_dict(ref["init"])
+        m.to(torch.float64)
+    fed = iter(ref["draws"])
+    mixup_fn = None
+    if ref["draws"]:
+        mixup_fn = lambda gen, im, lb: steps.apply_cutmix_mixup(im, lb, next(fed), TRAJ_MIX["cutmix_alpha"], TRAJ_MIX["mixup_alpha"])
+    tstep = steps.build_train_step(CrossEntropyLoss(smoothing=0.1), make_lr_schedule(_traj_phases(ref["optim"]), steps_per_epoch=20),
+                                   ema_decay=ref["ema"], mixup_fn=mixup_fn, input_dtype=torch.float64)
+    for i in range(TRAJ_STEPS):
+        b = i % images.shape[0]
+        state, m = tstep(state, {"image": torch.from_numpy(images[b]), "label": torch.from_numpy(labels[b])})
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[k]), ref["metrics"][i][k], rtol=TRAJ_TOL["loss"], err_msg=f"step {i} {k}")
+        # the JAX schedule evaluates in float32, the port's in float64
+        np.testing.assert_allclose(float(m["lr"]), ref["metrics"][i]["lr"], rtol=2**-23, err_msg=f"step {i} lr")
+    init = _np(ref["init"])
+    got = _np(state.model.state_dict())
+    params = [k for k in init if "running" not in k and "num_batches" not in k]
+    buffers = [k for k in init if "running" in k]
+    errs = {"params": _rel_l2_delta(got, ref["final"], init, params), "bn": _rel_l2_delta(got, ref["final"], init, buffers)}
+    if ref["ema"]:
+        errs["ema"] = _rel_l2_delta(_np(state.ema.state_dict()), ref["final_ema"], init, params + buffers)
+    tol = {k: TRAJ_TOL["state"] for k in errs}
+    if ref["optim"] == "adamw":
+        tol["params"] = TRAJ_TOL["adamw_params"]
+    assert all(errs[k] < tol[k] for k in errs), (errs, tol)
+    assert _rel_l2({k: ref["final"][k] for k in params}, {k: init[k] for k in params}) > 1e-3  # the weights moved
