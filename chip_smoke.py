@@ -30,7 +30,9 @@ without a build; any failure exits non-zero and prints no result):
              the card against the same step on the CPU, from the same seeded
              weights, unfused and with fused_stats (tolerances in
              model_phase); and one f32 step of a full-width, depth-cut NFNet
-             with AdamW, accumulation 2 and the gain mask (nfnet_model_phase).
+             with AdamW, accumulation 2 and the gain mask (nfnet_model_phase);
+             and one of the 24.nf_conv-act trunk with LAMB and the ortho loss
+             (nf_lamb_model_phase).
 4. trainer A — ``cli.main`` on configs/exp/1.r50_baseline.yaml (ResNet-50 at
              full width, batch 256 at 224 px, bf16, synthetic data, debug
              mode: 10 train steps and 20 val steps). Checks: finite loss, the
@@ -80,11 +82,29 @@ without a build; any failure exits non-zero and prints no result):
              and val_loader.rectangular=true: 560 px canvases resampled on the
              card, then the augment kernel; val in three aspect shapes,
              weighted by ``_weight``.
-12. profile — trainers A, C and D once more with torch.profiler over steps
-             4-7: device time per step by layer and the top kernels, and the
-             device's busy share (separate runs, so the trainers' times stay
-             clean). Trainer D's device time is attributed to the port's
-             layers by the op that launched each kernel (nfnet_breakdown).
+12. packed, trainer H, learn — packed records of that tree, r50 through
+             the device cache (r50_hbm_cache.yaml), and the accuracy proof
+             (packed_phase, trainer_phase with ``cache``, learn_phase).
+13. trainer I — ``cli.main`` on configs/exp/41.nf_conv-act_lamb.yaml as the
+             file says but for synthetic data, debug mode and one 1-epoch
+             stage of its cosine: the norm-free CModel of 24.nf_conv-act at
+             full width (ConvActBlocks, VarEMA monitors, NormFreeBlockTimm
+             with ECA), batch 224 at 224 px, bf16, CutmixMixup, LAMB (wd 5e-3,
+             the gain mask), OrthoInitClb and OrthoLossClb type 1, the augment
+             kernel with all its stages live. Checks as trainer A, and: after
+             OrthoInitClb (a probe whose on_begin runs after it) the rows of a
+             NormFreeBlockTimm's grouped 3x3 conv2 kernel are orthonormal
+             within 1e-5, no gain is weight-decayed, a VarEMA std_ema has
+             moved from 1. The model phase holds one f32 step of the same
+             trunk (LAMB, OrthoLoss) on the card against the CPU
+             (nf_lamb_model_phase).
+14. profile — trainers A, C, D, H and I once more with torch.profiler over
+             steps 4-7: device time per step by layer and the top kernels,
+             and the device's busy share (separate runs, so the trainers'
+             times stay clean). D's and I's device time is attributed to the
+             port's layers by the op that launched each kernel
+             (layer_breakdown); I's must show the auxiliary loss's forward
+             and backward in every profiled step.
 
 Every kernel counter is set to 0 just before each trainer's ``cli.main`` and
 read just after. The line before the last is the card's name and power
@@ -900,6 +920,19 @@ def _probe_callback(profile_window=None, record_shapes=False):
 
     class Probe(Callback):
         prof = None
+        ortho = None
+
+        def on_begin(self):
+            # after OrthoInitClb's on_begin (cli.main puts the config's callbacks first): the rows of one
+            # NormFreeBlockTimm's grouped 3x3 conv2 kernel, as the step will first read them
+            from sota_imagenet_tpu_torch.models.blocks import NormFreeBlockTimm
+
+            block = next((m for m in self.runner.state.model.modules() if isinstance(m, NormFreeBlockTimm)), None)
+            if block is not None:
+                w = block.conv2.weight.detach().float()
+                rows = w.reshape(w.shape[0], -1)
+                err = (rows @ rows.T - torch.eye(rows.shape[0], device=rows.device)).abs().max()
+                self.ortho = {"shape": list(w.shape), "groups": block.conv2.groups, "max_abs_gram_minus_eye": float(err)}
 
         def on_epoch_begin(self, epoch):
             self.events = [torch.cuda.Event(enable_timing=True)]
@@ -952,6 +985,7 @@ def _probe_callback(profile_window=None, record_shapes=False):
             self.ema_differs = state.ema is not None and any(
                 not torch.equal(a, b) for a, b in zip(state.ema.state_dict().values(), state.model.state_dict().values())
             )
+            self.std_emas = [float(b) for n, b in state.model.named_buffers() if n.endswith("std_ema")]
             names = {id(p): n for n, p in state.model.named_parameters()}
             self.weight_decay_of = {
                 names[id(p)]: g["weight_decay"] for g in state.optimizer.param_groups for p in g["params"]
@@ -1083,6 +1117,77 @@ def nfnet_model_phase() -> dict:
     return result
 
 
+def nf_lamb_model_phase() -> dict:
+    """One f32 train step of the 24.nf_conv-act trunk at full width (its YAML's
+    layer list, 64 px, batch 8) on the card against the same step on the CPU,
+    from the same seeded weights: LAMB through badam (wd 5e-3, eps 1e-6) with
+    the gain mask, OrthoLossClb type 1 (min_filters 64, min_norm 0.1, weight
+    1e-3) as the auxiliary loss, lr 0.003, TF32 off; drop-path and dropout
+    off (their draws differ between the two generators). Tolerances as the
+    NFNet case's: loss rtol 1e-4, grad_norm rtol 1e-2, and, since LAMB moves
+    each parameter by lr = 0.003 of its norm (so the whole state moves by
+    ~3e-3), the update (state after minus state before) within relative L2
+    1e-2, and the VarEMA statistics within rtol 1e-4. swish_hard has kinks
+    at -3 and 3: a float32 rounding that moves a pre-activation across one
+    moves a few gradient elements, which these tolerances absorb. On an
+    NVIDIA H100 80GB HBM3 (700 W) the card was 6.1e-8 (loss), 6.8e-7
+    (grad_norm), 1.6e-5 (update) and 6.2e-8 (std_ema) off the CPU."""
+    import torch
+
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
+    from sota_imagenet_tpu_torch.models.layers import DropPath, Dropout
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.train.callbacks import OrthoLossClb
+    from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
+
+    cfg = C.load(NF_LAMB, strict_env=False)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (8, 64, 64, 3), generator=gen).float().sub(127.5).mul(1 / 51.0)
+    labels = torch.nn.functional.one_hot(torch.randint(0, 1000, (8,), generator=gen), 1000).float()
+    aux = OrthoLossClb(type=1, weight=1e-3, min_filters=64, min_norm=0.1).step_options()["aux_loss"]
+    runs = []  # (loss, grad_norm, state before, state after, VarEMA std_emas) on the CPU, then on the card
+    for dev in ("cpu", "cuda"):
+        model = cli.build_model(cfg)
+        for m in model.modules():
+            if isinstance(m, DropPath):
+                m.keep_prob = 1.0
+            elif isinstance(m, Dropout):
+                m.rate = 0.0
+        mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd)
+        state = steps.init_state(
+            model, lambda m: build_optimizer(dict(cfg.optim), m.named_parameters(), wd_mask=mask), device=dev, seed=0
+        )
+        before = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
+        step = steps.build_train_step(CrossEntropyLoss(smoothing=0.1), lambda i: 0.003, input_dtype=torch.float32,
+                                      aux_loss=aux)
+        state, m = step(state, {"image": images.to(dev), "label": labels.to(dev)})
+        after = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
+        std_emas = torch.tensor([float(b) for n, b in state.model.named_buffers() if n.endswith("std_ema")])
+        runs.append((float(m["loss"]), float(m["grad_norm"]), before, after, std_emas))
+    (loss_c, gn_c, b_c, a_c, s_c), (loss_g, gn_g, b_g, a_g, s_g) = runs
+    result = {
+        "phase": "model_nf_lamb",
+        "optimizer": type(state.optimizer).__name__,
+        "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+        "grad_norm_rel": abs(gn_g - gn_c) / abs(gn_c),
+        "init_equal": bool(torch.equal(b_c, b_g)),
+        "update_rel_l2": float(((a_g - b_g) - (a_c - b_c)).norm() / (a_c - b_c).norm()),
+        "state_rel_l2": float((a_g - a_c).norm() / a_c.norm()),
+        "update_over_state": float((a_c - b_c).norm() / b_c.norm()),
+        "std_ema_rel": float(((s_g - s_c).abs() / s_c.abs()).max()),
+        "loss": [loss_c, loss_g],
+        "grad_norm": [gn_c, gn_g],
+    }
+    print(f"[model_nf_lamb] {json.dumps(result)}")
+    if not (result["init_equal"] and result["optimizer"] == "Lamb" and result["loss_rel"] < 1e-4
+            and result["grad_norm_rel"] < 1e-2 and result["update_rel_l2"] < 1e-2 and result["std_ema_rel"] < 1e-4):
+        raise AssertionError(f"NF/LAMB train step on the card disagrees with the CPU: {result}")
+    return result
+
+
 def tiny_phase(gpu: str) -> dict:
     """cli.main on configs/tiny_synthetic.yaml as it stands (a CModel of three
     ConvActBlocks, f32, 32 px, batch 64, two debug epochs of 10 steps) on the
@@ -1131,14 +1236,18 @@ def kernel_counters() -> dict:
 
 
 def trainer_phase(
-    name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None, nfnet_recipe: bool = False,
+    name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None, recipe: str = None,
     tree: str = None, val_shapes: int = 1, cache: bool = False,
 ) -> dict:
     """cli.main on ``config`` (a full-width model, bs 256 @ 224, bf16);
     ``per_step`` is each kernel's expected launches per train step. With
-    ``nfnet_recipe`` the run must also end with an EMA that differs from the
-    weights and every gain outside the weight decay, and a profile is
-    attributed to the port's layers (nfnet_breakdown). With ``tree`` it reads
+    ``recipe`` "nfnet" the run must also end with an EMA that differs from
+    the weights and every gain outside the weight decay; with "nf_lamb",
+    every gain outside the weight decay, the rows of a NormFreeBlockTimm's
+    conv2 kernel orthonormal within 1e-5 after OrthoInitClb, and a VarEMA
+    std_ema moved from 1. With either, a profile is attributed to the port's
+    layers (layer_breakdown); nf_lamb's must find the auxiliary loss's
+    forward and backward in every profiled step. With ``tree`` it reads
     that JPEG ImageFolder (train and val) instead of synthetic data, for two
     epochs (folder_overrides), and reports the second: every
     val image must be scored once (the sum of the masked val batches'
@@ -1157,9 +1266,9 @@ def trainer_phase(
     from sota_imagenet_tpu_torch.data import decode
     from sota_imagenet_tpu_torch.tools.accuracy_proof import imagenet_dir
 
-    probe = _probe_callback(profile_window, record_shapes=nfnet_recipe)
+    probe = _probe_callback(profile_window, record_shapes=recipe is not None)
     counters = kernel_counters()
-    scopes = _layer_scopes() if (nfnet_recipe and profile_window) else contextlib.nullcontext()
+    scopes = _layer_scopes() if (recipe and profile_window) else contextlib.nullcontext()
     data = TRAINER_OVERRIDES if tree is None else CACHE_OVERRIDES if cache else folder_overrides(tree)
     env = imagenet_dir(tree) if cache else contextlib.nullcontext()
     with tempfile.TemporaryDirectory() as logdir, scopes, _count_h2d({}) as h2d, env:
@@ -1225,9 +1334,11 @@ def trainer_phase(
         })
     if probe.prof is not None:
         result["profile"] = _device_time_breakdown(probe.prof, probe.prof_wall_ms, profile_window)
-        if nfnet_recipe:
-            result["profile"]["by_layer_ms_per_step"] = nfnet_breakdown(probe.prof, profile_window)
-    if nfnet_recipe:
+        if recipe:
+            by_layer, aux_steps = layer_breakdown(probe.prof, profile_window)
+            result["profile"]["by_layer_ms_per_step"] = by_layer
+            result["profile"]["aux_loss_steps"] = aux_steps
+    if recipe:
         decay = probe.weight_decay_of
         result["ema_differs_from_weights"] = probe.ema_differs
         result["weight_decay_groups"] = {
@@ -1235,6 +1346,10 @@ def trainer_phase(
             "not_decayed": sum(1 for v in decay.values() if v == 0),
             "gains_decayed": sorted(k for k, v in decay.items() if "gain" in k and v > 0),
         }
+    if recipe == "nf_lamb":
+        result["ortho_init"] = probe.ortho
+        result["std_ema"] = probe.std_emas
+        result["parameters_m"] = sum(p.numel() for p in probe.runner.state.model.parameters()) / 1e6
     print(f"[{name}] {json.dumps(result)}")
     if not math.isfinite(loss) or not all(math.isfinite(v) for v in val.values()):
         raise AssertionError(f"{name}: non-finite loss (train {loss}, val {val})")
@@ -1254,12 +1369,22 @@ def trainer_phase(
         raise AssertionError(f"{name}: val batches weighed {probe.val_weights}, want masks summing to {FOLDER_VAL}")
     if tree is not None and len(probe.val_shapes) != val_shapes:
         raise AssertionError(f"{name}: val batches of shapes {probe.val_shapes}, want {val_shapes} shapes")
-    if nfnet_recipe:
+    if recipe:
         groups = result["weight_decay_groups"]
-        if not probe.ema_differs:
+        if recipe == "nfnet" and not probe.ema_differs:
             raise AssertionError(f"{name}: the EMA equals the weights after {steps} steps")
         if groups["gains_decayed"] or not groups["decayed"] or not any("gain" in k for k in probe.weight_decay_of):
             raise AssertionError(f"{name}: weight decay groups {groups}")
+    if recipe == "nf_lamb":
+        ortho = probe.ortho
+        if ortho is None or ortho["shape"] != [384, 64, 3, 3] or ortho["max_abs_gram_minus_eye"] > 1e-5:
+            raise AssertionError(f"{name}: a NormFreeBlockTimm conv2 kernel after OrthoInitClb: {ortho}")
+        if not any(abs(v - 1.0) > 1e-3 for v in probe.std_emas):
+            raise AssertionError(f"{name}: no VarEMA std_ema moved from 1: {probe.std_emas}")
+        if profile_window and result["profile"]["aux_loss_steps"] != {
+            "forward": profile_window[1] - profile_window[0], "backward": profile_window[1] - profile_window[0]
+        }:
+            raise AssertionError(f"{name}: the auxiliary loss in the profiled steps: {result['profile']['aux_loss_steps']}")
     return result
 
 
@@ -1325,18 +1450,19 @@ def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
 
 @contextlib.contextmanager
 def _layer_scopes():
-    """For a profiled run: wrap the weight standardisation, the ECA gate and
-    cutmix_mixup in torch.profiler.record_function scopes (``ws``, ``eca``,
-    ``mixup``), so nfnet_breakdown can tell their kernels from the other
-    elementwise ones. The originals are put back on exit; the scopes cost the
-    host a few microseconds each, which is why the timed trainer runs without
-    them."""
+    """For a profiled run: wrap the weight standardisation, the ECA gate,
+    VarEMA, the auxiliary losses and cutmix_mixup in
+    torch.profiler.record_function scopes (SCOPE_LAYERS), so layer_breakdown
+    can tell their kernels from the other elementwise ones. The originals are
+    put back on exit; the scopes cost the host a few microseconds each, which
+    is why the timed trainer runs without them."""
     import functools
 
     import torch
 
     from sota_imagenet_tpu_torch.models.attention import ECA
     from sota_imagenet_tpu_torch.models.layers import ScaledStdConv
+    from sota_imagenet_tpu_torch.models.norms import VarEMA
     from sota_imagenet_tpu_torch.train import callbacks
 
     def scoped(label, fn):
@@ -1347,7 +1473,11 @@ def _layer_scopes():
 
         return wrapper
 
-    targets = ((ScaledStdConv, "standardized_weight", "ws"), (ECA, "forward", "eca"), (callbacks, "cutmix_mixup", "mixup"))
+    targets = (
+        (ScaledStdConv, "standardized_weight", "ws"), (ECA, "forward", "eca"), (VarEMA, "forward", "varema"),
+        (callbacks.OrthoLossClb, "_type1", "aux"), (callbacks.OrthoLossClb, "_type2", "aux"),
+        (callbacks.NormLossClb, "_loss", "aux"), (callbacks, "cutmix_mixup", "mixup"),
+    )
     originals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
     try:
         for owner, attr, label in targets:
@@ -1358,25 +1488,28 @@ def _layer_scopes():
             setattr(owner, attr, fn)
 
 
-SCOPE_LAYERS = {"ws": "weight standardisation", "eca": "ECA", "mixup": "mixup"}
+SCOPE_LAYERS = {"ws": "weight standardisation", "eca": "ECA", "varema": "VarEMA", "aux": "aux loss", "mixup": "mixup"}
 CONV_OPS = {"aten::cudnn_convolution": (0, 1), "aten::convolution": (0, 1), "aten::_convolution": (0, 1),
             "aten::conv2d": (0, 1), "aten::convolution_backward": (1, 2)}  # op -> positions of (input, weight)
 
 
-def nfnet_breakdown(prof, window) -> dict:
+def layer_breakdown(prof, window):
     """Device ms per step by layer of the port, for a run profiled under
     _layer_scopes with record_shapes. Each kernel belongs to the CPU op that
     launched it (torch.profiler links them). A kernel's layer is, in this
-    order: the record_function scope around its op (ws, eca, mixup, the
-    optimizer's own ``Optimizer.step`` scope); for a backward op, the scope of
-    the forward op with the same autograd sequence number; grouped or dense
-    convs, by the op's input and weight shapes (groups = C_in / weight's
-    dim 1); ``_foreach`` ops outside the optimizer: the EMA; memcpy and
-    memset: copies; anything else launched by an op: elementwise and
-    activations (the activations, the residual and drop-path arithmetic, the
-    loss, dtype casts, gradient accumulation). fused_aug is launched by no
-    op: it is read from the kernel records by name, and what is left of the
-    device time is ``unattributed``."""
+    order: the record_function scope around its op (SCOPE_LAYERS, and the
+    optimizer's own ``Optimizer.step#<name>.step`` scope, named by the
+    optimizer); for a backward op, the scope of the forward op with the same
+    autograd sequence number (the auxiliary loss's backward is its own
+    layer); grouped or dense convs, by the op's input and weight shapes
+    (groups = C_in / weight's dim 1); ``_foreach`` ops outside the optimizer:
+    the EMA; memcpy and memset: copies; anything else launched by an op:
+    elementwise and activations (the activations, the residual and drop-path
+    arithmetic, the loss, dtype casts, gradient accumulation). fused_aug is
+    launched by no op: it is read from the kernel records by name, and what
+    is left of the device time is ``unattributed``. Also returns in how many
+    distinct ``aux`` scopes the auxiliary loss's forward and its backward
+    launched kernels."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -1388,27 +1521,36 @@ def nfnet_breakdown(prof, window) -> dict:
             e = e.cpu_parent
 
     def scope_of(e):
+        """(layer, the scope's event id) of the innermost scope around ``e``."""
         for a in ancestors(e):
             if a.name in SCOPE_LAYERS:
-                return SCOPE_LAYERS[a.name]
+                return SCOPE_LAYERS[a.name], a.id
             if a.name.startswith("Optimizer.step"):
-                return "AdamW"
-        return None
+                return a.name.split("#")[-1].split(".")[0], a.id  # "Optimizer.step#Lamb.step" -> Lamb
+        return None, None
 
-    forward_scope = {}  # autograd sequence number -> layer of the forward op
+    forward_scope = {}  # autograd sequence number -> (layer, scope id) of the forward op
     for e in cpu:
         if e.sequence_nr >= 0 and not any(a.name.startswith("autograd::engine::evaluate_function") for a in ancestors(e)):
-            layer = scope_of(e)
+            layer, sid = scope_of(e)
             if layer is not None:
-                forward_scope[e.sequence_nr] = layer
+                forward_scope[e.sequence_nr] = (layer, sid)
+
+    aux = {"forward": set(), "backward": set()}
 
     def layer_of(e):
-        layer = scope_of(e)
+        layer, sid = scope_of(e)
         if layer is not None:
+            if layer == "aux loss":
+                aux["forward"].add(sid)
             return layer
         for a in ancestors(e):
             if a.name.startswith("autograd::engine::evaluate_function") and a.sequence_nr in forward_scope:
-                return forward_scope[a.sequence_nr]
+                layer, sid = forward_scope[a.sequence_nr]
+                if layer == "aux loss":
+                    aux["backward"].add(sid)
+                    return "aux loss backward"
+                return layer
         for a in ancestors(e):
             if a.name in CONV_OPS and a.input_shapes:
                 i, w = (a.input_shapes[k] for k in CONV_OPS[a.name])
@@ -1434,11 +1576,12 @@ def nfnet_breakdown(prof, window) -> dict:
     total = sum(e.time_range.elapsed_us() for e in device) / 1e3
     layers["unattributed"] = total - sum(layers.values())
     steps = window[1] - window[0]
-    return {k: v / steps for k, v in sorted(layers.items(), key=lambda kv: -kv[1])}
+    by_layer = {k: v / steps for k, v in sorted(layers.items(), key=lambda kv: -kv[1])}
+    return by_layer, {k: len(v) for k, v in aux.items()}
 
 
-PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "data",
-          "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
+PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "trainer_i",
+          "data", "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
@@ -1446,6 +1589,8 @@ RAND_INTERP = "configs/exp/2.r50_rand_interp.yaml"
 DEVICE_RESAMPLE = ("loader.device_resample=true", "val_loader.rectangular=true")
 HBM_CACHE = "configs/exp/r50_hbm_cache.yaml"
 NFNET_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0, 0.01]}]",)  # the recipe's warmup, cut to the one debug epoch
+NF_LAMB = "configs/exp/41.nf_conv-act_lamb.yaml"
+NF_LAMB_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.003, 0], lr_mode: cos}]",)  # the recipe's cosine in one epoch
 
 
 def main(argv=None) -> int:
@@ -1494,6 +1639,7 @@ def main(argv=None) -> int:
         run("model_fused_silu", model_phase, fused_stats=True, norm_act="silu")
         run("model_fused_relu", model_phase, fused_stats=True, check=False)
         run("model_nfnet", nfnet_model_phase)
+        run("model_nf_lamb", nf_lamb_model_phase)
     aug_only = {"fused_aug": 1}
     if "trainer_a" in phases:
         run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only)
@@ -1503,9 +1649,11 @@ def main(argv=None) -> int:
     if "trainer_c" in phases:
         run("trainer_c", trainer_phase, "trainer_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36})
     if "trainer_d" in phases:
-        run("trainer_d", trainer_phase, "trainer_d", NFNET, NFNET_STAGE, gpu, aug_only, nfnet_recipe=True)
+        run("trainer_d", trainer_phase, "trainer_d", NFNET, NFNET_STAGE, gpu, aug_only, recipe="nfnet")
     if "trainer_e" in phases:
         run("trainer_e", tiny_phase, gpu)
+    if "trainer_i" in phases:
+        run("trainer_i", trainer_phase, "trainer_i", NF_LAMB, NF_LAMB_STAGE, gpu, aug_only, recipe="nf_lamb")
     cached = {"packed", "trainer_h"} & set(phases) or "profile" in phases
     with tempfile.TemporaryDirectory() as data_root:
         if {"data", "trainer_f", "trainer_g"} & set(phases) or cached:
@@ -1533,9 +1681,12 @@ def main(argv=None) -> int:
             run("profile_c", trainer_phase, "profile_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36},
                 profile_window=(2, 6))
             run("profile_d", trainer_phase, "profile_d", NFNET, NFNET_STAGE, gpu, aug_only, profile_window=(2, 6),
-                nfnet_recipe=True)
+                recipe="nfnet")
             run("profile_h", trainer_phase, "profile_h", HBM_CACHE, (), gpu, aug_only, profile_window=(2, 6),
                 tree=packed_root, cache=True)
+    if "profile" in phases:
+        run("profile_i", trainer_phase, "profile_i", NF_LAMB, NF_LAMB_STAGE, gpu, aug_only, profile_window=(2, 6),
+            recipe="nf_lamb")
     if "profile_h" in results:
         # the cache's input stage inside H's step: the gather and the augment kernel, as shares of its device time
         by_group = results["profile_h"]["profile"]["by_group_ms_per_step"]
@@ -1547,13 +1698,15 @@ def main(argv=None) -> int:
     if "trainer_a" in results and "trainer_h" in results:
         a, h = results["trainer_a"], results["trainer_h"]
         print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median_4_10'], 'ms_per_step_a': a['ms_per_step_median_4_10'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
-    if "trainer_d" in results and "profile_d" in results:
-        # the profiler (shapes recorded, thousands of ops a step) slows trainer D's host far more than A's or C's:
-        # its device time per step over the unprofiled step time is the busy share of record
-        prof_d = results["profile_d"]["profile"]
-        device_ms_step = prof_d["device_ms"] / prof_d["steps"]
-        step_ms = results["trainer_d"]["ms_per_step_median_4_10"]
-        print(f"[profile_d] {json.dumps({'device_ms_per_step': device_ms_step, 'trainer_d_ms_per_step': step_ms, 'busy_share_unprofiled': device_ms_step / step_ms})}")
+    for trainer, profile in (("trainer_d", "profile_d"), ("trainer_i", "profile_i")):
+        if trainer not in results or profile not in results:
+            continue
+        # the profiler (shapes recorded, thousands of ops a step) slows these hosts far more than A's or C's:
+        # the device time per step over the unprofiled step time is the busy share of record
+        prof = results[profile]["profile"]
+        device_ms_step = prof["device_ms"] / prof["steps"]
+        step_ms = results[trainer]["ms_per_step_median_4_10"]
+        print(f"[{profile}] {json.dumps({'device_ms_per_step': device_ms_step, f'{trainer}_ms_per_step': step_ms, 'busy_share_unprofiled': device_ms_step / step_ms})}")
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1
@@ -1572,6 +1725,7 @@ def main(argv=None) -> int:
     kernels[0]["launches_folder_device_resample"] = results["trainer_g"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_hbm_cache"] = results["trainer_h"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_learn"] = results["learn"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_nf_lamb"] = results["trainer_i"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))

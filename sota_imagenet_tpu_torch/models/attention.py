@@ -75,7 +75,7 @@ class ECA(nn.Module):
 
 def _not_ported(name: str) -> Callable:
     def make(chs, **kw):
-        raise NotPortedError(f"attention {name!r}", "Queue 1 item 10")
+        raise NotPortedError(f"attention {name!r}", "Queue 1 item 10c")
 
     return make
 

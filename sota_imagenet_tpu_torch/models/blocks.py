@@ -1,6 +1,11 @@
 """Blocks for config-built models (port of ``sota_imagenet_tpu/models/blocks.py``:
-partial_residual :31, ConvActBlock :57, ConvBnAct :450). The rest of the
-block zoo is not ported yet (ROADMAP.md Queue 1 item 10)."""
+partial_residual :31, _make_pre_norm :45, ConvActBlock :57, NormFreeBlock
+:152, NormFreeBlockTimm :193, EMABlock :309, ConvBnAct :450). The rest of
+the block zoo is not ported yet (ROADMAP.md Queue 1 item 10).
+
+Submodules that hold parameters carry the JAX module's names where it names
+them (``conv1``, ``conv2``...); ``utils/weights.py`` maps the others onto
+flax's class-and-order names."""
 
 from __future__ import annotations
 
@@ -10,9 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sota_imagenet_tpu_torch.models.attention import SEVar3
-from sota_imagenet_tpu_torch.models.layers import BlurPool, ChannelShuffle, Conv, ScaledStdConv, activation_from_name
-from sota_imagenet_tpu_torch.models.norms import BatchNorm
+from sota_imagenet_tpu_torch.models.attention import SEVar3, get_attn
+from sota_imagenet_tpu_torch.models.layers import BlurPool, ChannelShuffle, Conv, DropPath, ScaledStdConv, activation_from_name
+from sota_imagenet_tpu_torch.models.norms import Affine, BatchNorm, GroupNorm, VarEMA, norm_from_name
 from sota_imagenet_tpu_torch.registry import NotPortedError
 
 
@@ -30,10 +35,22 @@ def _groups(in_chs: int, groups: int, groups_width: Optional[int]) -> int:
     return max(in_chs // groups_width, 1) if groups_width else groups
 
 
+def _make_pre_norm(pre_norm, channels: int) -> Optional[nn.Module]:
+    """A pre-norm from its config name. Reference configs write "VarEMA(128)"
+    (eval'd in the reference, model.py:1199-1204): the name before the
+    parenthesis picks the norm, built for ``channels``."""
+    if pre_norm is None or pre_norm is False:
+        return None
+    if isinstance(pre_norm, str):
+        return norm_from_name(pre_norm.split("(")[0])(channels)
+    raise ValueError(f"bad pre_norm {pre_norm!r}")
+
+
 class ConvActBlock(nn.Module):
-    """scaled 3x3 conv + (partial) residual -> act (reference model.py:822-870).
-    The residual is BlurPool-downscaled when stride is 2. ``sse`` adds an
-    SEVar3 gate when the width does not change."""
+    """[pre_norm ->] scaled 3x3 conv + (partial) residual -> act (reference
+    model.py:822-870). The residual, the block's input before the pre-norm,
+    is BlurPool-downscaled when stride is 2. ``sse`` adds an SEVar3 gate when
+    the width does not change."""
 
     def __init__(
         self,
@@ -50,9 +67,8 @@ class ConvActBlock(nn.Module):
     ):
         super().__init__()
         if attn_kwargs is not None:
-            raise NotPortedError("ConvActBlock attn_kwargs (XCA)", "Queue 1 item 10")
-        if pre_norm:
-            raise NotPortedError(f"ConvActBlock pre_norm={pre_norm!r} (the norm zoo)", "Queue 1 item 10")
+            raise NotPortedError("ConvActBlock attn_kwargs (XCA)", "Queue 1 item 10c")
+        self.pre_norm = _make_pre_norm(pre_norm, in_chs)
         groups = _groups(in_chs, groups, groups_width)
         ck = dict(conv_kwargs or {})
         ck["groups"] = groups
@@ -63,9 +79,156 @@ class ConvActBlock(nn.Module):
         self.sse = SEVar3(out_chs) if sse and in_chs == out_chs else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.shuffle(self.conv(x))
+        out = self.shuffle(self.conv(x if self.pre_norm is None else self.pre_norm(x)))
         out = self.act(partial_residual(out, x if self.blur is None else self.blur(x)))
         return out if self.sse is None else self.sse(out)
+
+
+def _attention(attention_type: Optional[str], channels: int, kwargs: Optional[Dict]) -> Optional[nn.Module]:
+    return get_attn(attention_type)(channels, **(kwargs or {})) if attention_type else None
+
+
+class NormFreeBlock(nn.Module):
+    """Pre-act 2-conv basic block with alpha/beta gain inits (reference
+    model.py:874-930; NFNet arXiv:2102.06171): [GroupNorm ->] act -> conv3x3
+    (gain beta) -> shuffle -> act -> conv3x3 (gain alpha) -> shuffle [->
+    attention * attention_gain] -> drop-path -> + x (partial residual)."""
+
+    def __init__(
+        self,
+        in_chs: int,
+        out_chs: int,
+        mid_chs: Optional[int] = None,
+        groups: int = 1,
+        groups_width: Optional[int] = None,
+        activation: str = "relu",
+        attention_type: Optional[str] = None,
+        attention_kwargs: Optional[Dict] = None,
+        attention_gain: float = 2.0,
+        keep_prob: float = 1.0,
+        beta: float = 1.0,
+        alpha: float = 0.2,
+        conv_kwargs: Optional[Dict] = None,
+        pre_norm_group_width: Optional[int] = None,
+    ):
+        super().__init__()
+        mid = mid_chs or out_chs
+        groups = _groups(in_chs, groups, groups_width)
+        ck = dict(conv_kwargs or {})
+        self.pre_norm = GroupNorm(in_chs, num_groups=in_chs // pre_norm_group_width) if pre_norm_group_width else None
+        self.act = activation_from_name(activation)
+        self.conv1 = ScaledStdConv(in_chs, mid, kernel_size=3, padding=1, gain_init=beta, groups=groups, **ck)
+        self.conv2 = ScaledStdConv(mid, out_chs, kernel_size=3, padding=1, gain_init=alpha, groups=groups, **ck)
+        self.shuffle = ChannelShuffle(groups)
+        self.attn = _attention(attention_type, out_chs, attention_kwargs)
+        self.attn_gain = Affine(attention_gain)
+        self.drop_path = DropPath(keep_prob)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = x if self.pre_norm is None else self.pre_norm(x)
+        out = self.shuffle(self.conv1(self.act(out)))
+        out = self.shuffle(self.conv2(self.act(out)))
+        if self.attn is not None:
+            out = self.attn_gain(self.attn(out))
+        return partial_residual(self.drop_path(out), x)
+
+
+class NormFreeBlockTimm(nn.Module):
+    """1-3-3-1 pre-act bottleneck, timm-NFNet style (reference model.py:933-1001):
+    [GroupNorm ->] act -> conv1 1x1 (gain beta) -> act -> conv2 3x3 -> act ->
+    conv2b 3x3 [-> attention] -> act -> conv3 1x1 (gain alpha) [-> attention]
+    -> drop-path -> + x. The 3x3s are grouped by ``groups_width`` of the
+    bottleneck width ``mid``; the 1x1s are not, and nothing shuffles.
+    ``regnet_attention`` puts the attention before the last activation, and
+    its output is scaled by ``attention_gain``; ``full_conv`` pads the 3x3s'
+    inputs by reflection instead of zeros."""
+
+    def __init__(
+        self,
+        in_chs: int,
+        out_chs: int,
+        mid_chs: Optional[int] = None,
+        groups: int = 1,
+        groups_width: Optional[int] = None,
+        activation: str = "relu",
+        attention_type: Optional[str] = None,
+        attention_kwargs: Optional[Dict] = None,
+        attention_gain: float = 2.0,
+        keep_prob: float = 1.0,
+        conv_kwargs: Optional[Dict] = None,
+        beta: float = 1.0,
+        alpha: float = 0.2,
+        regnet_attention: bool = False,
+        pre_norm_group_width: Optional[int] = None,
+        full_conv: bool = False,
+    ):
+        super().__init__()
+        mid = mid_chs or out_chs
+        groups = _groups(mid, groups, groups_width)
+        ck = dict(conv_kwargs or {})
+        ck.pop("padding_mode", None)  # reflect padding is full_conv's
+        self.full_conv, self.regnet_attention = full_conv, regnet_attention
+        self.pre_norm = GroupNorm(in_chs, num_groups=in_chs // pre_norm_group_width) if pre_norm_group_width else None
+        self.act = activation_from_name(activation)
+        pad = 0 if full_conv else 1
+        self.conv1 = ScaledStdConv(in_chs, mid, kernel_size=1, padding=0, gain_init=beta, **ck)
+        self.conv2 = ScaledStdConv(mid, mid, kernel_size=3, padding=pad, groups=groups, **ck)
+        self.conv2b = ScaledStdConv(mid, mid, kernel_size=3, padding=pad, groups=groups, **ck)
+        self.conv3 = ScaledStdConv(mid, out_chs, kernel_size=1, padding=0, gain_init=alpha, **ck)
+        self.attn = _attention(attention_type, mid if regnet_attention else out_chs, attention_kwargs)
+        self.attn_gain = Affine(attention_gain)
+        self.drop_path = DropPath(keep_prob)
+
+    def _conv3x3(self, conv: ScaledStdConv, x: torch.Tensor) -> torch.Tensor:
+        return conv(F.pad(x, (1, 1, 1, 1), mode="reflect") if self.full_conv else x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = x if self.pre_norm is None else self.pre_norm(x)
+        out = self.act(self.conv1(self.act(out)))
+        out = self._conv3x3(self.conv2b, self.act(self._conv3x3(self.conv2, out)))
+        if self.attn is not None and self.regnet_attention:
+            out = self.attn_gain(self.attn(out))
+        out = self.conv3(self.act(out))
+        if self.attn is not None and not self.regnet_attention:
+            out = self.attn_gain(self.attn(out))
+        return partial_residual(self.drop_path(out), x)
+
+
+class EMABlock(nn.Module):
+    """VarEMA-normalized residual conv block (reference model.py:422-468):
+    res = VarEMA(x) (x with ``remove_ema``); act -> scaled conv3x3 -> shuffle
+    (conv -> shuffle -> act with ``conv_act``) -> drop-path -> + res."""
+
+    def __init__(
+        self,
+        in_chs: int,
+        out_chs: int,
+        groups: int = 1,
+        groups_width: Optional[int] = None,
+        activation: str = "relu",
+        conv_kwargs: Optional[Dict] = None,
+        keep_prob: float = 1.0,
+        remove_ema: bool = False,
+        conv_act: bool = False,
+    ):
+        super().__init__()
+        groups = _groups(in_chs, groups, groups_width)
+        ck = dict(conv_kwargs or {})
+        ck["groups"] = groups
+        self.conv_act = conv_act
+        self.ema = None if remove_ema else VarEMA()
+        self.act = activation_from_name(activation)
+        self.conv = ScaledStdConv(in_chs, out_chs, kernel_size=3, padding=1, **ck)
+        self.shuffle = ChannelShuffle(groups)
+        self.drop_path = DropPath(keep_prob)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        res = x if self.ema is None else self.ema(x)
+        if self.conv_act:
+            out = self.act(self.shuffle(self.conv(res)))
+        else:
+            out = self.shuffle(self.conv(self.act(res)))
+        return partial_residual(self.drop_path(out), res)
 
 
 class ConvBnAct(nn.Module):

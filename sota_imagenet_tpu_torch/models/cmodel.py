@@ -32,7 +32,7 @@ from torch import nn
 
 from sota_imagenet_tpu_torch.models import blocks as B
 from sota_imagenet_tpu_torch.models import layers as L
-from sota_imagenet_tpu_torch.models.norms import BatchNorm
+from sota_imagenet_tpu_torch.models import norms as N
 from sota_imagenet_tpu_torch.registry import NotPortedError
 
 
@@ -72,6 +72,12 @@ def _dropout(p=0.5, **kw):
     return L.Dropout(rate=p)
 
 
+def _norm_ctor(cls):
+    """A norm from its config args: the channel count first, where one is given
+    (the JAX table reads it from the input, cmodel.py:87-94)."""
+    return lambda *args, **kw: cls(*args[:1], **kw)
+
+
 def _unported(name: str) -> Callable[..., nn.Module]:
     def make(*args, **kwargs):
         raise NotPortedError(f"CModel module {name!r}", "Queue 1 item 10")
@@ -83,6 +89,9 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     # blocks
     "ConvActBlock": lambda i, o, **kw: B.ConvActBlock(i, o, **kw),
     "ConvBnAct": lambda i, o, **kw: B.ConvBnAct(i, o, **kw),
+    "NormFreeBlock": lambda i, o, m=None, **kw: B.NormFreeBlock(i, o, mid_chs=m, **kw),
+    "NormFreeBlockTimm": lambda i, o, m=None, **kw: B.NormFreeBlockTimm(i, o, mid_chs=m, **kw),
+    "EMABlock": lambda i, o, **kw: B.EMABlock(i, o, **kw),
     # convs
     "scaled_conv3x3": L.scaled_conv3x3,
     "scaled_conv1x1": L.scaled_conv1x1,
@@ -90,7 +99,18 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     "conv1x1": L.conv1x1,
     "ScaledStdConv2d": lambda i, o, **kw: L.ScaledStdConv(i, o, **kw),
     # norms
-    "BatchNorm2d": lambda c, **kw: BatchNorm(c, **kw),
+    "BatchNorm2d": lambda c, **kw: N.BatchNorm(c, **kw),
+    "VarEMA": _norm_ctor(N.VarEMA),
+    "FRNv1": _norm_ctor(N.FRNv1),
+    "FRNv2": _norm_ctor(N.FRNv2),
+    # reference config 64 names a removed "FRN(v3)" class: the JAX table maps it to FRNv2
+    "FRN": _norm_ctor(N.FRNv2),
+    "MeanEMA": _norm_ctor(N.MeanEMA),
+    "ScaleNorm": _norm_ctor(N.ScaleNorm),
+    "Affine": lambda v=1.0, **kw: N.Affine(value=v, **kw),
+    "Gain": lambda size, **kw: N.Gain(size),
+    # torch's GroupNorm(num_groups, num_channels): reference configs give both
+    "GroupNorm": lambda num_groups, num_channels, **kw: N.GroupNorm(num_channels, num_groups=num_groups, **kw),
     # layers
     "BlurPool": lambda chs=None, **kw: L.BlurPool(channels=chs, **kw),
     "SpaceToDepth": lambda bs=2, **kw: L.SpaceToDepth(block_size=bs),
@@ -119,10 +139,9 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
 _MODULES.update(
     (name, _unported(name))
     for name in (
-        "VGGBlock", "ConvMixBlock", "NormFreeBlock", "NormFreeBlockTimm", "NonDeepBlock", "EMABlock",
+        "VGGBlock", "ConvMixBlock", "NonDeepBlock",
         "PreInvertedResidual", "PreBasicBlock", "Yolo5_C3", "ConvMixerBlock", "FusedRepVGGBlock",
-        "XCA_mod", "UFO_mod", "SEVar3_Mod",
-        "VarEMA", "FRNv1", "FRNv2", "FRN", "MeanEMA", "ScaleNorm", "Affine", "Gain", "GroupNorm", "ABN",
+        "XCA_mod", "UFO_mod", "SEVar3_Mod", "ABN",
         "GEM_pool", "GEM_pool_channel", "ConvResidual", "Residual", "SphereLinearLayer", "SphereMLPLayer",
     )
 )

@@ -13,11 +13,15 @@ built with lr 0 and the config's ``lr`` is ignored, as in the JAX package.
 ``add_decayed_weights`` -> ``scale_by_learning_rate`` (factory.py:104-117):
 p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p). ``torch.optim.AdamW``
 computes p * (1 - lr * wd) - lr * m_hat / (sqrt(v_hat) + eps), the same
-value to rounding, with eps outside the square root in both. ``badam`` is
-the JAX package's alias for it (its LAMB switch is not ported).
+value to rounding, with eps outside the square root in both.
 
-SGD and AdamW are ported; the other optimizers of the JAX package raise
-naming the ROADMAP item.
+``lamb`` is optax's chain ``scale_by_adam`` -> masked ``add_decayed_weights``
+-> ``scale_by_trust_ratio`` -> ``scale_by_learning_rate`` (factory.py:120-134):
+``Lamb`` below. ``badam`` is the JAX package's alias for AdamW, and for LAMB
+with ``lamb`` or ``lamb_mode`` set (factory.py:137-145).
+
+SGD, AdamW and LAMB are ported; the other optimizers of the JAX package
+raise naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,6 +46,59 @@ _OPTIM_ALIASES = {
     "fused_sgd": "sgd",
     "fused_adam": "adamw",
 }
+
+
+class Lamb(torch.optim.Optimizer):
+    """LAMB in optax's order, on ``torch._foreach_*`` ops (a handful of
+    launches per parameter group, not several per parameter). For each
+    parameter p with gradient g, at step t:
+
+        m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
+        u = m / (1 - b1^t) / (sqrt(v / (1 - b2^t)) + eps) + wd p
+        u = u * ||p|| / ||u||   (by 1 where either norm is 0)
+        p = p - lr u
+
+    The trust ratio is taken per parameter and applied to every parameter,
+    1-d ones included; the group's ``weight_decay`` is optax's masked
+    ``add_decayed_weights``, so the parameters that ``wd_mask`` exempts sit
+    in a group with 0."""
+
+    def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.999), eps: float = 1e-6, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Lamb.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st.update(step=0, exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+                st["step"] += 1
+            grads = [p.grad for p in params]
+            m, v = [st["exp_avg"] for st in states], [st["exp_avg_sq"] for st in states]
+            b1, b2 = group["betas"]
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+            denom = torch._foreach_div(v, [1.0 - b2 ** st["step"] for st in states])
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            update = torch._foreach_div(m, [1.0 - b1 ** st["step"] for st in states])
+            torch._foreach_div_(update, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(update, params, alpha=group["weight_decay"])
+            p_norm = torch.stack(torch._foreach_norm(params))
+            u_norm = torch.stack(torch._foreach_norm(update))
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
+            torch._foreach_mul_(update, list(ratio.unbind()))
+            torch._foreach_add_(params, update, alpha=-group["lr"])
+        return None
 
 
 def _param_groups(named, weight_decay: float, wd_mask: Optional[Mapping[str, bool]]) -> list:
@@ -83,14 +140,26 @@ def adamw(
     return torch.optim.AdamW(groups, lr=0.0, betas=tuple(betas), eps=eps)
 
 
-def badam(named_params, lamb_mode: bool = False, lamb: bool = False, **kw) -> torch.optim.AdamW:
-    """bonlime's BAdam: AdamW, with a LAMB trust-ratio switch that is not ported."""
-    if lamb or lamb_mode:
-        raise NotPortedError("optimizer 'lamb' (badam with lamb=true)", "Queue 1 item 10")
-    return adamw(named_params, **kw)
+def lamb(
+    named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+    betas=(0.9, 0.999),
+    eps: float = 1e-6,
+    weight_decay: float = 0.0,
+    wd_mask: Optional[Mapping[str, bool]] = None,
+    **_: Any,
+) -> Lamb:
+    """LAMB (the reference reaches it through badam.BAdam(lamb=True),
+    41.nf_conv-act_lamb.yaml); ``wd_mask`` as in ``sgd``."""
+    groups = _param_groups(list(named_params), weight_decay, wd_mask)
+    return Lamb(groups, lr=0.0, betas=betas, eps=eps)
 
 
-_BUILDERS = {"sgd": sgd, "adamw": adamw, "badam": badam}
+def badam(named_params, lamb_mode: bool = False, lamb: bool = False, **kw) -> torch.optim.Optimizer:
+    """bonlime's BAdam: AdamW, or LAMB with ``lamb`` or ``lamb_mode`` set."""
+    return _BUILDERS["lamb" if (lamb or lamb_mode) else "adamw"](named_params, **kw)
+
+
+_BUILDERS = {"sgd": sgd, "adamw": adamw, "lamb": lamb, "badam": badam}
 
 
 def build_optimizer(

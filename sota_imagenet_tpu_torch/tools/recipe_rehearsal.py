@@ -3,7 +3,8 @@
 
 Runs a recipe's exact shape (r50_baseline: warmup 0.001 -> 1.0 over 8/90 of
 training, then cosine to 0, SGD momentum 0.9, wd 3e-5, label smoothing 0.1,
-bf16, no EMA; or the eca_nfnet_l0/AdamW recipe) through the port's
+bf16, no EMA; the eca_nfnet_l0/AdamW recipe; or the norm-free CModel with
+LAMB, OrthoInit and OrthoLoss of 41.nf_conv-act_lamb.yaml) through the port's
 ``cli.main`` on a generated 100-class corpus (texture x hue, 200 train and
 25 val images a class, 160 px JPEGs) for 30-36 epochs, and holds the val
 curve to ``check_curve``: it must rise to a plateau >= ``--threshold`` and
@@ -18,7 +19,7 @@ not override) and the run reads the packed tree; add
 ``loader.device_cache=true`` (and the val_loader pair) for the decode-free
 A/B that the JAX package ran with its script.
 
-Usage: python -m sota_imagenet_tpu_torch.tools.recipe_rehearsal [--recipe r50_baseline|nfnet]
+Usage: python -m sota_imagenet_tpu_torch.tools.recipe_rehearsal [--recipe r50_baseline|nfnet|nf_lamb]
        [--epochs N] [--data DIR] [--override k=v ...] [--keep]
 Prints one JSON line with the val curve; exits 0 iff the curve passes.
 """
@@ -38,7 +39,6 @@ import zlib
 
 import numpy as np
 
-from sota_imagenet_tpu_torch.registry import NotPortedError
 from sota_imagenet_tpu_torch.tools.accuracy_proof import CONFIGS, ValCurve, run_cli
 
 N_HUES = 20
@@ -155,7 +155,20 @@ RECIPES = {
             "batch-scaled 1024->256 — faithful to 15.eca_nfnet_l0.yaml)"
         ),
     ),
-    "nf_lamb": None,  # tpu_rehearsal_nf_lamb.yaml needs VarEMA and NormFreeBlockTimm
+    "nf_lamb": dict(
+        config="tpu_rehearsal_nf_lamb.yaml",
+        warm_frac=0.0,
+        warm_lr=None,
+        # the reference's own lr for LAMB (41.nf_conv-act_lamb.yaml:3,100-101): LAMB's
+        # trust ratio makes lr the per-layer relative step size, so it is not batch-rescaled
+        cos_lr=(0.001, 0.0),
+        epochs=30,
+        desc=(
+            "nf_conv-act CModel + LAMB shape (pure cosine 0.001->0, badam "
+            "lamb wd5e-3, smooth 0.1, heavy aug, CutmixMixup p1 + "
+            "OrthoInit/OrthoLoss — faithful to 41.nf_conv-act_lamb.yaml)"
+        ),
+    ),
 }
 
 
@@ -202,8 +215,6 @@ def main(argv=None, *, device=None) -> dict:
     )
     args = ap.parse_args(argv)
     recipe = RECIPES[args.recipe]
-    if recipe is None:
-        raise NotPortedError(f"the {args.recipe} rehearsal (configs/tpu_rehearsal_nf_lamb.yaml: VarEMA)", "Queue 1 item 10b")
     epochs = args.epochs or recipe["epochs"]
     config = os.path.join(CONFIGS, recipe["config"])
 

@@ -1,4 +1,4 @@
-"""Callbacks (port of ``sota_imagenet_tpu/train/callbacks.py``:36-130,387-472;
+"""Callbacks (port of ``sota_imagenet_tpu/train/callbacks.py``:36-130,205-355,387-472;
 reference pytorch_tools fit_wrapper callbacks).
 
 Two kinds, as in the JAX package:
@@ -8,12 +8,20 @@ Two kinds, as in the JAX package:
     tensors: reading one there would stall the device every step, so the
     callbacks here only read metrics the Runner has already reduced at
     epoch end;
-  * step contributors (CutmixMixup, Cutmix, Mixup) add options to the train
-    step through ``step_options()``; the Runner collects them when it builds
-    the steps of a stage.
+  * step contributors add options to the train step through
+    ``step_options()``: a ``mixup_fn`` (CutmixMixup, Cutmix, Mixup), an
+    ``aux_loss`` of the model's parameters added to the criterion
+    (OrthoLossClb, NormLossClb; the Runner sums several), a
+    ``post_step_transform`` of the model after each optimizer step
+    (WeightNorm). The Runner collects them when it builds the steps of a
+    stage. OrthoInitClb re-initialises the kernels once, at ``on_begin``.
 
-The callbacks of the JAX package that are not ported (SAM, the weight-norm
-and ortho family, AGC, the TensorBoard sinks, the profiler) are registered
+The auxiliary pieces select the parameters that are ``kernel`` leaves in
+the JAX model (``utils.weights.kernel_parameters``), as the JAX callbacks
+select them by flax path.
+
+The callbacks of the JAX package that are not ported (SAM, the forward
+parametrizations, AGC, the TensorBoard sinks, the profiler) are registered
 under their names and raise NotImplementedError naming the ROADMAP item.
 """
 
@@ -24,9 +32,14 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+import torch
+import torch.nn.functional as F
+
 from sota_imagenet_tpu_torch import registry
+from sota_imagenet_tpu_torch.models.parametrize import backward_weight_norm
 from sota_imagenet_tpu_torch.train.steps import cutmix_mixup
 from sota_imagenet_tpu_torch.utils.logging import get_logger
+from sota_imagenet_tpu_torch.utils.weights import kernel_parameters
 
 
 class Callback:
@@ -116,6 +129,137 @@ class Mixup(Callback):
         }
 
 
+class WeightNorm(Callback):
+    """Backward centered weight normalization: project the kernels to the unit
+    sphere after every optimizer step (reference callbacks.py:104-123)."""
+
+    def step_options(self):
+        return {"post_step_transform": backward_weight_norm}
+
+
+class _Kernels:
+    """The kernel parameters of the model a step passes, found once per model:
+    the walk behind ``kernel_parameters`` is host work that a loss called on
+    every microbatch should not repeat."""
+
+    def __init__(self):
+        self._model, self._kernels = None, []
+
+    def __call__(self, model: torch.nn.Module) -> list:
+        if model is not self._model:
+            self._model, self._kernels = model, list(kernel_parameters(model).values())
+        return self._kernels
+
+
+def _iter_matrices(kernels):
+    """Each conv (4-d) and dense (2-d) kernel as an (out, fan_in) matrix
+    (callbacks.py:237-245 of the JAX package). The JAX package flattens an
+    HWIO kernel to (O, H*W*I), the port an OIHW one to (O, I*H*W): the same
+    columns in another order, which neither the Gram matrix m m^T nor the row
+    norms depend on."""
+    for w in kernels:
+        if w.dim() in (2, 4):
+            yield w.reshape(w.shape[0], -1)
+
+
+class OrthoLossClb(Callback):
+    """Kernel (type 1) or convolutional (type 2) orthogonality loss added to
+    the criterion (reference OrthoLoss/OrthoLoss2 + OrthoLossClb,
+    callbacks.py:126-203), in float32.
+
+    Type 1: for each conv and dense kernel with ``min_filters`` <= O <=
+    fan_in, ``||W W^T - I||_F``, counted where it exceeds ``min_norm * O``.
+    Type 2: for each conv kernel with O <= fan_in, the correlation of the
+    filters with each other at every offset (``conv2d(w, w, padding=k-1)``,
+    (O, O, 2k-1, 2k-1), the JAX (O, 2k-1, 2k-1, O) permuted), each row over
+    its filter's squared norm, against the identity at the centre offset. As
+    in the JAX package, type 2 skips no strided conv (the reference's stride
+    test never matched, callbacks.py:170)."""
+
+    def __init__(self, weight: float = 0.01, type: int = 1, eps: float = 1e-2, min_filters: int = 384, min_norm: float = 1.0, **_):
+        self.weight = weight
+        self.type = type
+        self.eps = eps
+        self.min_filters = min_filters
+        self.min_norm = min_norm
+        self._kernels = _Kernels()
+
+    def _type1(self, model):
+        kernels = self._kernels(model)
+        loss = torch.zeros((), dtype=torch.float32, device=kernels[0].device)
+        for mat in _iter_matrices(kernels):
+            o, f = mat.shape
+            if o > f or o < self.min_filters:
+                continue  # no more filters than dims can be orthonormal (callbacks.py:143-146)
+            m = mat.float()
+            n = torch.linalg.matrix_norm(m @ m.T - torch.eye(o, device=m.device))
+            loss = loss + torch.where(n / o > self.min_norm, n, 0.0)
+        return loss * self.weight
+
+    def _type2(self, model):
+        kernels = self._kernels(model)
+        loss = torch.zeros((), dtype=torch.float32, device=kernels[0].device)
+        for w in kernels:
+            if w.dim() != 4 or w.shape[0] > w[0].numel():
+                continue
+            o, k = w.shape[0], w.shape[2]
+            w32 = w.float()
+            corr = F.conv2d(w32, w32, padding=k - 1)
+            corr = corr / (w32.reshape(o, -1).square().sum(dim=1).view(-1, 1, 1, 1) + 1e-4)
+            target = torch.zeros_like(corr)
+            target[:, :, k - 1, k - 1] = torch.eye(o, device=w.device)
+            loss = loss + torch.linalg.vector_norm(corr - target)
+        return loss * self.weight
+
+    def step_options(self):
+        return {"aux_loss": self._type1 if self.type == 1 else self._type2}
+
+
+class NormLossClb(Callback):
+    """(1 - ||filter||)^2 regularizer (reference NormLoss, callbacks.py:206-229):
+    the mean over the filters of each conv and dense kernel of at least 64
+    elements (ECA's is smaller, callbacks.py:215)."""
+
+    def __init__(self, weight: float = 1e-4):
+        self.weight = weight
+        self._kernels = _Kernels()
+
+    def _loss(self, model):
+        kernels = self._kernels(model)
+        loss = torch.zeros((), dtype=torch.float32, device=kernels[0].device)
+        for mat in _iter_matrices(kernels):
+            if mat.numel() >= 64:
+                loss = loss + (1.0 - torch.linalg.vector_norm(mat.float(), dim=1)).square().mean()
+        return loss * self.weight
+
+    def step_options(self):
+        return {"aux_loss": self._loss}
+
+
+class OrthoInitClb(Callback):
+    """Orthogonal (re)initialization of every kernel with ndim >= 2 (ECA's
+    included) at ``on_begin``, once (reference callbacks.py:250-266). The
+    draws come from a CPU generator seeded 0 in the model's order, in
+    float64, and are copied into the parameters. As in the JAX package
+    (callbacks.py:353-355), only the weights are replaced: an EMA copy keeps
+    the weights it was made from."""
+
+    def __init__(self, gain: float = 1.0):
+        self.gain = gain
+        self._done = False
+
+    def on_begin(self):
+        if self._done or self.runner is None:
+            return
+        self._done = True
+        get_logger().info("Applying orthogonal initialization")
+        generator = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for w in kernel_parameters(self.runner.state.model).values():
+                if w.dim() >= 2:
+                    w.copy_(torch.nn.init.orthogonal_(torch.empty(w.shape, dtype=torch.float64), self.gain, generator))
+
+
 class ConsoleLogger(Callback):
     """Epoch summary lines (reference ConsoleLogger + FileLogger; both write
     through the shared logger, which has stdout + file sinks)."""
@@ -202,8 +346,10 @@ def _register_unported(name: str, item: str, aliases: tuple = ()) -> None:
     registry.register(name, aliases=aliases)(make)
 
 
-for _name in ("SAM", "SAMOriginal", "ForwardWeightNorm", "ForwardSpectralNorm", "WeightNorm", "OrthoLossClb",
-              "NormLossClb", "OrthoInitClb"):
+for _name, _cls in (("WeightNorm", WeightNorm), ("OrthoLossClb", OrthoLossClb), ("NormLossClb", NormLossClb),
+                   ("OrthoInitClb", OrthoInitClb)):
+    registry.register(_name, aliases=(f"src.callbacks.{_name}",))(_cls)
+for _name in ("SAM", "SAMOriginal", "ForwardWeightNorm", "ForwardSpectralNorm"):
     _register_unported(_name, "Queue 1 item 9", aliases=(f"src.callbacks.{_name}",))
 _register_unported(
     "AdaptiveGradientClipping", "Queue 1 item 9", aliases=("pytorch_tools.fit_wrapper.callbacks.AdaptiveGradientClipping",)

@@ -95,9 +95,16 @@ class Runner:
         return self.state
 
     def _collect_step_options(self) -> Dict[str, Any]:
+        """The callbacks' step options; several auxiliary losses are summed (loop.py:86-96 of the JAX package)."""
         opts: Dict[str, Any] = {}
+        aux_losses = []
         for c in self.callbacks:
-            opts.update(c.step_options())
+            o = dict(c.step_options())
+            if "aux_loss" in o:
+                aux_losses.append(o.pop("aux_loss"))
+            opts.update(o)
+        if aux_losses:
+            opts["aux_loss"] = lambda model: sum(f(model) for f in aux_losses)
         return opts
 
     def _build_steps(self, steps_per_epoch: int, base_epoch: int):

@@ -4,10 +4,12 @@ build_eval_step :355-406, its masked branch included).
 
 One train step: CutmixMixup on the whole batch -> the batch split into
 ``accumulate_steps`` microbatches, each forward (activation dtype) -> loss
-(f32) -> backward, gradients summed then divided -> grad_norm (global L2
-norm of the averaged raw gradients, before weight decay) -> one optimizer
-step with the schedule's lr for this step -> one EMA update of params and BN
-buffers -> metrics over all the logits. Everything stays on the device: the
+(f32, plus the auxiliary loss of the parameters where one is given) ->
+backward, gradients summed then divided -> grad_norm (global L2 norm of the
+averaged raw gradients, before weight decay) -> one optimizer step with the
+schedule's lr for this step -> the post-step transform of the parameters
+where one is given -> one EMA update of params and buffers -> metrics over
+all the logits. Everything stays on the device: the
 lr is a host float computed from the host step count, the random draws are
 device tensors, and the metrics are device tensors the Runner reduces once
 per epoch, so no step reads the device.
@@ -20,8 +22,8 @@ function on a generator and an ``apply`` function on tensors: tests feed the
 JAX package's draws to ``apply``.
 
 Step features of the JAX package that are not ported raise
-NotImplementedError naming the ROADMAP item: SAM, remat, grad_transform
-(AGC), post_step_transform (WeightNorm) and auxiliary losses.
+NotImplementedError naming the ROADMAP item: SAM, remat and grad_transform
+(AGC).
 """
 
 from __future__ import annotations
@@ -203,10 +205,10 @@ def build_train_step(
     accumulate_steps: int = 1,
     ema_decay: float = 0.0,
     mixup_fn: Optional[Callable] = None,  # fn(generator, images, labels) -> (images, labels)
-    aux_loss: Optional[Callable] = None,
+    aux_loss: Optional[Callable] = None,  # aux_loss(model) -> f32 scalar, e.g. the ortho loss
     sam: Optional[Dict[str, Any]] = None,
     grad_transform: Optional[Callable] = None,
-    post_step_transform: Optional[Callable] = None,
+    post_step_transform: Optional[Callable] = None,  # fn(model), in place after the update (WeightNorm)
     remat: Any = False,
     input_dtype: torch.dtype = torch.bfloat16,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, Any]]]:
@@ -214,8 +216,8 @@ def build_train_step(
         raise NotPortedError("SAM", "Queue 1 item 9")
     if remat:
         raise NotPortedError("run.remat", "Queue 1 item 9")
-    if grad_transform is not None or post_step_transform is not None or aux_loss is not None:
-        raise NotPortedError("grad_transform / post_step_transform / aux_loss", "Queue 1 item 9")
+    if grad_transform is not None:
+        raise NotPortedError("grad_transform (AGC)", "Queue 1 item 9")
     accumulate_steps = max(int(accumulate_steps or 1), 1)
 
     def train_step(state: TrainState, batch: Batch):
@@ -237,6 +239,10 @@ def build_train_step(
         for im, lb in zip(images.split(mb), labels.split(mb)):
             mb_logits = model(im.to(input_dtype))
             mb_loss, _ = call_criterion(criterion, mb_logits, lb)
+            if aux_loss is not None:
+                # once per microbatch, as inside the JAX scan; float32 whatever an autocast around the step says
+                with torch.autocast(images.device.type, enabled=False):
+                    mb_loss = mb_loss + aux_loss(model)
             mb_loss.backward()  # sums into .grad
             loss_sum = loss_sum + mb_loss.detach()
             all_logits.append(mb_logits.detach())
@@ -251,6 +257,9 @@ def build_train_step(
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
+        if post_step_transform is not None:
+            with torch.no_grad():
+                post_step_transform(model)
         if ema_decay:
             with torch.no_grad():
                 ema_t = list(state.ema.state_dict().values())

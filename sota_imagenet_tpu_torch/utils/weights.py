@@ -15,7 +15,9 @@ remaining 3x3 conv (and the 1x1 conv1 when ``groups > 1``) sit at flax's
 auto names ``Conv_i``/``_NormAct_i``, numbered from 0.
 
 ``flax_to_torch_model`` does the same for the port's NFNet and CModel (and
-any module built from the layers they use). It walks the torch module and
+any module built from the layers, norms and blocks they use), running
+statistics included (VarEMA's ``std_ema``/``mean_ema``, FRN's
+``running_var``/``single_running_var``). It walks the torch module and
 reads, for each kind of module, the leaves its JAX counterpart creates.
 NFNet names its children (``stem_conv{i}``, ``stage{s}_block{b}/conv1``...;
 the inverse of ``torch_import.convert_nfnet_state_dict``); where the JAX
@@ -27,7 +29,7 @@ order.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,66 +128,126 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def flax_to_torch_model(model: torch.nn.Module, params: Mapping, batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
-    """JAX ``params``/``batch_stats`` (numpy) of the JAX counterpart of
-    ``model`` -> ``model``'s ``state_dict``. Raises if a leaf of either tree
-    is left unmapped or a key of the state_dict is not produced."""
-    batch_stats = batch_stats or {}
-    used_p: set = set()
-    used_s: set = set()
-    sd: Dict[str, torch.Tensor] = {}
+def _dense(kernel: np.ndarray) -> torch.Tensor:
+    """flax Dense kernel (in, out) -> torch Linear weight (out, in)."""
+    return torch.from_numpy(np.ascontiguousarray(kernel.T))
+
+
+def _eca(kernel: np.ndarray) -> torch.Tensor:
+    """flax ECA kernel (k, 1, 1) (WIO) -> torch conv1d weight (1, 1, k)."""
+    return _tensor(np.transpose(kernel, (2, 1, 0)))
+
+
+def _scalar(a: np.ndarray) -> torch.Tensor:
+    return _tensor(a).reshape(())
+
+
+# one entry of a plan: state_dict key -> (JAX collection, flax path, converter)
+Plan = Dict[str, Tuple[str, str, Callable[[np.ndarray], torch.Tensor]]]
+
+
+def _plan(model: torch.nn.Module) -> Plan:
+    """Where each entry of ``model``'s state_dict lives in the trees of its JAX
+    counterpart, and how it is converted: the walk that ``flax_to_torch_model``
+    and ``kernel_parameters`` share."""
+    plan: Plan = {}
+
+    def param(dst: str, src: str, fn=_tensor):
+        plan[dst] = ("params", src.strip("/"), fn)
+
+    def stat(dst: str, src: str, fn=_tensor):
+        plan[dst] = ("batch_stats", src.strip("/"), fn)
 
     def dense(src: str, dst: str, bias: bool):
-        sd[dst + "weight"] = torch.from_numpy(np.ascontiguousarray(_get(params, src + "/kernel", used_p).T))
+        param(dst + "weight", src + "/kernel", _dense)
         if bias:
-            sd[dst + "bias"] = _tensor(_get(params, src + "/bias", used_p))
+            param(dst + "bias", src + "/bias")
+
+    def child(m: torch.nn.Module, src: str, dst: str):
+        """A submodule that flax names by its class and order (only one of each class here)."""
+        if m is not None:
+            walk(m, f"{src}/{type(m).__name__}_0", dst)
 
     def walk(m: torch.nn.Module, src: str, dst: str):
         """``src``: the flax path of ``m``; ``dst``: its state_dict prefix (ends with a dot, or empty)."""
         if isinstance(m, layers.ScaledStdConv):
-            sd[dst + "weight"] = _oihw(_get(params, src + "/kernel", used_p))
+            param(dst + "weight", src + "/kernel", _oihw)
             for leaf in ("gain", "bias"):
                 if getattr(m, leaf) is not None:
-                    sd[dst + leaf] = _tensor(_get(params, f"{src}/{leaf}", used_p))
+                    param(dst + leaf, f"{src}/{leaf}")
         elif isinstance(m, layers.Conv):
-            sd[dst + "weight"] = _oihw(_get(params, src + "/Conv_0/kernel", used_p))
+            param(dst + "weight", src + "/Conv_0/kernel", _oihw)
             if m.bias is not None:
-                sd[dst + "bias"] = _tensor(_get(params, src + "/Conv_0/bias", used_p))
+                param(dst + "bias", src + "/Conv_0/bias")
         elif isinstance(m, layers.Linear):
             dense(src + "/Dense_0", dst, m.bias is not None)
         elif isinstance(m, norms.BatchNorm):
             for leaf, name in (("scale", "weight"), ("bias", "bias")):
-                sd[dst + name] = _tensor(_get(params, f"{src}/BatchNorm_0/{leaf}", used_p))
+                param(dst + name, f"{src}/BatchNorm_0/{leaf}")
             for leaf in ("mean", "var"):
-                sd[f"{dst}running_{leaf}"] = _tensor(_get(batch_stats, f"{src}/BatchNorm_0/{leaf}", used_s))
+                stat(f"{dst}running_{leaf}", f"{src}/BatchNorm_0/{leaf}")
+        elif isinstance(m, norms.GroupNorm):  # the JAX module wraps flax's nn.GroupNorm
+            param(dst + "weight", src + "/GroupNorm_0/scale")
+            param(dst + "bias", src + "/GroupNorm_0/bias")
+        elif isinstance(m, (norms.FRNv1, norms.FRNv2)):
+            for leaf in ("weight", "bias"):
+                if getattr(m, leaf) is not None:
+                    param(dst + leaf, f"{src}/{leaf}")
+            for leaf in ("running_var", "single_running_var"):
+                if hasattr(m, leaf):
+                    stat(dst + leaf, f"{src}/{leaf}")
+        elif isinstance(m, norms.VarEMA):
+            stat(dst + "std_ema", src + "/std_ema")
+            stat(dst + "mean_ema", src + "/mean_ema")
+        elif isinstance(m, norms.ScaleNorm):
+            if m.scale is not None:
+                param(dst + "scale", src + "/scale")
+        elif isinstance(m, norms.Affine):
+            if m.value is not None:
+                param(dst + "value", src + "/value", _scalar)
+        elif isinstance(m, norms.Gain):
+            param(dst + "gain", src + "/gain")
         elif isinstance(m, attention.ECA):
-            sd[dst + "weight"] = _tensor(np.transpose(_get(params, src + "/kernel", used_p), (2, 1, 0)))
+            param(dst + "weight", src + "/kernel", _eca)
         elif isinstance(m, attention.SE):
             dense(src + "/Dense_0", dst + "fc1.", True)
             dense(src + "/Dense_1", dst + "fc2.", True)
         elif isinstance(m, attention.SEVar3):
-            walk(m.conv, f"{src}/{type(m.conv).__name__}_0", dst + "conv.")
+            child(m.conv, src, dst + "conv.")
         elif isinstance(m, blocks.ConvActBlock):
+            child(m.pre_norm, src, dst + "pre_norm.")
             walk(m.conv, src + "/ScaledStdConv_0", dst + "conv.")
             if m.sse is not None:
                 walk(m.sse, src + "/SEVar3_0", dst + "sse.")
         elif isinstance(m, blocks.ConvBnAct):
             walk(m.conv, src + "/Conv_0", dst + "conv.")
             walk(m.bn, src + "/BatchNorm_0", dst + "bn.")
+        elif isinstance(m, blocks.NormFreeBlock):  # its convs are ScaledStdConv_0 and _1
+            child(m.pre_norm, src, dst + "pre_norm.")
+            walk(m.conv1, src + "/ScaledStdConv_0", dst + "conv1.")
+            walk(m.conv2, src + "/ScaledStdConv_1", dst + "conv2.")
+            child(m.attn, src, dst + "attn.")
+        elif isinstance(m, blocks.NormFreeBlockTimm):
+            child(m.pre_norm, src, dst + "pre_norm.")
+            for name in ("conv1", "conv2", "conv2b", "conv3"):
+                walk(getattr(m, name), f"{src}/{name}", f"{dst}{name}.")
+            child(m.attn, src, dst + "attn.")
+        elif isinstance(m, blocks.EMABlock):
+            child(m.ema, src, dst + "ema.")
+            walk(m.conv, src + "/ScaledStdConv_0", dst + "conv.")
         elif isinstance(m, nfnet.NFBlock):
             for name in ("conv1", "conv2", "conv2b", "conv3", "downsample"):
                 if getattr(m, name) is not None:
                     walk(getattr(m, name), f"{src}/{name}", f"{dst}{name}.")
-            if m.attn is not None:
-                walk(m.attn, f"{src}/{type(m.attn).__name__}_0", dst + "attn.")
+            child(m.attn, src, dst + "attn.")
             if m.skipinit_gain is not None:
-                sd[dst + "skipinit_gain"] = _tensor(_get(params, src + "/skipinit_gain", used_p)).reshape(())
+                param(dst + "skipinit_gain", src + "/skipinit_gain", _scalar)
         elif isinstance(m, nfnet.NFNet):
-            for name, child in m.named_children():
+            for name, sub in m.named_children():
                 if name == "fc":
                     dense("fc", "fc.", True)
                 else:
-                    walk(child, name, name + ".")
+                    walk(sub, name, name + ".")
         elif isinstance(m, cmodel.CModel):
             seen: Dict[str, int] = {}
             for idx, mods in enumerate(m.layers):
@@ -198,10 +260,30 @@ def flax_to_torch_model(model: torch.nn.Module, params: Mapping, batch_stats: Ma
             raise KeyError(f"flax_to_torch_model does not know {type(m).__name__} at {src!r}")
 
     walk(model, "", "")
-    left = (_leaf_paths(params) - used_p) | (_leaf_paths(batch_stats) - used_s)
+    return plan
+
+
+def flax_to_torch_model(model: torch.nn.Module, params: Mapping, batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
+    """JAX ``params``/``batch_stats`` (numpy) of the JAX counterpart of
+    ``model`` -> ``model``'s ``state_dict``. Raises if a leaf of either tree
+    is left unmapped or a key of the state_dict is not produced."""
+    trees = {"params": params, "batch_stats": batch_stats or {}}
+    used = {"params": set(), "batch_stats": set()}
+    sd = {dst: fn(_get(trees[coll], src, used[coll])) for dst, (coll, src, fn) in _plan(model).items()}
+    left = set().union(*(_leaf_paths(trees[c]) - used[c] for c in trees))
     if left:
         raise KeyError(f"flax_to_torch_model left leaves unmapped: {sorted(left)[:10]}")
     missing = set(model.state_dict()) - set(sd)
     if missing:
         raise KeyError(f"flax_to_torch_model produced no value for: {sorted(missing)[:10]}")
     return sd
+
+
+def kernel_parameters(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
+    """The parameters of ``model`` that are ``kernel`` leaves in its JAX
+    counterpart (conv, Dense and ECA kernels), by name, in the model's order:
+    the set the JAX auxiliary losses, orthogonal init and weight norm select
+    by flax path. The port names every parameter ``weight``, so the names
+    cannot tell a kernel from a norm's scale; the walk can."""
+    plan = _plan(model)
+    return {n: p for n, p in model.named_parameters() if n in plan and plan[n][1].rsplit("/", 1)[-1] == "kernel"}

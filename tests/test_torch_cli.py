@@ -267,9 +267,62 @@ def test_nfnet_eval_of_last_checkpoint_reads_the_weights_and_its_ema_reproduces_
     assert evaluate(ckpt) == metrics
 
 
+NF_LAMB = os.path.join(CONFIGS, "exp", "41.nf_conv-act_lamb.yaml")
+NF_LAMB_OVERRIDES = [
+    "loader.backend=synthetic",
+    "val_loader.backend=synthetic",
+    "loader.image_size=32",
+    "loader.batch_size=8",
+    "val_loader.batch_size=8",
+    "run.bf16=false",
+    "debug=true",
+    "model.layer_config=[[-1, 1, ConvActBlock, [3, 8], {stride: 2}], [-1, 1, VarEMA], "
+    "[-1, 1, ConvActBlock, [8, 16], {stride: 2}], [-1, 1, VarEMA], [-1, 1, NormFreeBlockTimm, [16, 32, 16]], "
+    "[-1, 1, VarEMA], [-1, 1, scaled_conv1x1, [32, 64]], [-1, 1, 'torch.nn.SiLU'], "
+    "[-1, 1, FastGlobalAvgPool2d, [], {flatten: true}], [-1, 1, 'torch.nn.Dropout', [0.2]], [-1, 1, nn.Linear, [64, 1000]]]",
+    "run.stages=[{start: 0, end: 1, lr: [0.003, 0], lr_mode: cos}]",
+]
+
+
+class _OrthoProbe(_Record):
+    """Reads the kernels at on_begin, after OrthoInitClb's (the CLI's own callbacks come first)."""
+
+    def on_begin(self):
+        super().on_begin()
+        from sota_imagenet_tpu_torch.utils.weights import kernel_parameters
+
+        def gram_error(w):
+            m = w.detach().double().reshape(w.shape[0], -1)
+            g = m @ m.T if m.shape[0] <= m.shape[1] else m.T @ m
+            return float((g - torch.eye(g.shape[0], dtype=g.dtype)).abs().max())
+
+        self.ortho_errors = [gram_error(w) for w in kernel_parameters(self.runner.state.model).values()]
+        self.ema_init = {k: v.clone() for k, v in self.runner.state.ema.state_dict().items()} if self.runner.state.ema else None
+
+    def on_epoch_end(self, epoch, train_metrics, val_metrics):
+        super().on_epoch_end(epoch, train_metrics, val_metrics)
+        self.optimizer = type(self.runner.state.optimizer).__name__
+
+
+def test_nf_lamb_recipe_runs_with_ortho_init_ortho_loss_and_lamb(tmp_path):
+    """41.nf_conv-act_lamb.yaml (LAMB through badam, wd 5e-3, the gain mask,
+    CutmixMixup, OrthoInitClb, OrthoLossClb type 1, VarEMA monitors, drop-path)
+    through cli.main with a narrow trunk at 32 px."""
+    probe = _OrthoProbe()
+    val = cli.main(["-c", NF_LAMB, *NF_LAMB_OVERRIDES, f"log.dir={tmp_path}"], device="cpu", callbacks=[probe])
+    assert probe.steps == 10 and math.isfinite(probe.train_metrics["loss"]) and all(math.isfinite(v) for v in val.values())
+    # 2 ConvActBlock convs, 4 NormFreeBlockTimm convs, its ECA, the 1x1 head conv, the Linear
+    assert probe.optimizer == "Lamb" and len(probe.ortho_errors) == 9 and max(probe.ortho_errors) < 1e-5
+    (run_dir,) = glob.glob(os.path.join(tmp_path, "*_nf_conv_act_lamb", "*"))
+    disk = torch.load(os.path.join(run_dir, "model_last.ckpt"), weights_only=True)["state"]
+    assert [g["weight_decay"] for g in disk["optimizer"]["param_groups"]] == [5e-3, 0.0]
+    std_emas = [v for k, v in disk["model"].items() if k.endswith("std_ema")]
+    assert len(std_emas) == 3 and all(abs(float(v) - 1.0) > 1e-3 for v in std_emas)  # the monitors moved
+
+
 @pytest.mark.parametrize(
     "callback, item",
-    [("OrthoLossClb", "item 9"), ("src.callbacks.SAM", "item 9"), ("WeightDistributionTB", "item 7")],
+    [("ForwardSpectralNorm", "item 9"), ("src.callbacks.SAM", "item 9"), ("WeightDistributionTB", "item 7")],
 )
 def test_unported_callback_names_its_roadmap_item(callback, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}") as e:

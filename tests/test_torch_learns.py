@@ -65,3 +65,43 @@ def test_loop_learns_separable_task(feed):
     train_m, _ = runner.fit(loader, None, epochs=6, start_epoch=0)
     assert len(loader) == 8 and runner.epoch == 5
     assert train_m["Acc@1"] > 95.0, train_m
+
+
+def test_narrow_nf_cmodel_with_lamb_learns_separable_task():
+    """The norm-free family's pieces on the same task: ConvActBlocks, a VarEMA
+    monitor and a NormFreeBlockTimm with ECA (the 24.nf_conv-act kinds, at
+    widths 8-16), LAMB (lr 0.02, wd 5e-3, the gain mask), OrthoInit and the
+    type-1 OrthoLoss, through the Runner."""
+    from sota_imagenet_tpu_torch.train.callbacks import OrthoInitClb, OrthoLossClb
+    from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
+
+    torch.manual_seed(0)
+    model = CModel(
+        layer_config=[
+            [-1, 1, "ConvActBlock", [3, 8], {"stride": 2}],
+            [-1, 1, "VarEMA"],
+            [-1, 1, "NormFreeBlockTimm", [8, 16, 8], {"groups_width": 8, "attention_type": "eca9",
+                                                      "regnet_attention": True}],
+            [-1, 1, "FastGlobalAvgPool2d", [], {"flatten": True}],
+            [-1, 1, "Linear", [16, 2]],
+        ],
+        extra_kwargs={"ConvActBlock": {"activation": "swish_hard", "conv_kwargs": {"gamma": 2, "gain_init": 0.1}},
+                      "NormFreeBlockTimm": {"activation": "swish_hard", "conv_kwargs": {"gamma": 2}},
+                      "VarEMA": {"use": False}},
+    )
+    mask = filter_from_weight_decay(model.named_parameters(), ["gain"])
+    runner = Runner(
+        model,
+        CrossEntropyLoss(smoothing=0.1),
+        lambda m: build_optimizer({"_target_": "badam", "lamb": True, "weight_decay": 5e-3}, m.named_parameters(),
+                                  wd_mask=mask),
+        lr_phases=phases_from_stages(parse_stages([dict(start=0, end=6, lr=[0.02, 0.02])])),
+        callbacks=[OrthoInitClb(), OrthoLossClb(type=1, weight=1e-3, min_filters=8, min_norm=0.1)],
+        input_dtype=torch.float32,
+        device="cpu",
+    )
+    runner.init_state(seed=0)
+    loader = DeviceFeed(ColorLoader(), build_val_augment(num_classes=2, out_dtype=torch.float32), device="cpu", prefetch=1)
+    train_m, _ = runner.fit(loader, None, epochs=6, start_epoch=0)
+    assert type(runner.state.optimizer).__name__ == "Lamb"
+    assert train_m["Acc@1"] > 95.0, train_m

@@ -104,7 +104,54 @@ def _leaf(tree, path):
 
 
 def test_unported_optimizers_name_the_roadmap():
-    for cfg in ({"_target_": "lamb"}, {"_target_": "badam", "lamb": True}, {"_target_": "novograd"},
+    for cfg in ({"_target_": "adamp"}, {"_target_": "madgrad"}, {"_target_": "novograd"},
                 {"_target_": "adamw", "lookahead": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
             build_optimizer(cfg, [("w", torch.nn.Parameter(torch.zeros(2, 2)))])
+
+
+LAMB_OPTIMS = {
+    "lamb": {"_target_": "lamb", "weight_decay": 5e-3, "eps": 1e-6},
+    "badam_lamb": {"_target_": "badam", "lamb": True, "weight_decay": 5e-3, "eps": 1e-6, "betas": [0.8, 0.95]},
+    "badam_lamb_mode": {"_target_": "badam.BAdam", "lamb_mode": True, "weight_decay": 1e-2},
+}
+LAMB_LRS = (0.0, 0.005, 0.01, 0.003, 0.001)
+ZERO_INIT = ("stage0_block0.conv1.bias", "fc.bias")  # a parameter norm of 0: trust ratio 1
+NO_GRAD = "stage0_block0.skipinit_gain"  # zero gradients and no decay: update norm 0, trust ratio 1
+
+
+@pytest.mark.parametrize("name", sorted(LAMB_OPTIMS))
+def test_lamb_matches_optax_in_float64(name):
+    """Five steps of LAMB (optax's chain: scale_by_adam -> masked
+    add_decayed_weights -> scale_by_trust_ratio -> -lr) with the gain mask,
+    two zero-initialised parameters and one whose gradient is always zero:
+    parameters within 1e-9."""
+    cfg = LAMB_OPTIMS[name]
+    init = _values(0)
+    for k in ZERO_INIT:
+        init[k] = np.zeros_like(init[k])
+    grads = [_values(s) for s in range(1, len(LAMB_LRS) + 1)]
+    for g in grads:
+        g[NO_GRAD] = np.zeros_like(g[NO_GRAD])
+    with jax.enable_x64(True):
+        params = _nested({k: jnp.asarray(v, jnp.float64) for k, v in init.items()})
+        tx = jax_build_optimizer(dict(cfg), lambda count: jnp.asarray(LAMB_LRS)[count], wd_mask=jax_filter_wd(params, ["gain"]))
+        opt_state = tx.init(params)
+        for g in grads:
+            updates, opt_state = tx.update(_nested({k: jnp.asarray(v, jnp.float64) for k, v in g.items()}), opt_state, params)
+            params = optax.apply_updates(params, updates)
+        want = jax.tree_util.tree_map(np.asarray, params)
+    tparams = [(k, torch.nn.Parameter(torch.from_numpy(v.copy()))) for k, v in init.items()]
+    opt = build_optimizer(dict(cfg), tparams, wd_mask=filter_from_weight_decay(tparams, ["gain"]))
+    assert type(opt).__name__ == "Lamb" and [g["weight_decay"] for g in opt.param_groups] == [cfg["weight_decay"], 0.0]
+    for lr, g in zip(LAMB_LRS, grads):
+        for k, p in tparams:
+            p.grad = torch.from_numpy(np.asarray(g[k]).copy())
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+    for k, p in tparams:
+        np.testing.assert_allclose(p.detach().numpy(), _leaf(want, TREE[k][0]), rtol=1e-9, atol=1e-9, err_msg=k)
+        moved = np.abs(p.detach().numpy() - init[k]).max()
+        assert (moved == 0.0) if k == NO_GRAD else (moved > 1e-4), k
+    assert all(s["step"] == len(LAMB_LRS) for s in opt.state.values())

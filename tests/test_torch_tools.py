@@ -79,14 +79,36 @@ def test_check_curve_matches_the_jax_script(jax_rehearsal, curve):
 
 
 def test_rehearsal_recipes_and_stages_match_the_jax_script(jax_rehearsal):
-    for name in ("r50_baseline", "nfnet"):
+    assert set(RR.RECIPES) == set(jax_rehearsal.RECIPES) == {"r50_baseline", "nfnet", "nf_lamb"}
+    for name in RR.RECIPES:
         assert RR.RECIPES[name] == jax_rehearsal.RECIPES[name]
     # the string the JAX script builds for the r50 shape over 30 epochs (tpu_recipe_rehearsal.py:212-219)
     assert RR.stages_override(RR.RECIPES["r50_baseline"], 30) == (
         "run.stages=[{start: 0, end: 3, lr: [0.001, 1.0]}, {start: 3, end: 30, lr: [1.0, 0.0], lr_mode: cos}]"
     )
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        RR.main(["--recipe", "nf_lamb"], device="cpu")
+    # and for the nf_lamb shape, pure cosine (tpu_recipe_rehearsal.py:220-222)
+    assert RR.stages_override(RR.RECIPES["nf_lamb"], 30) == "run.stages=[{start: 0, end: 30, lr: [0.001, 0.0], lr_mode: cos}]"
+
+
+def test_nf_lamb_rehearsal_config_builds_its_model_optimizer_and_callbacks():
+    """configs/tpu_rehearsal_nf_lamb.yaml: the full-width 24.nf_conv-act trunk with a
+    100-class head, LAMB with the gain mask, CutmixMixup, OrthoInit and OrthoLoss."""
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch import config as TC
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
+
+    recipe = RR.RECIPES["nf_lamb"]
+    cfg = TC.load(os.path.join(A.CONFIGS, recipe["config"]), overrides=[RR.stages_override(recipe, 30)], strict_env=False)
+    cli.reject_unported(cfg)
+    model = cli.build_model(cfg)
+    assert model.layers[-1][0].weight.shape == (100, 2304)
+    mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd)
+    opt = build_optimizer(dict(cfg.optim), model.named_parameters(), wd_mask=mask)
+    assert type(opt).__name__ == "Lamb" and opt.param_groups[0]["weight_decay"] == 5e-3
+    assert all(not mask[n] for n, _ in model.named_parameters() if n.endswith("gain"))
+    names = [type(TC.instantiate(c)).__name__ for c in cfg.run.extra_callbacks]
+    assert names == ["CutmixMixup", "OrthoInitClb", "OrthoLossClb"]
 
 
 SMALL = ["model={_target_: resnet18, num_classes: 20}", "loader.image_size=32", "loader.batch_size=16",
