@@ -32,7 +32,8 @@ without a build; any failure exits non-zero and prints no result):
              model_phase); and one f32 step of a full-width, depth-cut NFNet
              with AdamW, accumulation 2 and the gain mask (nfnet_model_phase);
              and one of the 24.nf_conv-act trunk with LAMB and the ortho loss
-             (nf_lamb_model_phase).
+             (nf_lamb_model_phase); and one of a depth-cut 80_1 trunk (UFO,
+             XCA, GEM) with SGD and AGC (nondeep_model_phase).
 4. trainer A — ``cli.main`` on configs/exp/1.r50_baseline.yaml (ResNet-50 at
              full width, batch 256 at 224 px, bf16, synthetic data, debug
              mode: 10 train steps and 20 val steps). Checks: finite loss, the
@@ -98,13 +99,30 @@ without a build; any failure exits non-zero and prints no result):
              moved from 1. The model phase holds one f32 step of the same
              trunk (LAMB, OrthoLoss) on the card against the CPU
              (nf_lamb_model_phase).
-14. profile — trainers A, C, D, H and I once more with torch.profiler over
-             steps 4-7: device time per step by layer and the top kernels,
-             and the device's busy share (separate runs, so the trainers'
-             times stay clean). D's and I's device time is attributed to the
-             port's layers by the op that launched each kernel
-             (layer_breakdown); I's must show the auxiliary loss's forward
-             and backward in every profiled step.
+14. trainer J — ``cli.main`` on configs/exp/80_1.non-deeps_ufo-0.5_no-res.yaml
+             as the file says but for synthetic data, debug mode and one
+             1-epoch stage of its cosine: the non-deep CModel at full width
+             (SpaceToDepth-4 stem, 14 NonDeepBlocks with BatchNorm and
+             scaled convs, 4 of them with UFO channel attention, the
+             384-2048-2048-1000 head; 24.81M parameters), batch 224 at 224 px,
+             bf16, SGD with the gain mask, CutmixMixup prob 1, AGC 0.01, the
+             augment kernel with all its stages live. Checks as trainer A,
+             and: no gain is weight-decayed, and AGC's record of the last
+             step (a probe turns it on after step 9; device tensors, read at
+             the epoch's end) shows it ran on the card over every unit of the
+             model, clipped at least one, and left none over its bound. It
+             reports the forward MACs (forward_gmac). The model phase holds
+             one f32 step of a depth-cut trunk at 80_1's widths (UFO, XCA
+             with and without v_norm, GEM, AGC) on the card against the CPU
+             (nondeep_model_phase).
+15. profile — trainers A, C, D, H, I and J once more with torch.profiler
+             over steps 4-7: device time per step by layer and the top
+             kernels, and the device's busy share (separate runs, so the
+             trainers' times stay clean). D's, I's and J's device time is
+             attributed to the port's layers by the op that launched each
+             kernel (layer_breakdown; UFO, XCA, GEM and AGC each a group of
+             its own); I's must show the auxiliary loss's forward and
+             backward in every profiled step.
 
 Every kernel counter is set to 0 just before each trainer's ``cli.main`` and
 read just after. The line before the last is the card's name and power
@@ -921,8 +939,14 @@ def _probe_callback(profile_window=None, record_shapes=False):
     class Probe(Callback):
         prof = None
         ortho = None
+        agc = None
+        agc_stats = None
 
         def on_begin(self):
+            # the run's AGC transform, if the config names the callback: it records its last step (below)
+            from sota_imagenet_tpu_torch.train.callbacks import AdaptiveGradientClipping
+
+            self.agc = next((c.transform for c in self.runner.callbacks if isinstance(c, AdaptiveGradientClipping)), None)
             # after OrthoInitClb's on_begin (cli.main puts the config's callbacks first): the rows of one
             # NormFreeBlockTimm's grouped 3x3 conv2 kernel, as the step will first read them
             from sota_imagenet_tpu_torch.models.blocks import NormFreeBlockTimm
@@ -955,6 +979,9 @@ def _probe_callback(profile_window=None, record_shapes=False):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self.events.append(ev)
+            if self.agc is not None and step == 8:
+                # AGC keeps device tensors about the next (last) step's clip: no host read inside any step
+                self.agc.record = True
             self.metric_devices.add(metrics["loss"].device.type)
             if profile_window and step == profile_window[0]:
                 torch.cuda.synchronize()
@@ -986,6 +1013,11 @@ def _probe_callback(profile_window=None, record_shapes=False):
                 not torch.equal(a, b) for a, b in zip(state.ema.state_dict().values(), state.model.state_dict().values())
             )
             self.std_emas = [float(b) for n, b in state.model.named_buffers() if n.endswith("std_ema")]
+            if self.agc is not None and self.agc.stats is not None:
+                self.agc.record = False
+                st = self.agc.stats
+                self.agc_stats = {"device": st["max_ratio_after"].device.type, "units": int(st["units"]),
+                                  "clipped": int(st["clipped"]), "max_ratio_after": float(st["max_ratio_after"])}
             names = {id(p): n for n, p in state.model.named_parameters()}
             self.weight_decay_of = {
                 names[id(p)]: g["weight_decay"] for g in state.optimizer.param_groups for p in g["params"]
@@ -1188,6 +1220,142 @@ def nf_lamb_model_phase() -> dict:
     return result
 
 
+# 80_1's stem and widths cut in depth: one block per width, an 80_1 UFO block, one with 84's and one with 84_1's
+# xca_kwargs, and 83's GEM head
+NONDEEP_TRUNK = """
+- [-1, 1, "pt.modules.SpaceToDepth", 4]
+- [-1, 1, NonDeepBlock, [48, 128]]
+- [-1, 1, NonDeepBlock, [128, 128]]
+- [-1, 1, "nn.AvgPool2d", [2, 2]]
+- [-1, 1, NonDeepBlock, [128, 256]]
+- [-1, 1, NonDeepBlock, [256, 256]]
+- [-1, 1, "nn.AvgPool2d", [2, 2]]
+- [-1, 1, NonDeepBlock, [256, 384]]
+- [-1, 1, NonDeepBlock, [384, 384], {ufo_kwargs: {residual: False, last_proj: True}}]
+- [-1, 1, NonDeepBlock, [384, 384], {xca_kwargs: {residual: True, last_proj: True}}]
+- [-1, 1, NonDeepBlock, [384, 384], {xca_kwargs: {residual: True, last_proj: True, v_norm: True}}]
+- [-1, 1, GEM_pool]
+- [-1, 1, "nn.Linear", [384, 2048]]
+- [-1, 1, nn.Hardswish]
+- [-1, 1, "nn.Linear", [2048, 2048]]
+- [-1, 1, nn.Hardswish]
+- [-1, 1, "nn.Linear", [2048, 1000]]
+"""
+
+
+def nondeep_model_phase() -> dict:
+    """One f32 train step of a depth-cut 80_1 trunk at full width
+    (NONDEEP_TRUNK: the SpaceToDepth-4 stem, BatchNorm and the scaled convs
+    of 80_1's extra_kwargs, UFO, XCA with and without v_norm, GEM) on the
+    card against the same step on the CPU, from the same seeded weights: one
+    batch of 8 images at 64 px, SGD (momentum 0.9, wd 3e-5, the gain mask)
+    with AGC 0.01 through AdaptiveGradientClipping, lr 0.1, TF32 off. The
+    same step in float64 on the CPU is the scale of float32's own error
+    (``cpu_f32_vs_f64``; UFO and XCA still take q, k, v in float32 there, as
+    the JAX modules do).
+
+    Tolerances: loss rtol 1e-5; the clipped gradients within relative L2
+    1e-4 (float32 rounding, ~5e-6 between the CPU's float32 and float64
+    steps: ``cpu_f32_vs_f64``); the step's reported grad_norm rtol 1e-4,
+    because the CPU's float32 ``torch._foreach_norm`` of the large head
+    kernels is less exact than the card's reduction: the CPU's grad_norm is
+    the one off the float64 step (PERF.md section 6); the update (state after
+    minus state before, BatchNorm's running statistics included, which it
+    mostly is) within relative L2 1e-3. The two AGC records (units, units
+    clipped) agree, but for one unit at its bound."""
+    import torch
+    import yaml
+
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
+    from sota_imagenet_tpu_torch.models.cmodel import CModel
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.train.callbacks import AdaptiveGradientClipping
+    from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
+
+    cfg = C.load(NONDEEP, strict_env=False)
+    extra = C.to_dict(cfg.model)["extra_kwargs"]
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (8, 64, 64, 3), generator=gen).float().sub(127.5).mul(1 / 51.0)
+    labels = torch.nn.functional.one_hot(torch.randint(0, 1000, (8,), generator=gen), 1000).float()
+    runs = {}  # (device, dtype) -> loss, grad_norm, clipped gradients, state before, state after, AGC record
+    for dev, dt in (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64)):
+        model = CModel(layer_config=yaml.safe_load(NONDEEP_TRUNK), extra_kwargs=extra)
+        mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd)
+        state = steps.init_state(
+            model, lambda m: build_optimizer(dict(cfg.optim), m.named_parameters(), wd_mask=mask), device=dev, seed=0
+        )
+        model.to(dt)
+        before = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
+        clip = AdaptiveGradientClipping(clip_factor=0.01)
+        clip.transform.record = True
+        step = steps.build_train_step(CrossEntropyLoss(smoothing=0.1), lambda i: 0.1, input_dtype=dt,
+                                      **clip.step_options())
+        state, m = step(state, {"image": images.to(dev), "label": labels.to(dev)})
+        grads = torch.cat([p.grad.detach().double().flatten().cpu() for p in state.model.parameters()])
+        after = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
+        rec = {k: float(v) for k, v in clip.transform.stats.items()}
+        rec["device"] = clip.transform.stats["max_ratio_after"].device.type
+        runs[dev, dt] = (float(m["loss"]), float(m["grad_norm"]), grads, before, after, rec)
+    (loss_c, gn_c, g_c, b_c, a_c, r_c) = runs["cpu", torch.float32]
+    (loss_g, gn_g, g_g, b_g, a_g, r_g) = runs["cuda", torch.float32]
+    (loss_d, gn_d, g_d, _, _, _) = runs["cpu", torch.float64]
+    kinds = sorted({type(m).__name__ for m in state.model.modules()} & {"UFO", "XCA", "GEMPool", "SEVar3", "BatchNorm"})
+    result = {
+        "phase": "model_nondeep",
+        "modules": kinds,
+        "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+        "grad_norm_rel": abs(gn_g - gn_c) / abs(gn_c),
+        "grad_rel_l2": float((g_g - g_c).norm() / g_c.norm()),
+        "init_equal": bool(torch.equal(b_c, b_g)),
+        "update_rel_l2": float(((a_g - b_g) - (a_c - b_c)).norm() / (a_c - b_c).norm()),
+        "state_rel_l2": float((a_g - a_c).norm() / a_c.norm()),
+        "update_over_state": float((a_c - b_c).norm() / b_c.norm()),
+        "cpu_f32_vs_f64": {"loss_rel": abs(loss_c - loss_d) / abs(loss_d), "grad_norm_rel": abs(gn_c - gn_d) / abs(gn_d),
+                           "grad_rel_l2": float((g_c - g_d).norm() / g_d.norm())},
+        "agc": {"cpu": r_c, "cuda": r_g},
+        "loss": [loss_c, loss_g, loss_d],
+        "grad_norm": [gn_c, gn_g, gn_d],
+    }
+    print(f"[model_nondeep] {json.dumps(result)}")
+    if not (result["init_equal"] and len(kinds) == 5 and result["loss_rel"] < 1e-5 and result["grad_norm_rel"] < 1e-4
+            and result["grad_rel_l2"] < 1e-4 and result["update_rel_l2"] < 1e-3):
+        raise AssertionError(f"non-deep train step on the card disagrees with the CPU: {result}")
+    if r_g["device"] != "cuda" or r_g["units"] != r_c["units"] or abs(r_g["clipped"] - r_c["clipped"]) > 1 or not (
+            0 < r_g["clipped"] < r_g["units"] and r_g["max_ratio_after"] <= 1.0 + 1e-5):
+        raise AssertionError(f"non-deep train step: AGC on the card {r_g}, on the CPU {r_c}")
+    return result
+
+
+def forward_gmac(config: str, image_size: int = 224) -> dict:
+    """The model of ``config``'s forward MACs per image at ``image_size``,
+    counted by torch.utils.flop_counter on the meta device (no memory, no
+    compute), in all and by the CModel submodule kind (c1, c3, attn) where
+    there is one."""
+    import collections
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch import config as C
+
+    cfg = C.load(config, strict_env=False)
+    with torch.device("meta"):
+        model = cli.build_model(cfg)
+        x = torch.empty(1, image_size, image_size, 3)
+    counter = FlopCounterMode(display=False, depth=None)
+    with counter:
+        model.train()(x)
+    by_kind = collections.Counter()
+    for name, ops in counter.get_flop_counts().items():
+        parts = name.split(".")  # CModel.layers.<i>.<r>.<kind>
+        if len(parts) == 5 and parts[0] == "CModel":
+            by_kind[parts[4]] += sum(ops.values()) / 2e9
+    return {"gmac_per_image": counter.get_total_flops() / 2e9, "by_kind_gmac": dict(by_kind)}
+
+
 def tiny_phase(gpu: str) -> dict:
     """cli.main on configs/tiny_synthetic.yaml as it stands (a CModel of three
     ConvActBlocks, f32, 32 px, batch 64, two debug epochs of 10 steps) on the
@@ -1245,9 +1413,13 @@ def trainer_phase(
     the weights and every gain outside the weight decay; with "nf_lamb",
     every gain outside the weight decay, the rows of a NormFreeBlockTimm's
     conv2 kernel orthonormal within 1e-5 after OrthoInitClb, and a VarEMA
-    std_ema moved from 1. With either, a profile is attributed to the port's
-    layers (layer_breakdown); nf_lamb's must find the auxiliary loss's
-    forward and backward in every profiled step. With ``tree`` it reads
+    std_ema moved from 1; with "nondeep" (80_1), every gain outside the
+    weight decay, 14 NonDeepBlocks of which 4 hold a UFO, and AGC's record
+    of the last step (on the card, every unit of the model, at least one
+    clipped, none over its bound after the clip); it also reports the
+    model's forward MACs (forward_gmac). With any recipe, a profile is
+    attributed to the port's layers (layer_breakdown); nf_lamb's must find
+    the auxiliary loss's forward and backward in every profiled step. With ``tree`` it reads
     that JPEG ImageFolder (train and val) instead of synthetic data, for two
     epochs (folder_overrides), and reports the second: every
     val image must be scored once (the sum of the masked val batches'
@@ -1350,6 +1522,20 @@ def trainer_phase(
         result["ortho_init"] = probe.ortho
         result["std_ema"] = probe.std_emas
         result["parameters_m"] = sum(p.numel() for p in probe.runner.state.model.parameters()) / 1e6
+    if recipe == "nondeep":
+        from sota_imagenet_tpu_torch.utils.weights import unit_dims
+
+        model = probe.runner.state.model
+        dims = unit_dims(model)
+        result["agc"] = probe.agc_stats
+        result["agc_units_expected"] = sum(
+            1 if p.dim() <= 1 or p.shape[dims[n]] == 1 else p.shape[dims[n]] for n, p in model.named_parameters()
+        )
+        result["parameters_m"] = sum(p.numel() for p in model.parameters()) / 1e6
+        result["blocks"] = {k: sum(1 for m in model.modules() if type(m).__name__ == k) for k in ("NonDeepBlock", "UFO")}
+        result["forward"] = forward_gmac(config)
+        # fwd + bwd = 3x the forward's MACs, 2 FLOP each, over the batch
+        result["tflop_per_step"] = 6 * result["forward"]["gmac_per_image"] * probe.batch_size / 1e3
     print(f"[{name}] {json.dumps(result)}")
     if not math.isfinite(loss) or not all(math.isfinite(v) for v in val.values()):
         raise AssertionError(f"{name}: non-finite loss (train {loss}, val {val})")
@@ -1375,6 +1561,13 @@ def trainer_phase(
             raise AssertionError(f"{name}: the EMA equals the weights after {steps} steps")
         if groups["gains_decayed"] or not groups["decayed"] or not any("gain" in k for k in probe.weight_decay_of):
             raise AssertionError(f"{name}: weight decay groups {groups}")
+    if recipe == "nondeep":
+        agc = result["agc"]
+        if agc is None or agc["device"] != "cuda" or agc["units"] != result["agc_units_expected"] or not (
+                0 < agc["clipped"] <= agc["units"] and agc["max_ratio_after"] <= 1.0 + 1e-4):
+            raise AssertionError(f"{name}: AGC's record of the last step {agc}, {result['agc_units_expected']} units")
+        if result["blocks"] != {"NonDeepBlock": 14, "UFO": 4}:
+            raise AssertionError(f"{name}: the model holds {result['blocks']}")
     if recipe == "nf_lamb":
         ortho = probe.ortho
         if ortho is None or ortho["shape"] != [384, 64, 3, 3] or ortho["max_abs_gram_minus_eye"] > 1e-5:
@@ -1406,7 +1599,8 @@ KERNEL_GROUPS = (
 
 def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
     """Device time of the profiled steps by layer and by kernel, beside the
-    window's wall time (busy share = device time / wall)."""
+    window's wall time (busy share = device time / wall), and the device
+    operations (kernels, copies, fills) a step."""
     from torch.autograd import DeviceType
 
     averages = prof.key_averages()
@@ -1435,6 +1629,8 @@ def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "busy_share": device_ms / wall_ms if wall_ms > 0 else None,
+        # kernels, copies and fills the device ran: the launches a step
+        "launches_per_step": sum(n for _, n, _ in rows) / steps,
         "by_group_ms_per_step": {g: ms / steps for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"ms_per_step": ms / steps, "calls": n, "name": key[:120]} for ms, n, key in rows[:15]],
         "top_kernels_by_group": {g: m[:3] for g, m in members.items() if g != "other"},
@@ -1451,18 +1647,20 @@ def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
 @contextlib.contextmanager
 def _layer_scopes():
     """For a profiled run: wrap the weight standardisation, the ECA gate,
-    VarEMA, the auxiliary losses and cutmix_mixup in
-    torch.profiler.record_function scopes (SCOPE_LAYERS), so layer_breakdown
-    can tell their kernels from the other elementwise ones. The originals are
+    VarEMA, the auxiliary losses, cutmix_mixup, UFO, XCA, the GEM pools and
+    AGC in torch.profiler.record_function scopes (SCOPE_LAYERS), so
+    layer_breakdown can tell their kernels from the other ones (UFO's and
+    XCA's 1x1 convs count as theirs). The originals are
     put back on exit; the scopes cost the host a few microseconds each, which
     is why the timed trainer runs without them."""
     import functools
 
     import torch
 
-    from sota_imagenet_tpu_torch.models.attention import ECA
-    from sota_imagenet_tpu_torch.models.layers import ScaledStdConv
+    from sota_imagenet_tpu_torch.models.attention import ECA, UFO, XCA
+    from sota_imagenet_tpu_torch.models.layers import GEMPool, ScaledStdConv
     from sota_imagenet_tpu_torch.models.norms import VarEMA
+    from sota_imagenet_tpu_torch.optim.factory import AGC
     from sota_imagenet_tpu_torch.train import callbacks
 
     def scoped(label, fn):
@@ -1477,6 +1675,7 @@ def _layer_scopes():
         (ScaledStdConv, "standardized_weight", "ws"), (ECA, "forward", "eca"), (VarEMA, "forward", "varema"),
         (callbacks.OrthoLossClb, "_type1", "aux"), (callbacks.OrthoLossClb, "_type2", "aux"),
         (callbacks.NormLossClb, "_loss", "aux"), (callbacks, "cutmix_mixup", "mixup"),
+        (UFO, "forward", "ufo"), (XCA, "forward", "xca"), (GEMPool, "forward", "gem"), (AGC, "__call__", "agc"),
     )
     originals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
     try:
@@ -1488,7 +1687,8 @@ def _layer_scopes():
             setattr(owner, attr, fn)
 
 
-SCOPE_LAYERS = {"ws": "weight standardisation", "eca": "ECA", "varema": "VarEMA", "aux": "aux loss", "mixup": "mixup"}
+SCOPE_LAYERS = {"ws": "weight standardisation", "eca": "ECA", "varema": "VarEMA", "aux": "aux loss", "mixup": "mixup",
+                "ufo": "UFO", "xca": "XCA", "gem": "GEM", "agc": "AGC"}
 CONV_OPS = {"aten::cudnn_convolution": (0, 1), "aten::convolution": (0, 1), "aten::_convolution": (0, 1),
             "aten::conv2d": (0, 1), "aten::convolution_backward": (1, 2)}  # op -> positions of (input, weight)
 
@@ -1503,8 +1703,9 @@ def layer_breakdown(prof, window):
     autograd sequence number (the auxiliary loss's backward is its own
     layer); grouped or dense convs, by the op's input and weight shapes
     (groups = C_in / weight's dim 1); ``_foreach`` ops outside the optimizer:
-    the EMA; memcpy and memset: copies; anything else launched by an op:
-    elementwise and activations (the activations, the residual and drop-path
+    the EMA; batch-norm ops, forward and backward: BatchNorm; memcpy and
+    memset: copies; anything else launched by an op: elementwise and
+    activations (the activations, the residual and drop-path
     arithmetic, the loss, dtype casts, gradient accumulation). fused_aug is
     launched by no op: it is read from the kernel records by name, and what
     is left of the device time is ``unattributed``. Also returns in how many
@@ -1558,6 +1759,8 @@ def layer_breakdown(prof, window):
                     return "grouped convs" if i[1] // w[1] > 1 else "dense convs"
         if any("_foreach" in a.name for a in ancestors(e)):
             return "EMA"
+        if any("batch_norm" in a.name for a in ancestors(e)):
+            return "BatchNorm"
         return "elementwise/activations"
 
     layers: dict = {}
@@ -1581,7 +1784,7 @@ def layer_breakdown(prof, window):
 
 
 PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "trainer_i",
-          "data", "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
+          "trainer_j", "data", "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
@@ -1591,6 +1794,8 @@ HBM_CACHE = "configs/exp/r50_hbm_cache.yaml"
 NFNET_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0, 0.01]}]",)  # the recipe's warmup, cut to the one debug epoch
 NF_LAMB = "configs/exp/41.nf_conv-act_lamb.yaml"
 NF_LAMB_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.003, 0], lr_mode: cos}]",)  # the recipe's cosine in one epoch
+NONDEEP = "configs/exp/80_1.non-deeps_ufo-0.5_no-res.yaml"
+NONDEEP_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.1, 0], lr_mode: cos}]",)  # the recipe's cosine in one epoch
 
 
 def main(argv=None) -> int:
@@ -1640,6 +1845,7 @@ def main(argv=None) -> int:
         run("model_fused_relu", model_phase, fused_stats=True, check=False)
         run("model_nfnet", nfnet_model_phase)
         run("model_nf_lamb", nf_lamb_model_phase)
+        run("model_nondeep", nondeep_model_phase)
     aug_only = {"fused_aug": 1}
     if "trainer_a" in phases:
         run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only)
@@ -1654,6 +1860,8 @@ def main(argv=None) -> int:
         run("trainer_e", tiny_phase, gpu)
     if "trainer_i" in phases:
         run("trainer_i", trainer_phase, "trainer_i", NF_LAMB, NF_LAMB_STAGE, gpu, aug_only, recipe="nf_lamb")
+    if "trainer_j" in phases:
+        run("trainer_j", trainer_phase, "trainer_j", NONDEEP, NONDEEP_STAGE, gpu, aug_only, recipe="nondeep")
     cached = {"packed", "trainer_h"} & set(phases) or "profile" in phases
     with tempfile.TemporaryDirectory() as data_root:
         if {"data", "trainer_f", "trainer_g"} & set(phases) or cached:
@@ -1687,6 +1895,8 @@ def main(argv=None) -> int:
     if "profile" in phases:
         run("profile_i", trainer_phase, "profile_i", NF_LAMB, NF_LAMB_STAGE, gpu, aug_only, profile_window=(2, 6),
             recipe="nf_lamb")
+        run("profile_j", trainer_phase, "profile_j", NONDEEP, NONDEEP_STAGE, gpu, aug_only, profile_window=(2, 6),
+            recipe="nondeep")
     if "profile_h" in results:
         # the cache's input stage inside H's step: the gather and the augment kernel, as shares of its device time
         by_group = results["profile_h"]["profile"]["by_group_ms_per_step"]
@@ -1698,7 +1908,7 @@ def main(argv=None) -> int:
     if "trainer_a" in results and "trainer_h" in results:
         a, h = results["trainer_a"], results["trainer_h"]
         print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median_4_10'], 'ms_per_step_a': a['ms_per_step_median_4_10'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
-    for trainer, profile in (("trainer_d", "profile_d"), ("trainer_i", "profile_i")):
+    for trainer, profile in (("trainer_d", "profile_d"), ("trainer_i", "profile_i"), ("trainer_j", "profile_j")):
         if trainer not in results or profile not in results:
             continue
         # the profiler (shapes recorded, thousands of ops a step) slows these hosts far more than A's or C's:
@@ -1726,6 +1936,7 @@ def main(argv=None) -> int:
     kernels[0]["launches_hbm_cache"] = results["trainer_h"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_learn"] = results["learn"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_nf_lamb"] = results["trainer_i"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_nondeep"] = results["trainer_j"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))

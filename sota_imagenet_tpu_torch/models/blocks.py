@@ -1,7 +1,8 @@
 """Blocks for config-built models (port of ``sota_imagenet_tpu/models/blocks.py``:
 partial_residual :31, _make_pre_norm :45, ConvActBlock :57, NormFreeBlock
-:152, NormFreeBlockTimm :193, EMABlock :309, ConvBnAct :450). The rest of
-the block zoo is not ported yet (ROADMAP.md Queue 1 item 10).
+:152, NormFreeBlockTimm :193, NonDeepBlock :258, EMABlock :309, ConvBnAct
+:450). The rest of the block zoo is not ported yet (ROADMAP.md Queue 1 item
+10).
 
 Submodules that hold parameters carry the JAX module's names where it names
 them (``conv1``, ``conv2``...); ``utils/weights.py`` maps the others onto
@@ -15,10 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sota_imagenet_tpu_torch.models.attention import SEVar3, get_attn
+from sota_imagenet_tpu_torch.models.attention import SEVar3, UFO, XCA, get_attn
 from sota_imagenet_tpu_torch.models.layers import BlurPool, ChannelShuffle, Conv, DropPath, ScaledStdConv, activation_from_name
 from sota_imagenet_tpu_torch.models.norms import Affine, BatchNorm, GroupNorm, VarEMA, norm_from_name
-from sota_imagenet_tpu_torch.registry import NotPortedError
 
 
 def partial_residual(out: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
@@ -47,10 +47,13 @@ def _make_pre_norm(pre_norm, channels: int) -> Optional[nn.Module]:
 
 
 class ConvActBlock(nn.Module):
-    """[pre_norm ->] scaled 3x3 conv + (partial) residual -> act (reference
-    model.py:822-870). The residual, the block's input before the pre-norm,
-    is BlurPool-downscaled when stride is 2. ``sse`` adds an SEVar3 gate when
-    the width does not change."""
+    """[pre_norm ->] scaled 3x3 conv + (partial) residual -> act [-> XCA]
+    (reference model.py:822-870). The residual, the block's input before the
+    pre-norm, is BlurPool-downscaled when stride is 2. ``attn_kwargs`` adds
+    an XCA (residual by default) after the activation; the JAX block calls
+    it without ``train``, so its dropout never runs, and here it is built
+    with its dropout rates at 0. ``sse`` adds an SEVar3 gate when the width
+    does not change."""
 
     def __init__(
         self,
@@ -66,8 +69,6 @@ class ConvActBlock(nn.Module):
         sse: bool = False,
     ):
         super().__init__()
-        if attn_kwargs is not None:
-            raise NotPortedError("ConvActBlock attn_kwargs (XCA)", "Queue 1 item 10c")
         self.pre_norm = _make_pre_norm(pre_norm, in_chs)
         groups = _groups(in_chs, groups, groups_width)
         ck = dict(conv_kwargs or {})
@@ -76,11 +77,14 @@ class ConvActBlock(nn.Module):
         self.shuffle = ChannelShuffle(groups)
         self.blur = BlurPool() if stride == 2 else None
         self.act = activation_from_name(activation)
+        self.attn = None if attn_kwargs is None else XCA(out_chs, **{**attn_kwargs, "attn_drop": 0.0, "proj_drop": 0.0})
         self.sse = SEVar3(out_chs) if sse and in_chs == out_chs else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.shuffle(self.conv(x if self.pre_norm is None else self.pre_norm(x)))
         out = self.act(partial_residual(out, x if self.blur is None else self.blur(x)))
+        if self.attn is not None:
+            out = self.attn(out)
         return out if self.sse is None else self.sse(out)
 
 
@@ -192,6 +196,75 @@ class NormFreeBlockTimm(nn.Module):
         if self.attn is not None and not self.regnet_attention:
             out = self.attn_gain(self.attn(out))
         return partial_residual(self.drop_path(out), x)
+
+
+class NonDeepBlock(nn.Module):
+    """ParNet-style block (reference model.py:658-726; "Non-deep Networks",
+    arXiv:2110.07641): x_norm = norm(x); c1 1x1 + c3 3x3 of x_norm (both
+    ScaledStdConv when ``scaled``, else Conv with bias; grouped by
+    ``groups_width``; c3 only with ``use_conv3``) + one of: XCA of x_norm
+    (``xca_kwargs``; in == out), UFO of x_norm (``ufo_kwargs``; from in to
+    out, with its projection forced on when they differ), SEVar3 of x_norm
+    (``use_se`` and in == out) [-> + x, partial, with ``residual``] [->
+    ChannelShuffle with ``shuffle``] -> hard_silu. XCA's and UFO's own
+    ``residual`` defaults to False here; set True, it adds x_norm.
+    ``se_kwargs`` is accepted and unused, as in the JAX block."""
+
+    def __init__(
+        self,
+        in_chs: int,
+        out_chs: int,
+        groups_width: Optional[int] = None,
+        conv_kwargs: Optional[Dict] = None,
+        scaled: bool = False,
+        norm: str = "bn",
+        shuffle: bool = True,
+        residual: bool = False,
+        use_conv3: bool = True,
+        xca_kwargs: Optional[Dict] = None,
+        ufo_kwargs: Optional[Dict] = None,
+        se_kwargs: Optional[Dict] = None,
+        use_se: bool = True,
+    ):
+        super().__init__()
+        if residual and in_chs > out_chs:
+            raise ValueError("dimension reduction unsupported with residual=True")
+        if xca_kwargs is not None and in_chs != out_chs:
+            raise ValueError("XCA requires in_chs == out_chs")
+        del se_kwargs
+        groups = _groups(in_chs, 1, groups_width)
+        ck = dict(conv_kwargs or {})
+        ck["groups"] = groups
+        self.residual = residual
+        self.norm = norm_from_name(norm)(in_chs)
+        conv = ScaledStdConv if scaled else Conv
+        self.c1 = conv(in_chs, out_chs, kernel_size=1, padding=0, **ck)
+        self.c3 = conv(in_chs, out_chs, kernel_size=3, padding=1, **ck) if use_conv3 else None
+        if xca_kwargs is not None:
+            self.attn = XCA(out_chs, **{"residual": False, **xca_kwargs})
+        elif ufo_kwargs is not None:
+            uk = {"residual": False, **ufo_kwargs}
+            if in_chs != out_chs:
+                uk["last_proj"] = True  # the projection is what reaches out_chs
+            self.attn = UFO(in_chs, out_dim=out_chs, **uk)
+        elif use_se and in_chs == out_chs:
+            self.attn = SEVar3(out_chs, scaled=scaled)
+        else:
+            self.attn = None
+        self.shuffle = ChannelShuffle(groups) if shuffle else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_norm = self.norm(x)
+        out = self.c1(x_norm)
+        if self.c3 is not None:
+            out = out + self.c3(x_norm)
+        if self.attn is not None:
+            out = out + self.attn(x_norm)
+        if self.residual:
+            out = partial_residual(out, x)
+        if self.shuffle is not None:
+            out = self.shuffle(out)
+        return F.hardswish(out)
 
 
 class EMABlock(nn.Module):

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import torch
 from torch import nn
 
+from sota_imagenet_tpu_torch.models import attention as A
 from sota_imagenet_tpu_torch.models import blocks as B
 from sota_imagenet_tpu_torch.models import layers as L
 from sota_imagenet_tpu_torch.models import norms as N
@@ -91,6 +92,7 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     "ConvBnAct": lambda i, o, **kw: B.ConvBnAct(i, o, **kw),
     "NormFreeBlock": lambda i, o, m=None, **kw: B.NormFreeBlock(i, o, mid_chs=m, **kw),
     "NormFreeBlockTimm": lambda i, o, m=None, **kw: B.NormFreeBlockTimm(i, o, mid_chs=m, **kw),
+    "NonDeepBlock": lambda i, o, **kw: B.NonDeepBlock(i, o, **kw),
     "EMABlock": lambda i, o, **kw: B.EMABlock(i, o, **kw),
     # convs
     "scaled_conv3x3": L.scaled_conv3x3,
@@ -98,6 +100,10 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     "conv3x3": L.conv3x3,
     "conv1x1": L.conv1x1,
     "ScaledStdConv2d": lambda i, o, **kw: L.ScaledStdConv(i, o, **kw),
+    # attention
+    "XCA_mod": lambda dim, **kw: A.XCA(dim, **kw),
+    "UFO_mod": lambda dim, **kw: A.UFO(dim, **kw),
+    "SEVar3_Mod": lambda i, o, **kw: A.SEVar3Mod(i, o, **kw),
     # norms
     "BatchNorm2d": lambda c, **kw: N.BatchNorm(c, **kw),
     "VarEMA": _norm_ctor(N.VarEMA),
@@ -116,6 +122,9 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     "SpaceToDepth": lambda bs=2, **kw: L.SpaceToDepth(block_size=bs),
     "ChannelShuffle": lambda g=1, **kw: L.ChannelShuffle(groups=g),
     "FastGlobalAvgPool2d": lambda *a, **kw: L.FastGlobalAvgPool(**kw),
+    "GEM_pool": lambda *a, **kw: L.GEMPool(**kw),
+    # the JAX module reads the channels from its input; here they are the first argument
+    "GEM_pool_channel": lambda c=0, **kw: L.GEMPoolChannel(num_channels=c, **kw),
     "MaxPool2d": lambda w=3, s=None, p=0, **kw: L.MaxPool(window=w, stride=s if s is not None else w, padding=p),
     "AvgPool2d": lambda w=2, s=None, p=0, **kw: L.AvgPool(window=w, stride=s if s is not None else w, padding=p),
     "Conv2d": lambda i, o, k=3, stride=1, padding=0, bias=True, groups=1, **kw: L.Conv(
@@ -139,10 +148,9 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
 _MODULES.update(
     (name, _unported(name))
     for name in (
-        "VGGBlock", "ConvMixBlock", "NonDeepBlock",
-        "PreInvertedResidual", "PreBasicBlock", "Yolo5_C3", "ConvMixerBlock", "FusedRepVGGBlock",
-        "XCA_mod", "UFO_mod", "SEVar3_Mod", "ABN",
-        "GEM_pool", "GEM_pool_channel", "ConvResidual", "Residual", "SphereLinearLayer", "SphereMLPLayer",
+        "VGGBlock", "ConvMixBlock",
+        "PreInvertedResidual", "PreBasicBlock", "Yolo5_C3", "ConvMixerBlock", "FusedRepVGGBlock", "ABN",
+        "ConvResidual", "Residual", "SphereLinearLayer", "SphereMLPLayer",
     )
 )
 

@@ -348,6 +348,38 @@ class FastGlobalAvgPool(nn.Module):
         return x.mean(dim=(2, 3), keepdim=not self.flatten)
 
 
+class GEMPool(nn.Module):
+    """Generalized-mean pooling (reference GEM_pool, model.py:756-771;
+    layers.py:150): mean(clip(x, eps)^p)^(1/p) over H and W with a learnable
+    0-d ``p``. x is clipped in float32, as in the JAX module, and the power
+    runs in the promotion of float32 and p's dtype; the output takes x's
+    dtype. (B, C) if ``flatten`` else (B, C, 1, 1)."""
+
+    def __init__(self, p: float = 3.0, eps: float = 1e-6, flatten: bool = True, channels: Optional[int] = None):
+        super().__init__()
+        self.init_p, self.eps, self.flatten = float(p), eps, flatten
+        self.p = nn.Parameter(torch.full(() if channels is None else (channels,), self.init_p))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        nn.init.constant_(self.p, self.init_p)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.p.view(1, -1, 1, 1) if self.p.dim() else self.p
+        xf = x.to(torch.float32).clamp(min=self.eps).to(torch.promote_types(torch.float32, p.dtype))
+        out = xf.pow(p).mean(dim=(2, 3), keepdim=True) ** (1.0 / p)
+        return (out.flatten(1) if self.flatten else out).to(x.dtype)
+
+
+class GEMPoolChannel(GEMPool):
+    """GEM pool with a per-channel ``p`` of shape (C,), init 1 (reference
+    GEM_pool_channel, model.py:764-771; layers.py:165)."""
+
+    def __init__(self, num_channels: int = 0, eps: float = 1e-6, flatten: bool = True):
+        if num_channels <= 0:
+            raise ValueError("GEMPoolChannel needs its channel count (the JAX module reads it from its input)")
+        super().__init__(1.0, eps, flatten, channels=num_channels)
+
+
 class MaxPool(nn.Module):
     def __init__(self, window: int = 3, stride: int = 2, padding: int = 1):
         super().__init__()

@@ -22,15 +22,19 @@ with ``lamb`` or ``lamb_mode`` set (factory.py:137-145).
 
 SGD, AdamW and LAMB are ported; the other optimizers of the JAX package
 raise naming the ROADMAP item.
+
+``agc`` is adaptive gradient clipping (factory.py:200-214 of the JAX package),
+a gradient transform for the train step's ``grad_transform``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
 from sota_imagenet_tpu_torch.registry import NotPortedError
+from sota_imagenet_tpu_torch.utils.weights import unit_dims
 
 _OPTIM_ALIASES = {
     "torch.optim._multi_tensor.SGD": "sgd",
@@ -160,6 +164,84 @@ def badam(named_params, lamb_mode: bool = False, lamb: bool = False, **kw) -> to
 
 
 _BUILDERS = {"sgd": sgd, "adamw": adamw, "lamb": lamb, "badam": badam}
+
+
+def _unitwise_norm(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The L2 norm of each unit of ``x``, broadcastable against it (optim/zoo.py:41-49 of the JAX package): over
+    every dim but ``dim`` (``unit_dims``), over the whole tensor for a 0-d or 1-d one."""
+    if x.dim() <= 1:
+        return torch.linalg.vector_norm(x)
+    d = dim % x.dim()
+    return torch.linalg.vector_norm(x, dim=[i for i in range(x.dim()) if i != d], keepdim=True)
+
+
+class AGC:
+    """Adaptive gradient clipping (NFNet arXiv:2102.06171; the JAX ``agc``,
+    optim/factory.py:200-214): for each unit (``unit_dims``: one per output
+    channel of a conv or Dense kernel, the whole tensor for a 1-d parameter,
+    ECA's kernel or a temperature), with pn = max(||p||, eps) and gn =
+    max(||g||, 1e-6), the gradient becomes g * (clipping * pn / gn) where
+    gn > clipping * pn and stays g elsewhere.
+
+    Called by the train step as ``grad_transform(model, params, grads)``
+    under no_grad: it scales ``grads`` in place, on their device, reading
+    nothing back to the host. The units are found once per model, from the
+    weights plan. Parameters that are one unit take their norms in one
+    ``_foreach_norm`` each for p and g; the others one norm each, and all
+    factors are computed together. With ``record`` set, ``stats`` holds
+    device tensors about the last call: the units, how many were clipped,
+    and the largest ||g|| / (clipping * pn) after clipping, from norms taken
+    anew (at most 1 up to rounding)."""
+
+    def __init__(self, clipping: float = 0.01, eps: float = 1e-3):
+        self.clipping, self.eps = clipping, eps
+        self.record = False
+        self.stats: Optional[Dict[str, torch.Tensor]] = None
+        self._model, self._dims = None, {}
+
+    def _factor(self, pn: torch.Tensor, gn: torch.Tensor) -> torch.Tensor:
+        max_norm = self.clipping * pn.clamp(min=self.eps)
+        gn = gn.clamp(min=1e-6)
+        return torch.where(gn > max_norm, max_norm / gn, torch.ones_like(gn))
+
+    def __call__(self, model: torch.nn.Module, params: List[torch.Tensor], grads: List[torch.Tensor]) -> None:
+        if model is not self._model:
+            dims = unit_dims(model)
+            self._model, self._dims = model, {id(p): dims[n] for n, p in model.named_parameters()}
+        whole, units = [], []  # (p, g) pairs that are one unit; (p, g, dim) with a norm per unit
+        for p, g in zip(params, grads):
+            if g is None:
+                continue
+            d = self._dims[id(p)]
+            if p.dim() <= 1 or p.shape[d] == 1:
+                whole.append((p, g))
+            else:
+                units.append((p, g, d))
+        factors = []
+        if whole:
+            ps, gs = [p for p, _ in whole], [g for _, g in whole]
+            factors.append(self._factor(torch.stack(torch._foreach_norm(ps)), torch.stack(torch._foreach_norm(gs))))
+            torch._foreach_mul_(gs, list(factors[-1].unbind()))
+        if units:
+            pn = [_unitwise_norm(p, d) for p, _, d in units]
+            gn = [_unitwise_norm(g, d) for _, g, d in units]
+            factors.append(self._factor(torch.cat([n.reshape(-1) for n in pn]), torch.cat([n.reshape(-1) for n in gn])))
+            views = [f.view(n.shape) for f, n in zip(factors[-1].split([n.numel() for n in pn]), pn)]
+            torch._foreach_mul_([g for _, g, _ in units], views)
+        if self.record and factors:
+            self.stats = self._check(whole, units, torch.cat(factors))
+
+    def _check(self, whole, units, factor: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The clipped gradients' norms taken anew, against each unit's bound clipping * max(||p||, eps)."""
+        pn = [torch.linalg.vector_norm(p).reshape(1) for p, _ in whole] + [_unitwise_norm(p, d).reshape(-1) for p, _, d in units]
+        gn = [torch.linalg.vector_norm(g).reshape(1) for _, g in whole] + [_unitwise_norm(g, d).reshape(-1) for _, g, d in units]
+        ratio = torch.cat(gn) / (self.clipping * torch.cat(pn).clamp(min=self.eps))
+        return {"units": torch.tensor(ratio.numel()), "clipped": (factor < 1.0).sum(), "max_ratio_after": ratio.max()}
+
+
+def agc(clipping: float = 0.01, eps: float = 1e-3) -> AGC:
+    """The AGC gradient transform (the JAX ``agc(clipping, eps)``)."""
+    return AGC(clipping, eps)
 
 
 def build_optimizer(

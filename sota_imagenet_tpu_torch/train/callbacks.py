@@ -13,16 +13,18 @@ Two kinds, as in the JAX package:
     ``aux_loss`` of the model's parameters added to the criterion
     (OrthoLossClb, NormLossClb; the Runner sums several), a
     ``post_step_transform`` of the model after each optimizer step
-    (WeightNorm). The Runner collects them when it builds the steps of a
-    stage. OrthoInitClb re-initialises the kernels once, at ``on_begin``.
+    (WeightNorm), a ``grad_transform`` of the gradients before the update
+    (AdaptiveGradientClipping). The Runner collects them when it builds the
+    steps of a stage. OrthoInitClb re-initialises the kernels once, at
+    ``on_begin``.
 
 The auxiliary pieces select the parameters that are ``kernel`` leaves in
 the JAX model (``utils.weights.kernel_parameters``), as the JAX callbacks
 select them by flax path.
 
 The callbacks of the JAX package that are not ported (SAM, the forward
-parametrizations, AGC, the TensorBoard sinks, the profiler) are registered
-under their names and raise NotImplementedError naming the ROADMAP item.
+parametrizations, the TensorBoard sinks, the profiler) are registered under
+their names and raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 
 from sota_imagenet_tpu_torch import registry
 from sota_imagenet_tpu_torch.models.parametrize import backward_weight_norm
+from sota_imagenet_tpu_torch.optim.factory import agc
 from sota_imagenet_tpu_torch.train.steps import cutmix_mixup
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 from sota_imagenet_tpu_torch.utils.weights import kernel_parameters
@@ -135,6 +138,23 @@ class WeightNorm(Callback):
 
     def step_options(self):
         return {"post_step_transform": backward_weight_norm}
+
+
+class AdaptiveGradientClipping(Callback):
+    """AGC (the pytorch_tools callback of reference config 80_1; NFNet
+    arXiv:2102.06171; callbacks.py:215-227 of the JAX package): each unit's
+    gradient is clipped to ``clipping`` times its parameter's norm
+    (``optim.factory.AGC``). ``clip_factor`` is pytorch_tools' name for
+    ``clipping``. ``transform`` is the one AGC object every stage's step
+    uses, so a probe can set its ``record``."""
+
+    def __init__(self, clipping: float = 0.01, eps: float = 1e-3, clip_factor: Optional[float] = None):
+        self.clipping = clip_factor if clip_factor is not None else clipping
+        self.eps = eps
+        self.transform = agc(self.clipping, self.eps)
+
+    def step_options(self):
+        return {"grad_transform": self.transform}
 
 
 class _Kernels:
@@ -349,11 +369,11 @@ def _register_unported(name: str, item: str, aliases: tuple = ()) -> None:
 for _name, _cls in (("WeightNorm", WeightNorm), ("OrthoLossClb", OrthoLossClb), ("NormLossClb", NormLossClb),
                    ("OrthoInitClb", OrthoInitClb)):
     registry.register(_name, aliases=(f"src.callbacks.{_name}",))(_cls)
+registry.register(
+    "AdaptiveGradientClipping", aliases=("pytorch_tools.fit_wrapper.callbacks.AdaptiveGradientClipping",)
+)(AdaptiveGradientClipping)
 for _name in ("SAM", "SAMOriginal", "ForwardWeightNorm", "ForwardSpectralNorm"):
     _register_unported(_name, "Queue 1 item 9", aliases=(f"src.callbacks.{_name}",))
-_register_unported(
-    "AdaptiveGradientClipping", "Queue 1 item 9", aliases=("pytorch_tools.fit_wrapper.callbacks.AdaptiveGradientClipping",)
-)
 for _name in ("WeightDistributionTB", "SpectralDistributionTB", "GradDistributionTB"):
     _register_unported(_name, "Queue 1 item 7", aliases=(f"src.callbacks.{_name}",))
 _register_unported("Profiler", "Queue 1 item 9")

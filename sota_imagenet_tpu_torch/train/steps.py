@@ -5,8 +5,10 @@ build_eval_step :355-406, its masked branch included).
 One train step: CutmixMixup on the whole batch -> the batch split into
 ``accumulate_steps`` microbatches, each forward (activation dtype) -> loss
 (f32, plus the auxiliary loss of the parameters where one is given) ->
-backward, gradients summed then divided -> grad_norm (global L2 norm of the
-averaged raw gradients, before weight decay) -> one optimizer step with the
+backward, gradients summed then divided -> the gradient transform where
+one is given (AGC), in place on the device -> grad_norm (global L2 norm of
+the averaged gradients after the transform, before weight decay, as the JAX
+step reports it) -> one optimizer step with the
 schedule's lr for this step -> the post-step transform of the parameters
 where one is given -> one EMA update of params and buffers -> metrics over
 all the logits. Everything stays on the device: the
@@ -22,8 +24,7 @@ function on a generator and an ``apply`` function on tensors: tests feed the
 JAX package's draws to ``apply``.
 
 Step features of the JAX package that are not ported raise
-NotImplementedError naming the ROADMAP item: SAM, remat and grad_transform
-(AGC).
+NotImplementedError naming the ROADMAP item: SAM and remat.
 """
 
 from __future__ import annotations
@@ -207,7 +208,7 @@ def build_train_step(
     mixup_fn: Optional[Callable] = None,  # fn(generator, images, labels) -> (images, labels)
     aux_loss: Optional[Callable] = None,  # aux_loss(model) -> f32 scalar, e.g. the ortho loss
     sam: Optional[Dict[str, Any]] = None,
-    grad_transform: Optional[Callable] = None,
+    grad_transform: Optional[Callable] = None,  # fn(model, params, grads), in place before the update (AGC)
     post_step_transform: Optional[Callable] = None,  # fn(model), in place after the update (WeightNorm)
     remat: Any = False,
     input_dtype: torch.dtype = torch.bfloat16,
@@ -216,8 +217,6 @@ def build_train_step(
         raise NotPortedError("SAM", "Queue 1 item 9")
     if remat:
         raise NotPortedError("run.remat", "Queue 1 item 9")
-    if grad_transform is not None:
-        raise NotPortedError("grad_transform (AGC)", "Queue 1 item 9")
     accumulate_steps = max(int(accumulate_steps or 1), 1)
 
     def train_step(state: TrainState, batch: Batch):
@@ -252,6 +251,10 @@ def build_train_step(
         grads = [p.grad for p in params]
         if accumulate_steps > 1:
             torch._foreach_div_(grads, float(accumulate_steps))
+        if grad_transform is not None:
+            # before grad_norm and before the optimizer adds the weight decay, as the JAX step and optax order them
+            with torch.no_grad():
+                grad_transform(model, params, grads)
         grad_norm = torch.nn.utils.get_total_norm(grads)
         lr = lr_schedule(state.step)
         for group in opt.param_groups:

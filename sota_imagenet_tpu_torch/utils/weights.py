@@ -214,9 +214,36 @@ def _plan(model: torch.nn.Module) -> Plan:
             dense(src + "/Dense_1", dst + "fc2.", True)
         elif isinstance(m, attention.SEVar3):
             child(m.conv, src, dst + "conv.")
+        elif isinstance(m, attention.SEVar3Mod):
+            child(m.se, src, dst + "se.")
+        elif isinstance(m, (attention.XCA, attention.UFO)):
+            for leaf in ("temperature", "temperature2"):
+                if getattr(m, leaf) is not None:
+                    param(dst + leaf, f"{src}/{leaf}")
+            if getattr(m, "prenorm", None) is not None:  # UFO's flax LayerNorm: its scale only
+                param(dst + "prenorm.weight", src + "/prenorm/scale")
+            for name in ("qkv", "proj"):
+                if getattr(m, name) is not None:
+                    walk(getattr(m, name), f"{src}/{name}", f"{dst}{name}.")
+        elif isinstance(m, attention.FCA):
+            if m.eca is not None:
+                param(dst + "eca.weight", src + "/kernel", _eca)
+            else:
+                dense(src + "/Dense_0", dst + "fc1.", True)
+                dense(src + "/Dense_1", dst + "fc2.", True)
+        elif isinstance(m, layers.GEMPool):  # GEMPoolChannel too
+            param(dst + "p", src + "/p")
+        elif isinstance(m, blocks.NonDeepBlock):
+            child(m.norm, src, dst + "norm.")
+            for name in ("c1", "c3"):
+                if getattr(m, name) is not None:
+                    walk(getattr(m, name), f"{src}/{name}", f"{dst}{name}.")
+            child(m.attn, src, dst + "attn.")
         elif isinstance(m, blocks.ConvActBlock):
             child(m.pre_norm, src, dst + "pre_norm.")
             walk(m.conv, src + "/ScaledStdConv_0", dst + "conv.")
+            if m.attn is not None:
+                walk(m.attn, src + "/XCA_0", dst + "attn.")
             if m.sse is not None:
                 walk(m.sse, src + "/SEVar3_0", dst + "sse.")
         elif isinstance(m, blocks.ConvBnAct):
@@ -277,6 +304,22 @@ def flax_to_torch_model(model: torch.nn.Module, params: Mapping, batch_stats: Ma
     if missing:
         raise KeyError(f"flax_to_torch_model produced no value for: {sorted(missing)[:10]}")
     return sd
+
+
+# the axis of the port's tensor that the last axis of its flax counterpart becomes, by converter
+_LAST_AXIS = {_oihw: 0, _dense: 0, _eca: 0, _tensor: -1, _scalar: -1}
+
+
+def unit_dims(model: torch.nn.Module) -> Dict[str, int]:
+    """For each parameter of ``model``, by name: the dim of its tensor that
+    holds the last axis of its JAX counterpart (a conv's or a Dense
+    kernel's output axis is dim 0 here, ECA's (k, 1, 1) kernel's size-1 axis
+    too; a leaf carried as is keeps its last dim). The JAX
+    ``_unitwise_norm`` (optim/zoo.py:41-49) takes one norm per index of that
+    axis, so these are the units of AGC; a 0-d or 1-d parameter is one
+    unit."""
+    plan = _plan(model)
+    return {n: _LAST_AXIS[plan[n][2]] for n, _ in model.named_parameters()}
 
 
 def kernel_parameters(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:

@@ -9,7 +9,9 @@ Then ``configs/tiny_synthetic.yaml`` as it stands (a CModel, two debug
 epochs: the train loss falls, and the eval+resume drive reproduces the final
 val metrics exactly), and the NFNet/AdamW recipe ``15.eca_nfnet_l0.yaml``
 (accumulation 2, CutmixMixup, EMA, drop rates, ``filter_from_wd: [gain]``)
-with a narrow NFNet at 32 px. Last, the folder backend from a JPEG tree,
+with a narrow NFNet at 32 px, the norm-free recipe 41.nf_conv-act_lamb
+with a narrow trunk, and the non-deep recipe 80_1 (AGC) at full width.
+Last, the folder backend from a JPEG tree,
 and ``configs/exp/r50_hbm_cache.yaml`` from packed records of that tree
 through the device cache, train and val."""
 
@@ -318,6 +320,52 @@ def test_nf_lamb_recipe_runs_with_ortho_init_ortho_loss_and_lamb(tmp_path):
     assert [g["weight_decay"] for g in disk["optimizer"]["param_groups"]] == [5e-3, 0.0]
     std_emas = [v for k, v in disk["model"].items() if k.endswith("std_ema")]
     assert len(std_emas) == 3 and all(abs(float(v) - 1.0) > 1e-3 for v in std_emas)  # the monitors moved
+
+
+NONDEEP = os.path.join(CONFIGS, "exp", "80_1.non-deeps_ufo-0.5_no-res.yaml")
+NONDEEP_OVERRIDES = [
+    "loader.backend=synthetic",
+    "val_loader.backend=synthetic",
+    "loader.image_size=32",
+    "val_loader.image_size=32",
+    "loader.batch_size=4",
+    "val_loader.batch_size=4",
+    "run.bf16=false",
+    "debug=true",
+    "run.stages=[{start: 0, end: 1, lr: [0.1, 0], lr_mode: cos}]",
+]
+
+
+class _AGCProbe(_Record):
+    """Reads the step options the Runner built the stage's step from, and turns on AGC's record."""
+
+    def on_begin(self):
+        super().on_begin()
+        self.options = self.runner._collect_step_options()
+        self.options["grad_transform"].record = True
+
+    def on_epoch_end(self, epoch, train_metrics, val_metrics):
+        super().on_epoch_end(epoch, train_metrics, val_metrics)
+        self.stats = {k: float(v) for k, v in self.options["grad_transform"].stats.items()}
+        self.kinds = {type(m).__name__ for m in self.runner.state.model.modules()}
+
+
+def test_non_deep_recipe_runs_with_agc_at_full_width(tmp_path):
+    """80_1.non-deeps_ufo-0.5_no-res.yaml through cli.main: the full-width
+    non-deep CModel (SpaceToDepth 4, 14 NonDeepBlocks, 4 with UFO, the fat
+    head) at 32 px, SGD, CutmixMixup and AGC 0.01 (``clip_factor``)."""
+    from sota_imagenet_tpu_torch.optim.factory import AGC
+
+    probe = _AGCProbe()
+    val = cli.main(["-c", NONDEEP, *NONDEEP_OVERRIDES, f"log.dir={tmp_path}"], device="cpu", callbacks=[probe])
+    assert probe.steps == 10 and math.isfinite(probe.train_metrics["loss"]) and all(math.isfinite(v) for v in val.values())
+    assert {"grad_transform", "mixup_fn"} <= set(probe.options) and isinstance(probe.options["grad_transform"], AGC)
+    assert probe.options["grad_transform"].clipping == 0.01
+    assert 0 < probe.stats["clipped"] <= probe.stats["units"] and probe.stats["max_ratio_after"] <= 1.0 + 1e-6
+    assert {"NonDeepBlock", "UFO", "SEVar3", "SpaceToDepth", "ScaledStdConv", "BatchNorm"} <= probe.kinds
+    (run_dir,) = glob.glob(os.path.join(tmp_path, "*_non-deeps_ufo_proj_ufo-0.5_no-res_agc", "*"))
+    disk = torch.load(os.path.join(run_dir, "model_last.ckpt"), weights_only=True)["state"]
+    assert sum(v.numel() for k, v in disk["model"].items() if not k.endswith(("running_mean", "running_var"))) == 24_811_912
 
 
 @pytest.mark.parametrize(

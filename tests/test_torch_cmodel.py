@@ -171,7 +171,7 @@ def test_module_table_covers_the_jax_table():
     assert set(TCM._MODULES) == set(JAX_MODULES)
 
 
-@pytest.mark.parametrize("name", ["NonDeepBlock", "VGGBlock", "src.model.XCA_mod", "pt.modules.ABN"])
+@pytest.mark.parametrize("name", ["PreBasicBlock", "VGGBlock", "src.model.ConvMixerBlock", "pt.modules.ABN"])
 def test_unported_module_raises_naming_it(name):
     with pytest.raises(NotImplementedError, match=name.rsplit(".", 1)[-1]) as e:
         CModel(layer_config=[[-1, 1, "conv3x3", [3, 8]], [-1, 1, name, [8]]])
@@ -185,7 +185,7 @@ def test_unknown_module_and_tag_raise_key_error():
         CModel(layer_config=[{"module": "conv3x3", "args": [3, 8], "inputs": ["missing"]}])
 
 
-@pytest.mark.parametrize("option", [{"attn_kwargs": {"num_heads": 2}}, {"pre_norm": "abn"}])
+@pytest.mark.parametrize("option", [{"pre_norm": "agn"}, {"pre_norm": "abn"}])
 def test_conv_act_block_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
         CModel(layer_config=[[-1, 1, "ConvActBlock", [3, 16], option]])

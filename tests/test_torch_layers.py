@@ -184,12 +184,6 @@ def test_activation_gamma_table_is_the_jax_one():
     assert TL.ACTIVATION_GAMMA == JL.ACTIVATION_GAMMA
 
 
-@pytest.mark.parametrize("name", ["xca", "ufo", "fca", "fca-eca"])
-def test_unported_attention_names_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        TA.get_attn(name)(8)
-
-
 def test_get_attn_none_and_unknown():
     assert TA.get_attn(None)(8) is None
     with pytest.raises(KeyError):

@@ -105,3 +105,43 @@ def test_narrow_nf_cmodel_with_lamb_learns_separable_task():
     train_m, _ = runner.fit(loader, None, epochs=6, start_epoch=0)
     assert type(runner.state.optimizer).__name__ == "Lamb"
     assert train_m["Acc@1"] > 95.0, train_m
+
+
+def test_narrow_nondeep_cmodel_with_agc_learns_separable_task():
+    """The non-deep family's pieces on the same task: the SpaceToDepth-4 stem,
+    NonDeepBlocks with BatchNorm and scaled convs (SEVar3, and UFO with its
+    projection), a GEM head (80_1's kinds at width 16), SGD (lr 0.1, wd
+    3e-5, the gain mask) with AGC at 0.1, through the Runner."""
+    from sota_imagenet_tpu_torch.train.callbacks import AdaptiveGradientClipping
+    from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
+
+    torch.manual_seed(0)
+    model = CModel(
+        layer_config=[
+            [-1, 1, "SpaceToDepth", 4],
+            [-1, 1, "NonDeepBlock", [48, 16]],
+            [-1, 1, "NonDeepBlock", [16, 16], {"ufo_kwargs": {"residual": False, "last_proj": True, "num_heads": 4}}],
+            [-1, 1, "NonDeepBlock", [16, 16]],
+            [-1, 1, "GEM_pool"],
+            [-1, 1, "Linear", [16, 2]],
+        ],
+        extra_kwargs={"NonDeepBlock": {"norm": "nn.BatchNorm2d", "scaled": True}},
+    )
+    mask = filter_from_weight_decay(model.named_parameters(), ["gain"])
+    clip = AdaptiveGradientClipping(clip_factor=0.1)
+    runner = Runner(
+        model,
+        CrossEntropyLoss(smoothing=0.1),
+        lambda m: build_optimizer({"_target_": "sgd", "momentum": 0.9, "weight_decay": 3e-5}, m.named_parameters(),
+                                  wd_mask=mask),
+        lr_phases=phases_from_stages(parse_stages([dict(start=0, end=6, lr=[0.1, 0.1])])),
+        callbacks=[clip],
+        input_dtype=torch.float32,
+        device="cpu",
+    )
+    runner.init_state(seed=0)
+    clip.transform.record = True
+    loader = DeviceFeed(ColorLoader(), build_val_augment(num_classes=2, out_dtype=torch.float32), device="cpu", prefetch=1)
+    train_m, _ = runner.fit(loader, None, epochs=6, start_epoch=0)
+    assert int(clip.transform.stats["clipped"]) > 0  # AGC was at work in the last step
+    assert train_m["Acc@1"] > 95.0, train_m
