@@ -33,7 +33,14 @@ without a build; any failure exits non-zero and prints no result):
              with AdamW, accumulation 2 and the gain mask (nfnet_model_phase);
              and one of the 24.nf_conv-act trunk with LAMB and the ortho loss
              (nf_lamb_model_phase); and one of a depth-cut 80_1 trunk (UFO,
-             XCA, GEM) with SGD and AGC (nondeep_model_phase).
+             XCA, GEM) with SGD and AGC (nondeep_model_phase); and one of
+             full-width bresnet50 with weight standardisation, SiLU checked
+             and leaky_relu reported (bresnet_model_phase); and one of a
+             depth-cut config-8 BNet trunk with Novograd under config 9's
+             ForwardWeightNorm, and again under ForwardSpectralNorm, whose
+             u and v must agree too (bnet_model_phase). These last three
+             hold loss to rtol 1e-5, grad_norm to 1e-5 of the CPU's float64
+             step, the gradients to 1e-4 and the update to 1e-3 (_within).
 4. trainer A — ``cli.main`` on configs/exp/1.r50_baseline.yaml (ResNet-50 at
              full width, batch 256 at 224 px, bf16, synthetic data, debug
              mode: 10 train steps and 20 val steps). Checks: finite loss, the
@@ -115,14 +122,27 @@ without a build; any failure exits non-zero and prints no result):
              one f32 step of a depth-cut trunk at 80_1's widths (UFO, XCA
              with and without v_norm, GEM, AGC) on the card against the CPU
              (nondeep_model_phase).
-15. profile — trainers A, C, D, H, I and J once more with torch.profiler
+15. trainer K — ``cli.main`` on configs/exp/bresnet50.yaml as the file says
+             but for synthetic data, debug mode and one 1-epoch stage of its
+             warmup: full-width BResNet-50 (25.58M parameters; space2depth
+             stem, BlurPool, ECA, leaky_relu), batch 256 at 224 px, bf16,
+             weight standardisation (gamma 1.72) over its 53 ungrouped
+             convs, EMA 0.9999, cutmix prob 1, drop 0.2/0.2, SGD, the
+             augment kernel's colour stage live. Checks as trainer A, and:
+             the EMA differs from the weights; the state_dict keys are an
+             unwrapped bresnet50's; for a 3x3 and a 1x1 conv the effective
+             weight has per-output-channel mean 0 (1e-5) and std
+             1.72/sqrt(fan_in) (1e-3 relative), the raw weight does not
+             (bresnet_checks).
+16. profile — trainers A, C, D, H, I, J and K once more with torch.profiler
              over steps 4-7: device time per step by layer and the top
              kernels, and the device's busy share (separate runs, so the
-             trainers' times stay clean). D's, I's and J's device time is
-             attributed to the port's layers by the op that launched each
-             kernel (layer_breakdown; UFO, XCA, GEM and AGC each a group of
-             its own); I's must show the auxiliary loss's forward and
-             backward in every profiled step.
+             trainers' times stay clean). D's, I's, J's and K's device time
+             is attributed to the port's layers by the op that launched each
+             kernel (layer_breakdown; UFO, XCA, GEM, AGC, the
+             parametrization, BlurPool and drop-path each a group of its
+             own); I's must show the auxiliary loss's forward and backward
+             in every profiled step.
 
 Every kernel counter is set to 0 just before each trainer's ``cli.main`` and
 read just after. The line before the last is the card's name and power
@@ -1328,6 +1348,216 @@ def nondeep_model_phase() -> dict:
     return result
 
 
+def _seeded_masks(seed: int = 0):
+    """A stand-in for layers.draw_keep_mask drawing from a CPU generator
+    seeded ``seed`` and moving the mask to the device: the card's and the
+    CPU's runs drop the same samples (their own generators cannot agree)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(generator, keep_prob, shape, device):
+        return (torch.rand(tuple(shape), generator=gen) < keep_prob).to(device)
+
+    return draw
+
+
+def _card_vs_cpu_step(make_state, images, labels, step_kw: dict):
+    """Run one train step from ``make_state(device, dtype)`` on the CPU in
+    float32, on the card in float32 and on the CPU in float64: loss,
+    grad_norm, the gradients, the state before and after, and the state
+    itself, by (device, dtype)."""
+    import torch
+
+    from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
+    from sota_imagenet_tpu_torch.models import layers
+    from sota_imagenet_tpu_torch.train import steps
+
+    runs, draw = {}, layers.draw_keep_mask
+    try:
+        for dev, dt in (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64)):
+            layers.draw_keep_mask = _seeded_masks(0)
+            state = make_state(dev, dt)
+            before = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
+            step = steps.build_train_step(CrossEntropyLoss(smoothing=0.1), input_dtype=dt, **step_kw)
+            state, m = step(state, {"image": images.to(dev, dt), "label": labels.to(dev, dt)})
+            grads = torch.cat([p.grad.detach().double().flatten().cpu() for p in state.model.parameters()])
+            after = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
+            runs[dev, dt] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "grads": grads,
+                             "before": before, "after": after, "state": state}
+    finally:
+        layers.draw_keep_mask = draw
+    return runs
+
+
+def _step_agreement(name: str, runs, extra: dict = None) -> dict:
+    """The card's float32 step against the CPU's, beside the CPU's float32
+    step against its float64 one (the scale of float32's own error)."""
+    import torch
+
+    c, g = runs["cpu", torch.float32], runs["cuda", torch.float32]
+    d = runs["cpu", torch.float64]
+    result = {
+        "phase": name,
+        "loss_rel": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+        "grad_norm_rel": abs(g["grad_norm"] - c["grad_norm"]) / abs(c["grad_norm"]),
+        "grad_norm_rel_f64": abs(g["grad_norm"] - d["grad_norm"]) / abs(d["grad_norm"]),
+        "grad_rel_l2": float((g["grads"] - c["grads"]).norm() / c["grads"].norm()),
+        "init_equal": bool(torch.equal(c["before"], g["before"])),
+        "update_rel_l2": float(((g["after"] - g["before"]) - (c["after"] - c["before"])).norm()
+                               / (c["after"] - c["before"]).norm()),
+        "update_over_state": float((c["after"] - c["before"]).norm() / c["before"].norm()),
+        "cpu_f32_vs_f64": {"loss_rel": abs(c["loss"] - d["loss"]) / abs(d["loss"]),
+                           "grad_norm_rel": abs(c["grad_norm"] - d["grad_norm"]) / abs(d["grad_norm"]),
+                           "grad_rel_l2": float((c["grads"] - d["grads"]).norm() / d["grads"].norm()),
+                           "update_rel_l2": float(((c["after"] - c["before"]) - (d["after"] - d["before"])).norm()
+                                                  / (d["after"] - d["before"]).norm())},
+        "loss": [c["loss"], g["loss"], d["loss"]],
+        "grad_norm": [c["grad_norm"], g["grad_norm"], d["grad_norm"]],
+        **(extra or {}),
+    }
+    print(f"[{name}] {json.dumps(result)}")
+    return result
+
+
+def _within(result: dict) -> bool:
+    """The model phases' tolerances: loss rtol 1e-5 against the CPU; grad_norm
+    rtol 1e-5 against the CPU's float64 step, because the CPU's float32 norm
+    of the gradients is the less exact side (4e-5 to 7e-5 off its own float64
+    step on an H100 in these phases, the card 1.5e-7; PERF.md section 6);
+    the gradients within relative L2 1e-4 and the update within 1e-3 of the
+    CPU's."""
+    return (result["init_equal"] and result["loss_rel"] < 1e-5 and result["grad_norm_rel_f64"] < 1e-5
+            and result["grad_rel_l2"] < 1e-4 and result["update_rel_l2"] < 1e-3)
+
+
+def bresnet_model_phase(norm_act: str = "silu", check: bool = True) -> dict:
+    """One f32 train step of full-width bresnet50 with weight standardisation
+    (gamma 1.72, as bresnet50.yaml) on the card against the same step on
+    the CPU, from the same seeded weights and the same drop-path and dropout
+    masks (drawn on the CPU, _seeded_masks): batch 8 at 64 px, SGD (momentum
+    0.9, wd 3e-5), lr 0.2, TF32 off; beside the CPU's float64 step (the
+    standardisation stays float32 there, as in the JAX package). Tolerances
+    in _within.
+
+    The checked step uses SiLU: with the recipe's leaky_relu, a float32
+    rounding that moves a pre-activation across the kink moves the gradient
+    (the CPU's own float32 step is 7e-3 off its float64 one in relative L2 of
+    the gradients, with SiLU 1.7e-5), as model_phase explains for ReLU. The
+    leaky_relu step is run and reported (``check=False``)."""
+    import torch
+
+    from sota_imagenet_tpu_torch.models import bresnet50
+    from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel, weight_standardization_fn
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (8, 64, 64, 3), generator=gen).float().sub(127.5).mul(1 / 51.0)
+    labels = torch.nn.functional.one_hot(torch.randint(0, 1000, (8,), generator=gen), 1000).float()
+    optim = {"_target_": "sgd", "momentum": 0.9, "weight_decay": 3e-5}
+
+    def make_state(dev, dt):
+        model = ParametrizedModel(bresnet50(norm_act=norm_act), weight_standardization_fn(1.72))
+        state = steps.init_state(model, lambda m: build_optimizer(optim, m.named_parameters()), device=dev, seed=0)
+        model.to(dt)
+        return state
+
+    runs = _card_vs_cpu_step(make_state, images, labels, {"lr_schedule": lambda i: 0.2})
+    model = runs["cuda", torch.float32]["state"].model
+    result = _step_agreement("model_bresnet" if check else f"model_bresnet_{norm_act}", runs, {
+        "norm_act": norm_act,
+        "parameters_m": sum(p.numel() for p in model.parameters()) / 1e6,
+        "standardised_kernels": len(model.selected[0]),
+    })
+    if check and not (_within(result) and result["standardised_kernels"] == 53):
+        raise AssertionError(f"bresnet50 train step on the card disagrees with the CPU: {result}")
+    return result
+
+
+# config 8's layer list (8.bnet_no-dim-red_nov.yaml) at full width, each repeat cut to one block
+BNET_TRUNK = """
+- [-1, 1, "pt.modules.SpaceToDepth", 2]
+- [-1, 1, conv3x3, [12, 32]]
+- [-1, 1, "torch.nn.SiLU"]
+- [-1, 1, "pt.modules.BlurPool", 32]
+- [-1, 1, PreBasicBlock, [32, 128]]
+- [-1, 1, "pt.modules.BlurPool", 128]
+- [-1, 1, PreBasicBlock, [128, 192]]
+- [-1, 1, PreBasicBlock, [192, 192]]
+- [-1, 1, "pt.modules.BlurPool", 192]
+- [-1, 1, PreInvertedResidual, [192, 640]]
+- [-1, 1, PreInvertedResidual, [640, 640]]
+- [-1, 1, "pt.modules.BlurPool", 640]
+- [-1, 1, PreInvertedResidual, [640, 1024]]
+- [-1, 1, PreInvertedResidual, [1024, 1024]]
+- [-1, 1, "pt.modules.ABN", 1024, {activation: "'swish'"}]
+- [-1, 1, conv1x1, [1024, 2560]]
+- [-1, 1, "pt.modules.ABN", 2560, {activation: "'swish'"}]
+- [-1, 1, "pt.modules.FastGlobalAvgPool2d", [], {flatten: True}]
+- [-1, 1, "nn.Linear", [2560, 1000]]
+"""
+BNET = "configs/exp/8.bnet_no-dim-red_nov.yaml"
+
+
+def bnet_model_phase(spectral: bool = False) -> dict:
+    """One f32 train step of a depth-cut config-8 trunk at full width
+    (BNET_TRUNK: SpaceToDepth, BlurPool, PreBasicBlock, PreInvertedResidual,
+    ABN with swish_hard, config 8's extra_kwargs) with config 8's Novograd
+    (wd 2e-3, betas 0.9/0.99, ``init_zero``) at lr 0.05, on the card against
+    the CPU from the same seeded weights, 8 images at 64 px, tolerances as
+    bresnet_model_phase's. The parametrization is config 9's
+    ForwardWeightNorm (gamma 1.4, use_std), or with ``spectral``
+    ForwardSpectralNorm (one power iteration a training forward): then the
+    card's u and v after the step must equal the CPU's within 1e-5 of each
+    vector's largest element."""
+    import torch
+    import yaml
+
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.models.cmodel import CModel
+    from sota_imagenet_tpu_torch.models.parametrize import SPECTRAL_STATE_KEY, ParametrizedModel
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.train.callbacks import ForwardSpectralNorm, ForwardWeightNorm
+
+    cfg = C.load(BNET, strict_env=False)
+    extra = C.to_dict(cfg.model)["extra_kwargs"]
+    clb = ForwardSpectralNorm() if spectral else ForwardWeightNorm(gamma=1.4, use_std=True)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (8, 64, 64, 3), generator=gen).float().sub(127.5).mul(1 / 51.0)
+    labels = torch.nn.functional.one_hot(torch.randint(0, 1000, (8,), generator=gen), 1000).float()
+
+    def make_state(dev, dt):
+        model = ParametrizedModel(CModel(layer_config=yaml.safe_load(BNET_TRUNK), extra_kwargs=extra),
+                                  clb.step_options()["parametrization"])
+        state = steps.init_state(model, lambda m: build_optimizer(dict(cfg.optim), m.named_parameters()), device=dev,
+                                 seed=0)
+        model.to(dt)
+        return state
+
+    runs = _card_vs_cpu_step(make_state, images, labels, {"lr_schedule": lambda i: 0.05})
+    name = "model_bnet_spectral" if spectral else "model_bnet"
+    g, c = runs["cuda", torch.float32]["state"], runs["cpu", torch.float32]["state"]
+    kinds = sorted({type(m).__name__ for m in g.model.modules()} & {"PreBasicBlock", "PreInvertedResidual", "ABN",
+                                                                    "BlurPool", "SpaceToDepth"})
+    extra_result = {"modules": kinds, "optimizer": type(g.optimizer).__name__,
+                    "parametrized_kernels": len(g.model.selected[0])}
+    if spectral:
+        sd_g, sd_c = g.model.state_dict(), c.model.state_dict()
+        keys = [k for k in sd_c if k.startswith(SPECTRAL_STATE_KEY)]
+        extra_result["spectral_vectors"] = len(keys)
+        extra_result["spectral_max_rel"] = max(
+            float((sd_g[k].cpu() - sd_c[k]).abs().max() / sd_c[k].abs().max()) for k in keys)
+    result = _step_agreement(name, runs, extra_result)
+    ok = _within(result) and len(kinds) == 5 and result["optimizer"] == "Novograd"
+    if spectral:
+        ok = ok and result["spectral_vectors"] == 2 * result["parametrized_kernels"] and result["spectral_max_rel"] < 1e-5
+    if not ok:
+        raise AssertionError(f"{name}: the BNet train step on the card disagrees with the CPU: {result}")
+    return result
+
+
 def forward_gmac(config: str, image_size: int = 224) -> dict:
     """The model of ``config``'s forward MACs per image at ``image_size``,
     counted by torch.utils.flop_counter on the meta device (no memory, no
@@ -1392,6 +1622,41 @@ def tiny_phase(gpu: str) -> dict:
     if launches != {"fused_aug": 20, "conv1x1_stats": 0, "moments": 0} or rec.param_devices != {"cuda"}:
         raise AssertionError(f"trainer_e: kernel launches {launches}, params on {rec.param_devices}")
     return result
+
+
+BRESNET = "configs/exp/bresnet50.yaml"
+BRESNET_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0, 0.2]}]",)  # the recipe's warmup, cut to the one debug epoch
+BRESNET_GAMMA = 1.72  # the recipe's init_gamma (configs/base.yaml)
+
+
+def bresnet_checks(model) -> dict:
+    """Trainer K's model after its run: its parameter count, its state_dict
+    keys against an unwrapped bresnet50's, and for one 3x3 and one 1x1 conv
+    the effective (standardised) weight's per-output-channel mean (0) and
+    std (gamma / sqrt(fan_in)) beside the raw weight's."""
+    import torch
+
+    from sota_imagenet_tpu_torch.models import bresnet50
+
+    with torch.device("meta"):
+        unwrapped = list(bresnet50().state_dict())
+    eff = model.effective_parameters()
+    raw = dict(model.named_parameters())
+    checks = {}
+    for name in ("layer1.0.conv2.weight", "layer3.0.conv1.weight"):  # a 3x3 and a 1x1
+        out = {}
+        for kind, w in (("effective", eff[name]), ("raw", raw[name])):
+            rows = w.detach().double().reshape(w.shape[0], -1)
+            want_std = BRESNET_GAMMA / rows.shape[1] ** 0.5
+            out[f"{kind}_mean_max"] = float(rows.mean(dim=1).abs().max())
+            out[f"{kind}_std_rel_err"] = float(((rows.std(dim=1, correction=0) - want_std).abs() / want_std).max())
+        checks[f"{name} {tuple(raw[name].shape)}"] = out
+    return {
+        "parameters_m": sum(p.numel() for p in model.parameters()) / 1e6,
+        "state_dict_keys_unwrapped": list(model.state_dict()) == unwrapped,
+        "standardised_kernels": len(model.selected[0]),
+        "weight_standardisation": checks,
+    }
 
 
 def kernel_counters() -> dict:
@@ -1522,6 +1787,8 @@ def trainer_phase(
         result["ortho_init"] = probe.ortho
         result["std_ema"] = probe.std_emas
         result["parameters_m"] = sum(p.numel() for p in probe.runner.state.model.parameters()) / 1e6
+    if recipe == "bresnet":
+        result.update(bresnet_checks(probe.runner.state.model))
     if recipe == "nondeep":
         from sota_imagenet_tpu_torch.utils.weights import unit_dims
 
@@ -1557,10 +1824,17 @@ def trainer_phase(
         raise AssertionError(f"{name}: val batches of shapes {probe.val_shapes}, want {val_shapes} shapes")
     if recipe:
         groups = result["weight_decay_groups"]
-        if recipe == "nfnet" and not probe.ema_differs:
+        if recipe in ("nfnet", "bresnet") and not probe.ema_differs:
             raise AssertionError(f"{name}: the EMA equals the weights after {steps} steps")
-        if groups["gains_decayed"] or not groups["decayed"] or not any("gain" in k for k in probe.weight_decay_of):
+        gains = any("gain" in k for k in probe.weight_decay_of)  # bresnet50 has none; bresnet50.yaml decays all
+        if groups["gains_decayed"] or not groups["decayed"] or gains != (recipe != "bresnet"):
             raise AssertionError(f"{name}: weight decay groups {groups}")
+    if recipe == "bresnet":
+        ws = result["weight_standardisation"]
+        if not (result["state_dict_keys_unwrapped"] and result["standardised_kernels"] == 53 and all(
+                c["effective_mean_max"] < 1e-5 and c["effective_std_rel_err"] < 1e-3
+                and (c["raw_mean_max"] > 1e-5 or c["raw_std_rel_err"] > 1e-3) for c in ws.values())):
+            raise AssertionError(f"{name}: weight standardisation of the run's model: {result}")
     if recipe == "nondeep":
         agc = result["agc"]
         if agc is None or agc["device"] != "cuda" or agc["units"] != result["agc_units_expected"] or not (
@@ -1646,9 +1920,10 @@ def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
 
 @contextlib.contextmanager
 def _layer_scopes():
-    """For a profiled run: wrap the weight standardisation, the ECA gate,
-    VarEMA, the auxiliary losses, cutmix_mixup, UFO, XCA, the GEM pools and
-    AGC in torch.profiler.record_function scopes (SCOPE_LAYERS), so
+    """For a profiled run: wrap the weight standardisation (ScaledStdConv's,
+    and a ParametrizedModel's effective weights), the ECA gate, VarEMA, the
+    auxiliary losses, cutmix_mixup, UFO, XCA, the GEM pools, AGC, BlurPool
+    and drop-path in torch.profiler.record_function scopes (SCOPE_LAYERS), so
     layer_breakdown can tell their kernels from the other ones (UFO's and
     XCA's 1x1 convs count as theirs). The originals are
     put back on exit; the scopes cost the host a few microseconds each, which
@@ -1658,8 +1933,9 @@ def _layer_scopes():
     import torch
 
     from sota_imagenet_tpu_torch.models.attention import ECA, UFO, XCA
-    from sota_imagenet_tpu_torch.models.layers import GEMPool, ScaledStdConv
+    from sota_imagenet_tpu_torch.models.layers import BlurPool, DropPath, GEMPool, ScaledStdConv
     from sota_imagenet_tpu_torch.models.norms import VarEMA
+    from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel
     from sota_imagenet_tpu_torch.optim.factory import AGC
     from sota_imagenet_tpu_torch.train import callbacks
 
@@ -1676,6 +1952,8 @@ def _layer_scopes():
         (callbacks.OrthoLossClb, "_type1", "aux"), (callbacks.OrthoLossClb, "_type2", "aux"),
         (callbacks.NormLossClb, "_loss", "aux"), (callbacks, "cutmix_mixup", "mixup"),
         (UFO, "forward", "ufo"), (XCA, "forward", "xca"), (GEMPool, "forward", "gem"), (AGC, "__call__", "agc"),
+        (ParametrizedModel, "effective_parameters", "param"), (BlurPool, "forward", "blur"),
+        (DropPath, "forward", "droppath"),
     )
     originals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
     try:
@@ -1688,7 +1966,8 @@ def _layer_scopes():
 
 
 SCOPE_LAYERS = {"ws": "weight standardisation", "eca": "ECA", "varema": "VarEMA", "aux": "aux loss", "mixup": "mixup",
-                "ufo": "UFO", "xca": "XCA", "gem": "GEM", "agc": "AGC"}
+                "ufo": "UFO", "xca": "XCA", "gem": "GEM", "agc": "AGC", "param": "parametrization (WS)",
+                "blur": "BlurPool", "droppath": "drop-path"}
 CONV_OPS = {"aten::cudnn_convolution": (0, 1), "aten::convolution": (0, 1), "aten::_convolution": (0, 1),
             "aten::conv2d": (0, 1), "aten::convolution_backward": (1, 2)}  # op -> positions of (input, weight)
 
@@ -1784,7 +2063,7 @@ def layer_breakdown(prof, window):
 
 
 PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "trainer_i",
-          "trainer_j", "data", "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
+          "trainer_j", "trainer_k", "data", "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
@@ -1846,6 +2125,10 @@ def main(argv=None) -> int:
         run("model_nfnet", nfnet_model_phase)
         run("model_nf_lamb", nf_lamb_model_phase)
         run("model_nondeep", nondeep_model_phase)
+        run("model_bresnet", bresnet_model_phase)
+        run("model_bresnet_leaky_relu", bresnet_model_phase, norm_act="leaky_relu", check=False)
+        run("model_bnet", bnet_model_phase)
+        run("model_bnet_spectral", bnet_model_phase, spectral=True)
     aug_only = {"fused_aug": 1}
     if "trainer_a" in phases:
         run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only)
@@ -1862,6 +2145,8 @@ def main(argv=None) -> int:
         run("trainer_i", trainer_phase, "trainer_i", NF_LAMB, NF_LAMB_STAGE, gpu, aug_only, recipe="nf_lamb")
     if "trainer_j" in phases:
         run("trainer_j", trainer_phase, "trainer_j", NONDEEP, NONDEEP_STAGE, gpu, aug_only, recipe="nondeep")
+    if "trainer_k" in phases:
+        run("trainer_k", trainer_phase, "trainer_k", BRESNET, BRESNET_STAGE, gpu, aug_only, recipe="bresnet")
     cached = {"packed", "trainer_h"} & set(phases) or "profile" in phases
     with tempfile.TemporaryDirectory() as data_root:
         if {"data", "trainer_f", "trainer_g"} & set(phases) or cached:
@@ -1897,6 +2182,8 @@ def main(argv=None) -> int:
             recipe="nf_lamb")
         run("profile_j", trainer_phase, "profile_j", NONDEEP, NONDEEP_STAGE, gpu, aug_only, profile_window=(2, 6),
             recipe="nondeep")
+        run("profile_k", trainer_phase, "profile_k", BRESNET, BRESNET_STAGE, gpu, aug_only, profile_window=(2, 6),
+            recipe="bresnet")
     if "profile_h" in results:
         # the cache's input stage inside H's step: the gather and the augment kernel, as shares of its device time
         by_group = results["profile_h"]["profile"]["by_group_ms_per_step"]
@@ -1908,7 +2195,8 @@ def main(argv=None) -> int:
     if "trainer_a" in results and "trainer_h" in results:
         a, h = results["trainer_a"], results["trainer_h"]
         print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median_4_10'], 'ms_per_step_a': a['ms_per_step_median_4_10'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
-    for trainer, profile in (("trainer_d", "profile_d"), ("trainer_i", "profile_i"), ("trainer_j", "profile_j")):
+    for trainer, profile in (("trainer_d", "profile_d"), ("trainer_i", "profile_i"), ("trainer_j", "profile_j"),
+                             ("trainer_k", "profile_k")):
         if trainer not in results or profile not in results:
             continue
         # the profiler (shapes recorded, thousands of ops a step) slows these hosts far more than A's or C's:
@@ -1937,6 +2225,7 @@ def main(argv=None) -> int:
     kernels[0]["launches_learn"] = results["learn"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_nf_lamb"] = results["trainer_i"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_nondeep"] = results["trainer_j"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_bresnet"] = results["trainer_k"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))

@@ -29,6 +29,7 @@ import torch
 from sota_imagenet_tpu_torch import config as C
 from sota_imagenet_tpu_torch.config import instantiate, parse_stages
 from sota_imagenet_tpu_torch.data.pipeline import DataManager
+from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel, weight_standardization_fn
 from sota_imagenet_tpu_torch.optim import build_optimizer
 from sota_imagenet_tpu_torch.registry import NotPortedError
 from sota_imagenet_tpu_torch.train.callbacks import Callback, CheckpointSaver, ConsoleLogger, Timer
@@ -37,6 +38,7 @@ from sota_imagenet_tpu_torch.train.loop import Runner
 from sota_imagenet_tpu_torch.train.schedule import phases_from_stages
 from sota_imagenet_tpu_torch.utils.logging import get_logger, setup_logger
 from sota_imagenet_tpu_torch.utils.misc import count_parameters, filter_from_weight_decay, resolve_device, set_random_seed
+from sota_imagenet_tpu_torch.utils.weights import unit_dims
 
 
 def find_auto_resume(log_dir: str, exp_name: str) -> Optional[str]:
@@ -51,7 +53,6 @@ def reject_unported(cfg) -> None:
         (cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1 or cfg.mesh.spatial != 1 or cfg.mesh.zero1,
          "mesh.* beyond one device (data parallelism, ZeRO-1, spatial / head TP)", "Queue 1 items 8 and 14"),
         (cfg.run.bn_stats not in (None, "global", 1), f"run.bn_stats={cfg.run.bn_stats!r}", "Queue 1 item 8"),
-        (bool(cfg.weight_standardization), "weight_standardization", "Queue 1 item 10"),
         (bool(cfg.get("sigmoid_trick", False)), "sigmoid_trick", "Queue 1 item 11"),
         (bool(cfg.run.skip_nonfinite), "run.skip_nonfinite", "Queue 1 item 9"),
         (bool(cfg.run.remat), "run.remat", "Queue 1 item 9"),
@@ -146,6 +147,10 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
 
     log.info("Loading model")
     model = build_model(cfg)
+    if cfg.weight_standardization:
+        # conv_to_ws_conv (reference train.py:66-67; cli.py:179-184 of the JAX package): a forward
+        # WS parametrization over every ungrouped conv kernel
+        model = ParametrizedModel(model, weight_standardization_fn(cfg.init_gamma))
     if cfg.log.print_model:
         log.info(str(model))
     criterion = instantiate(cfg.criterion)
@@ -155,10 +160,12 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
     # (cli.py:199-202 of the JAX package)
     mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd) if cfg.filter_from_wd is not None else None
 
+    # unitwise optimizers take a norm per output unit, found on the weights plan
+    units = unit_dims if cfg.optim.get("unitwise") else lambda m: None
     runner = Runner(
         model,
         criterion,
-        lambda m: build_optimizer(dict(cfg.optim), m.named_parameters(), wd_mask=mask),
+        lambda m: build_optimizer(dict(cfg.optim), m.named_parameters(), wd_mask=mask, unit_dim=units(m)),
         lr_phases=lr_phases,
         callbacks=[
             Timer(),

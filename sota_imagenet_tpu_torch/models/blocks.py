@@ -1,8 +1,8 @@
 """Blocks for config-built models (port of ``sota_imagenet_tpu/models/blocks.py``:
 partial_residual :31, _make_pre_norm :45, ConvActBlock :57, NormFreeBlock
-:152, NormFreeBlockTimm :193, NonDeepBlock :258, EMABlock :309, ConvBnAct
-:450). The rest of the block zoo is not ported yet (ROADMAP.md Queue 1 item
-10).
+:152, NormFreeBlockTimm :193, NonDeepBlock :258, EMABlock :309,
+PreInvertedResidual :342, PreBasicBlock :367, ConvBnAct :450). The rest of
+the block zoo is not ported yet (ROADMAP.md Queue 1 item 10).
 
 Submodules that hold parameters carry the JAX module's names where it names
 them (``conv1``, ``conv2``...); ``utils/weights.py`` maps the others onto
@@ -302,6 +302,58 @@ class EMABlock(nn.Module):
         else:
             out = self.shuffle(self.conv(self.act(res)))
         return partial_residual(self.drop_path(out), res)
+
+
+class PreInvertedResidual(nn.Module):
+    """Pre-norm inverted residual (reference model.py:1004-1035): norm-act ->
+    1x1 to ``mid`` -> norm-act -> depthwise 3x3 -> norm-act -> 1x1 to
+    ``out_chs`` -> drop-path -> + x (partial). The norms are activated ones
+    (``norm_layer``: abn by default) with ``norm_act``."""
+
+    def __init__(
+        self, in_chs: int, out_chs: int, mid_chs: Optional[int] = None, keep_prob: float = 1.0,
+        norm_layer: str = "abn", norm_act: str = "relu",
+    ):
+        super().__init__()
+        mid = mid_chs or out_chs
+        norm = norm_from_name(norm_layer)
+        self.norm1 = norm(in_chs, activation=norm_act)
+        self.conv1 = Conv(in_chs, mid, 1, 1, 0, use_bias=False)
+        self.norm2 = norm(mid, activation=norm_act)
+        self.conv2 = Conv(mid, mid, 3, 1, 1, groups=mid, use_bias=False)
+        self.norm3 = norm(mid, activation=norm_act)
+        self.conv3 = Conv(mid, out_chs, 1, 1, 0, use_bias=False)
+        self.drop_path = DropPath(keep_prob)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv1(self.norm1(x))
+        out = self.conv2(self.norm2(out))
+        out = self.conv3(self.norm3(out))
+        return partial_residual(self.drop_path(out), x)
+
+
+class PreBasicBlock(nn.Module):
+    """Pre-activation basic block (pytorch_tools PreBasicBlock, the BNet
+    configs 6-10): norm-act -> 3x3 to ``mid`` -> norm-act -> 3x3 to
+    ``out_chs`` -> drop-path -> + x (partial); activated norms as in
+    PreInvertedResidual."""
+
+    def __init__(
+        self, in_chs: int, out_chs: int, mid_chs: Optional[int] = None, keep_prob: float = 1.0,
+        norm_layer: str = "abn", norm_act: str = "relu",
+    ):
+        super().__init__()
+        mid = mid_chs or out_chs
+        norm = norm_from_name(norm_layer)
+        self.norm1 = norm(in_chs, activation=norm_act)
+        self.conv1 = Conv(in_chs, mid, 3, 1, 1, use_bias=False)
+        self.norm2 = norm(mid, activation=norm_act)
+        self.conv2 = Conv(mid, out_chs, 3, 1, 1, use_bias=False)
+        self.drop_path = DropPath(keep_prob)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(self.norm2(self.conv1(self.norm1(x))))
+        return partial_residual(self.drop_path(out), x)
 
 
 class ConvBnAct(nn.Module):

@@ -94,6 +94,8 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     "NormFreeBlockTimm": lambda i, o, m=None, **kw: B.NormFreeBlockTimm(i, o, mid_chs=m, **kw),
     "NonDeepBlock": lambda i, o, **kw: B.NonDeepBlock(i, o, **kw),
     "EMABlock": lambda i, o, **kw: B.EMABlock(i, o, **kw),
+    "PreInvertedResidual": lambda i, o, m=None, **kw: B.PreInvertedResidual(i, o, mid_chs=m, **kw),
+    "PreBasicBlock": lambda i, o, m=None, **kw: B.PreBasicBlock(i, o, mid_chs=m, **kw),
     # convs
     "scaled_conv3x3": L.scaled_conv3x3,
     "scaled_conv1x1": L.scaled_conv1x1,
@@ -106,6 +108,7 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     "SEVar3_Mod": lambda i, o, **kw: A.SEVar3Mod(i, o, **kw),
     # norms
     "BatchNorm2d": lambda c, **kw: N.BatchNorm(c, **kw),
+    "ABN": lambda c, **kw: N.ABN(c, **kw),
     "VarEMA": _norm_ctor(N.VarEMA),
     "FRNv1": _norm_ctor(N.FRNv1),
     "FRNv2": _norm_ctor(N.FRNv2),
@@ -149,7 +152,7 @@ _MODULES.update(
     (name, _unported(name))
     for name in (
         "VGGBlock", "ConvMixBlock",
-        "PreInvertedResidual", "PreBasicBlock", "Yolo5_C3", "ConvMixerBlock", "FusedRepVGGBlock", "ABN",
+        "Yolo5_C3", "ConvMixerBlock", "FusedRepVGGBlock",
         "ConvResidual", "Residual", "SphereLinearLayer", "SphereMLPLayer",
     )
 )

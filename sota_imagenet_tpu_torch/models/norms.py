@@ -1,9 +1,8 @@
 """The norm zoo (port of ``sota_imagenet_tpu/models/norms.py``): BatchNorm
 (the default branch of norms.py:143-192), GroupNorm :282, ScaleNorm :294,
 Affine :312, Gain :327, FRNv1 :345, FRNv2 :374, VarEMA :407, MeanEMA :441,
-Identity :453 and ``norm_from_name`` :459-484. The activated-BN family (ABN,
-AGN, EstimatedABN, norms.py:195-279) is not ported: its names raise naming
-the ROADMAP item.
+Identity :453, the activated-BN family (ABN :195, AGN :229, EstimatedABN
+:247) and ``norm_from_name`` :459-484.
 
 Modules take NCHW tensors (channel = dim 1). Each takes its channel count as
 its first argument, where the JAX module reads it from its input; the ones
@@ -24,11 +23,13 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sota_imagenet_tpu_torch.registry import NotPortedError
+from sota_imagenet_tpu_torch.models.layers import activation_from_name
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -42,11 +43,20 @@ class BatchNorm(nn.Module):
     pass, which also returns the batch mean and inverse std) and updates the
     running buffers in place from those; eval mode normalizes with the
     running buffers. Parameter and buffer names follow ``nn.BatchNorm2d``
-    (weight, bias, running_mean, running_var), without num_batches_tracked."""
+    (weight, bias, running_mean, running_var), without num_batches_tracked.
 
-    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
+    ``subsample`` s > 1 takes the batch statistics over x[:, :, ::s, ::s]
+    (the JAX ``_BNCore``, norms.py:70-140): mean and E[x^2] in float32 in
+    one pass, var = max(E[x^2] - mean^2, 0), and the normalize in the
+    activation dtype, each factor cast to it first; the gradient reaches
+    the statistics through the subsampled positions only."""
+
+    def __init__(
+        self, num_features: int, momentum: float = 0.1, eps: float = 1e-5, dtype: Optional[torch.dtype] = None,
+        subsample: int = 1,
+    ):
         super().__init__()
-        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.momentum, self.eps, self.dtype, self.subsample = momentum, eps, dtype, max(int(subsample), 1)
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -59,17 +69,53 @@ class BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype or x.dtype
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps).to(dt)
-        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
-            var = (invstd.float().pow(-2) - self.eps).clamp_(min=0.0)  # biased batch variance
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.float(), alpha=m)
+
+    def _normalize(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        """(x - mean) * rsqrt(var + eps) * weight + bias, every factor in ``dt`` (the _BNCore order)."""
+        view = (1, -1, 1, 1)
+        y = (x.to(dt) - mean.to(dt).view(view)) * torch.rsqrt(var + self.eps).to(dt).view(view)
+        return y * self.weight.to(dt).view(view) + self.bias.to(dt).view(view)
+
+    def forward(self, x: torch.Tensor, use_running_average: Optional[bool] = None) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        if use_running_average is None:
+            use_running_average = not self.training
+        if use_running_average:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps).to(dt)
+        if self.subsample > 1:
+            s = self.subsample
+            xf = _at_least_f32(x[:, :, ::s, ::s])
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0.0)
+            self._update(mean.detach(), var.detach())
+            return self._normalize(x, mean, var, dt)
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        self._update(mean, (invstd.detach().float().pow(-2) - self.eps).clamp_(min=0.0))  # biased batch variance
         return y.to(dt)
+
+
+class ABN(BatchNorm):
+    """Activated BatchNorm (norms.py:195): BatchNorm, then the activation
+    (leaky_relu by default, as inplace-abn). ``frozen`` (``frozenabn``)
+    normalizes with the running statistics in training too, and leaves them
+    as they are. The state is BatchNorm's; the JAX module's flax BatchNorm
+    sits one level down, under ``BatchNorm_0``, as in the JAX BatchNorm."""
+
+    def __init__(
+        self, num_features: int, activation: str = "leaky_relu", momentum: float = 0.1, eps: float = 1e-5,
+        frozen: bool = False, dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__(num_features, momentum, eps, dtype)
+        self.frozen = frozen
+        self.act = activation_from_name(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(super().forward(x, use_running_average=self.frozen or not self.training))
 
 
 class GroupNorm(nn.Module):
@@ -89,6 +135,59 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.group_norm(_at_least_f32(x), self.num_groups, self.weight, self.bias, self.eps)
         return y.to(x.dtype)
+
+
+class AGN(GroupNorm):
+    """Activated GroupNorm (norms.py:229; ``norm_layer: agn``): GroupNorm with
+    gcd(num_groups, C) groups, then the activation."""
+
+    def __init__(self, num_channels: int, activation: str = "leaky_relu", num_groups: int = 32, eps: float = 1e-5):
+        super().__init__(num_channels, math.gcd(num_groups, num_channels), eps)
+        self.act = activation_from_name(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(super().forward(x))
+
+
+class EstimatedABN(nn.Module):
+    """Activated BN that normalizes with the running ("estimated") statistics
+    in train and eval mode alike (norms.py:247; ``estimated_abn``). A train
+    forward normalizes with the statistics as they were before it, then
+    moves them towards the batch's: mean and E[x^2] - mean^2 (clamped at 0)
+    in float32, torch momentum, no gradient through the update. The
+    normalize runs in the activation dtype: x * (rsqrt(var + eps) * scale)
+    + (bias - mean * scale * rsqrt(var + eps)), each factor cast first. Names
+    as BatchNorm's; the JAX module's own leaves are scale, bias / mean, var."""
+
+    def __init__(
+        self, num_features: int, activation: str = "leaky_relu", momentum: float = 0.1, eps: float = 1e-5,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.act = activation_from_name(activation)
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    reset_parameters = BatchNorm.reset_parameters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or x.dtype
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        if self.training:
+            with torch.no_grad():
+                xf = _at_least_f32(x)
+                bmean = xf.mean(dim=(0, 2, 3))
+                bvar = xf.square().mean(dim=(0, 2, 3)) - bmean.square()
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(bmean.float(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(bvar.float().clamp(min=0.0), alpha=m)
+        rs = torch.rsqrt(var + self.eps)
+        inv = (rs * self.weight).to(dt).view(1, -1, 1, 1)
+        shift = (self.bias - mean * self.weight * rs).to(dt).view(1, -1, 1, 1)
+        return self.act(x.to(dt) * inv + shift)
 
 
 class ScaleNorm(nn.Module):
@@ -283,22 +382,15 @@ class Identity(nn.Module):
         return x
 
 
-def _not_ported(name: str) -> Callable[..., nn.Module]:
-    def make(*args, **kwargs):
-        raise NotPortedError(f"norm {name!r} (the activated-BN family)", "Queue 1 item 10d")
-
-    return make
-
-
 # name -> constructor taking the channel count first (the JAX table, norms.py:459-477)
 _NORMS: dict = {
     "bn": BatchNorm,
     "batchnorm": BatchNorm,
-    "abn": _not_ported("abn"),
-    "inplaceabn": _not_ported("inplaceabn"),
-    "frozenabn": _not_ported("frozenabn"),
-    "agn": _not_ported("agn"),
-    "estimated_abn": _not_ported("estimated_abn"),
+    "abn": ABN,
+    "inplaceabn": ABN,
+    "frozenabn": lambda *a, **kw: ABN(*a, frozen=True, **kw),
+    "agn": AGN,
+    "estimated_abn": EstimatedABN,
     "gn": GroupNorm,
     "groupnorm": GroupNorm,
     "frn": FRNv1,

@@ -20,8 +20,11 @@ value to rounding, with eps outside the square root in both.
 ``Lamb`` below. ``badam`` is the JAX package's alias for AdamW, and for LAMB
 with ``lamb`` or ``lamb_mode`` set (factory.py:137-145).
 
-SGD, AdamW and LAMB are ported; the other optimizers of the JAX package
-raise naming the ROADMAP item.
+``novograd`` is the JAX package's Novograd (optim/zoo.py:57-121):
+``Novograd`` below.
+
+SGD, AdamW, LAMB and Novograd are ported; the other optimizers of the JAX
+package raise naming the ROADMAP item.
 
 ``agc`` is adaptive gradient clipping (factory.py:200-214 of the JAX package),
 a gradient transform for the train step's ``grad_transform``.
@@ -46,9 +49,15 @@ _OPTIM_ALIASES = {
     "Adam": "adamw",
     "badam.BAdam": "badam",
     "BAdam": "badam",
+    "apex.optimizers.FusedNovoGrad": "novograd",
+    "src.optimizers.MyNovograd": "novograd",
+    "MyNovograd": "novograd",
+    "src.optimizers.NovogradApex": "novograd",
+    "NovogradApex": "novograd",
     # legacy flat-schema names (the fused_* prefix meant apex multi-tensor variants of the same math)
     "fused_sgd": "sgd",
     "fused_adam": "adamw",
+    "fused_novograd": "novograd",
 }
 
 
@@ -105,6 +114,66 @@ class Lamb(torch.optim.Optimizer):
         return None
 
 
+class Novograd(torch.optim.Optimizer):
+    """Novograd as the JAX package has it (optim/zoo.py:57-121; reference
+    NovogradApex, optimizers.py:189-290), with the grad norm it intends. For
+    each parameter p with gradient g:
+
+        v = b2 v + (1 - b2) ||g||^2            (v starts at ema_norm_init)
+        m = b1 m + (1 - b1) g / (sqrt(v) + eps)
+        u = -lr m;  q = p + u
+        p = q - lr wd q                         (decoupled decay)
+        p = q - lr wd sign(q) max(|q| - wd_eps, 0)   (with ``wd_eps``: |q| <= wd_eps is not decayed)
+
+    ||g||^2 is taken in float32, over the whole tensor (v a float32 scalar,
+    as in the JAX transform), or with ``unitwise`` per output unit, in the
+    gradient's dtype: over every dim but ``unit_dim[p]`` (the dim that holds
+    the JAX kernel's last axis, ``utils.weights.unit_dims``; dim 0, the
+    output channels of every conv and Dense weight of the port, where none
+    is given), over the whole tensor for a 0-d or 1-d one. The group's
+    ``weight_decay`` is 0 for the parameters ``wd_mask`` exempts."""
+
+    def __init__(
+        self, params, lr: float = 0.0, betas=(0.95, 0.0), eps: float = 1e-8, weight_decay: float = 0.0,
+        ema_norm_init: float = 1e-3, unitwise: bool = False, wd_eps: Optional[float] = None,
+        unit_dim: Optional[Mapping[torch.Tensor, int]] = None,
+    ):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
+        self.ema_norm_init, self.unitwise, self.wd_eps = ema_norm_init, unitwise, wd_eps
+        self.unit_dim = unit_dim or {}
+
+    def _norm_sq(self, p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        if not self.unitwise:
+            return g.float().square().sum()
+        return _unitwise_norm(g, self.unit_dim.get(p, 0)).square()
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Novograd.step takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            lr, wd = group["lr"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["ema_grad"] = torch.zeros_like(p)
+                    st["ema_norm"] = torch.full((), self.ema_norm_init, dtype=torch.float32, device=p.device)
+                g = p.grad
+                v = b2 * st["ema_norm"] + (1.0 - b2) * self._norm_sq(p, g)
+                m = b1 * st["ema_grad"] + (1.0 - b1) * g / (v.sqrt() + group["eps"])
+                st["ema_norm"], st["ema_grad"] = v, m
+                upd = -lr * m
+                if wd:
+                    q = p + upd
+                    decayed = q if self.wd_eps is None else q.sign() * (q.abs() - self.wd_eps).clamp(min=0.0)
+                    upd = upd - lr * wd * decayed
+                p.add_(upd)
+        return None
+
+
 def _param_groups(named, weight_decay: float, wd_mask: Optional[Mapping[str, bool]]) -> list:
     """One group, or two where ``wd_mask`` (name -> apply decay) takes some parameters out of the decay."""
     if wd_mask is None:
@@ -158,12 +227,34 @@ def lamb(
     return Lamb(groups, lr=0.0, betas=betas, eps=eps)
 
 
+def novograd(
+    named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+    betas=(0.95, 0.0),
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    ema_norm_init: float = 1e-3,
+    unitwise: bool = False,
+    wd_eps: Optional[float] = None,
+    wd_mask: Optional[Mapping[str, bool]] = None,
+    unit_dim: Optional[Mapping[str, int]] = None,
+    **_: Any,
+) -> Novograd:
+    """Novograd; ``wd_mask`` as in ``sgd``; ``unit_dim`` (name -> dim) for
+    ``unitwise``. Other keys (``init_zero`` of config 8) are accepted and
+    unused, as the JAX ``novograd``'s ``**_``."""
+    named = list(named_params)
+    dims = {p: unit_dim[n] for n, p in named if n in unit_dim} if unit_dim else None
+    groups = _param_groups(named, weight_decay, wd_mask)
+    return Novograd(groups, betas=betas, eps=eps, ema_norm_init=ema_norm_init, unitwise=unitwise, wd_eps=wd_eps,
+                    unit_dim=dims)
+
+
 def badam(named_params, lamb_mode: bool = False, lamb: bool = False, **kw) -> torch.optim.Optimizer:
     """bonlime's BAdam: AdamW, or LAMB with ``lamb`` or ``lamb_mode`` set."""
     return _BUILDERS["lamb" if (lamb or lamb_mode) else "adamw"](named_params, **kw)
 
 
-_BUILDERS = {"sgd": sgd, "adamw": adamw, "lamb": lamb, "badam": badam}
+_BUILDERS = {"sgd": sgd, "adamw": adamw, "lamb": lamb, "badam": badam, "novograd": novograd}
 
 
 def _unitwise_norm(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -248,8 +339,10 @@ def build_optimizer(
     optim_cfg: Dict[str, Any],
     named_params: Iterable[Tuple[str, torch.nn.Parameter]],
     wd_mask: Optional[Mapping[str, bool]] = None,
+    unit_dim: Optional[Mapping[str, int]] = None,
 ) -> torch.optim.Optimizer:
-    """Build from a config node like {_target_: sgd, momentum: 0.9, ...}."""
+    """Build from a config node like {_target_: sgd, momentum: 0.9, ...}.
+    ``unit_dim`` (``utils.weights.unit_dims``) serves the unitwise optimizers."""
     cfg = dict(optim_cfg)
     target = str(cfg.pop("_target_", "sgd"))
     name = _OPTIM_ALIASES.get(target, target if target in _BUILDERS else target.rsplit(".", 1)[-1].lower())
@@ -260,4 +353,6 @@ def build_optimizer(
         raise NotPortedError("optim.lookahead", "Queue 1 item 10")
     for k in ("lookahead_k", "lookahead_alpha"):
         cfg.pop(k, None)
+    if unit_dim is not None:
+        cfg["unit_dim"] = unit_dim
     return _BUILDERS[name](named_params, wd_mask=wd_mask, **cfg)

@@ -15,16 +15,18 @@ Two kinds, as in the JAX package:
     ``post_step_transform`` of the model after each optimizer step
     (WeightNorm), a ``grad_transform`` of the gradients before the update
     (AdaptiveGradientClipping). The Runner collects them when it builds the
-    steps of a stage. OrthoInitClb re-initialises the kernels once, at
-    ``on_begin``.
+    steps of a stage. A ``parametrization`` (ForwardWeightNorm,
+    ForwardSpectralNorm) is taken once, when the Runner builds its state:
+    it wraps the model in a ``ParametrizedModel``. OrthoInitClb
+    re-initialises the kernels once, at ``on_begin``.
 
 The auxiliary pieces select the parameters that are ``kernel`` leaves in
 the JAX model (``utils.weights.kernel_parameters``), as the JAX callbacks
 select them by flax path.
 
-The callbacks of the JAX package that are not ported (SAM, the forward
-parametrizations, the TensorBoard sinks, the profiler) are registered under
-their names and raise NotImplementedError naming the ROADMAP item.
+The callbacks of the JAX package that are not ported (SAM, the TensorBoard
+sinks, the profiler) are registered under their names and raise
+NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,7 +40,11 @@ import torch
 import torch.nn.functional as F
 
 from sota_imagenet_tpu_torch import registry
-from sota_imagenet_tpu_torch.models.parametrize import backward_weight_norm
+from sota_imagenet_tpu_torch.models.parametrize import (
+    SpectralNormParametrization,
+    backward_weight_norm,
+    weight_standardization_fn,
+)
 from sota_imagenet_tpu_torch.optim.factory import agc
 from sota_imagenet_tpu_torch.train.steps import cutmix_mixup
 from sota_imagenet_tpu_torch.utils.logging import get_logger
@@ -138,6 +144,35 @@ class WeightNorm(Callback):
 
     def step_options(self):
         return {"post_step_transform": backward_weight_norm}
+
+
+class ForwardWeightNorm(Callback):
+    """Weight-standardise the convs through a forward parametrization
+    (reference callbacks.py:62-84; callbacks.py:171-185 of the JAX package):
+    ``use_std=True`` (needs ``gamma``) is scaled WS, ``False`` zero mean
+    only. Depthwise kernels are left alone."""
+
+    def __init__(self, gamma: Optional[float] = None, use_std: bool = False):
+        if use_std and gamma is None:
+            raise ValueError("use_std=True requires gamma")
+        self.gamma = gamma if use_std else None
+
+    def step_options(self):
+        return {"parametrization": weight_standardization_fn(self.gamma)}
+
+
+class ForwardSpectralNorm(Callback):
+    """Spectral-norm parametrization of every conv (reference
+    callbacks.py:87-101; callbacks.py:188-202 of the JAX package): a
+    persistent u/v pair per kernel, ``n_iters`` power iterations per training
+    forward, eval reusing the pair; the pairs are buffers of the wrapper, so
+    they are checkpointed and EMA'd."""
+
+    def __init__(self, n_iters: int = 1):
+        self.n_iters = n_iters
+
+    def step_options(self):
+        return {"parametrization": SpectralNormParametrization(self.n_iters)}
 
 
 class AdaptiveGradientClipping(Callback):
@@ -367,12 +402,13 @@ def _register_unported(name: str, item: str, aliases: tuple = ()) -> None:
 
 
 for _name, _cls in (("WeightNorm", WeightNorm), ("OrthoLossClb", OrthoLossClb), ("NormLossClb", NormLossClb),
-                   ("OrthoInitClb", OrthoInitClb)):
+                   ("OrthoInitClb", OrthoInitClb), ("ForwardWeightNorm", ForwardWeightNorm),
+                   ("ForwardSpectralNorm", ForwardSpectralNorm)):
     registry.register(_name, aliases=(f"src.callbacks.{_name}",))(_cls)
 registry.register(
     "AdaptiveGradientClipping", aliases=("pytorch_tools.fit_wrapper.callbacks.AdaptiveGradientClipping",)
 )(AdaptiveGradientClipping)
-for _name in ("SAM", "SAMOriginal", "ForwardWeightNorm", "ForwardSpectralNorm"):
+for _name in ("SAM", "SAMOriginal"):
     _register_unported(_name, "Queue 1 item 9", aliases=(f"src.callbacks.{_name}",))
 for _name in ("WeightDistributionTB", "SpectralDistributionTB", "GradDistributionTB"):
     _register_unported(_name, "Queue 1 item 7", aliases=(f"src.callbacks.{_name}",))

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
+from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel
 from sota_imagenet_tpu_torch.train import steps as steps_lib
 from sota_imagenet_tpu_torch.train.callbacks import Callback
 from sota_imagenet_tpu_torch.train.schedule import make_lr_schedule
@@ -89,10 +90,20 @@ class Runner:
             c.set_runner(self)
 
     def init_state(self, seed: int = 0) -> TrainState:
+        # through the parametrized wrapper (loop.py:98-108 of the JAX package): a
+        # stateful parametrization seeds its state from the initial weights
         self.state = steps_lib.init_state(
-            self.model, self.optimizer_factory, device=self.device, seed=seed, ema_decay=self.ema_decay
+            self._effective_model(self._collect_step_options()), self.optimizer_factory, device=self.device,
+            seed=seed, ema_decay=self.ema_decay,
         )
         return self.state
+
+    def _effective_model(self, opts: Dict[str, Any]) -> torch.nn.Module:
+        """The model with the callbacks' forward parametrization (WS, spectral
+        norm), if one is given: train and eval, the EMA's too, run through it
+        (loop.py:141-149 of the JAX package)."""
+        fn = opts.pop("parametrization", None)
+        return self.model if fn is None else ParametrizedModel(self.model, fn)
 
     def _collect_step_options(self) -> Dict[str, Any]:
         """The callbacks' step options; several auxiliary losses are summed (loop.py:86-96 of the JAX package)."""
@@ -112,6 +123,8 @@ class Runner:
         # step_options are collected below
         self.base_epoch = base_epoch
         lr_schedule = make_lr_schedule(self.lr_phases, steps_per_epoch, base_epoch=base_epoch, base_step=self.state.step)
+        opts = self._collect_step_options()
+        opts.pop("parametrization", None)  # already in the state's model (init_state)
         self._train_step = steps_lib.build_train_step(
             self.criterion,
             lr_schedule,
@@ -119,7 +132,7 @@ class Runner:
             ema_decay=self.ema_decay,
             remat=self.remat,
             input_dtype=self.input_dtype,
-            **self._collect_step_options(),
+            **opts,
         )
         self._build_eval_steps()
 

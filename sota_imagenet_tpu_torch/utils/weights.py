@@ -8,15 +8,10 @@ torchvision-layout ``state_dict`` — conv kernels HWIO → OIHW, Dense kernel
 weight/bias/running_mean/running_var. With it, tests run both packages from
 the same weights.
 
-A bottleneck built with ``fused_stats`` is recognised by its ``fconv3``:
-its ``fconv1``/``fconv3``/``fdown`` (``Conv1x1BNStats``: kernel, scale, bias;
-batch_stats mean, var) map to the port's modules of the same names, and its
-remaining 3x3 conv (and the 1x1 conv1 when ``groups > 1``) sit at flax's
-auto names ``Conv_i``/``_NormAct_i``, numbered from 0.
-
-``flax_to_torch_model`` does the same for the port's NFNet and CModel (and
-any module built from the layers, norms and blocks they use), running
-statistics included (VarEMA's ``std_ema``/``mean_ema``, FRN's
+``flax_to_torch_model`` does the same for any model of the port (ResNet with
+every option, ``fused_stats`` included, NFNet, CModel, and any module built
+from the layers, norms and blocks they use, a ``ParametrizedModel``'s
+spectral state too), running statistics included (VarEMA's ``std_ema``/``mean_ema``, FRN's
 ``running_var``/``single_running_var``). It walks the torch module and
 reads, for each kind of module, the leaves its JAX counterpart creates.
 NFNet names its children (``stem_conv{i}``, ``stage{s}_block{b}/conv1``...;
@@ -34,14 +29,19 @@ from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from sota_imagenet_tpu_torch.models import attention, blocks, cmodel, layers, nfnet, norms
+from sota_imagenet_tpu_torch.models import attention, blocks, cmodel, layers, nfnet, norms, parametrize, resnet
 
 
 def _get(tree: Mapping, path: str, used: set) -> np.ndarray:
+    """The leaf at the '/'-joined ``path``. A key may itself hold '/': the JAX
+    spectral state is keyed by the kernels' flax paths, so each step takes
+    the shortest run of parts that is a key of the node."""
     node: Any = tree
     path = path.strip("/")  # a module converted on its own has the empty path
-    for p in path.split("/"):
-        node = node[p]
+    parts, i = path.split("/"), 0
+    while i < len(parts):
+        j = next((j for j in range(i + 1, len(parts) + 1) if "/".join(parts[i:j]) in node), i + 1)
+        node, i = node["/".join(parts[i:j])], j
     used.add(path)
     return np.asarray(node)
 
@@ -60,63 +60,19 @@ def _leaf_paths(tree: Mapping, prefix: str = "") -> set:
 def flax_to_torch(
     params: Mapping, batch_stats: Mapping, layers: Sequence[int] = (3, 4, 6, 3), bottleneck: bool = True
 ) -> Dict[str, torch.Tensor]:
-    """JAX ResNet ``params``/``batch_stats`` (numpy) -> port ``state_dict``.
-
-    Raises if a leaf of either tree is left unmapped, so a layout change on
-    either side cannot pass silently."""
-    used_p: set = set()
-    used_s: set = set()
-    sd: Dict[str, torch.Tensor] = {}
-
-    def conv(src: str, dst: str):
-        sd[dst + ".weight"] = torch.from_numpy(np.ascontiguousarray(np.transpose(_get(params, src + "/kernel", used_p), (3, 2, 0, 1))))
-
-    def bn(src: str, dst: str):
-        sd[dst + ".weight"] = torch.from_numpy(_get(params, src + "/scale", used_p).copy())
-        sd[dst + ".bias"] = torch.from_numpy(_get(params, src + "/bias", used_p).copy())
-        sd[dst + ".running_mean"] = torch.from_numpy(_get(batch_stats, src + "/mean", used_s).copy())
-        sd[dst + ".running_var"] = torch.from_numpy(_get(batch_stats, src + "/var", used_s).copy())
-
-    def fused(src: str, dst: str):  # Conv1x1BNStats: kernel, scale, bias / mean, var one level down
-        conv(src, dst)
-        for leaf in ("scale", "bias"):
-            sd[f"{dst}.{leaf}"] = torch.from_numpy(_get(params, f"{src}/{leaf}", used_p).copy())
-        sd[dst + ".running_mean"] = torch.from_numpy(_get(batch_stats, src + "/mean", used_s).copy())
-        sd[dst + ".running_var"] = torch.from_numpy(_get(batch_stats, src + "/var", used_s).copy())
-
-    conv("stem_conv/Conv_0", "conv1")
-    bn("stem_bn/BatchNorm_0/BatchNorm_0", "bn1")
-    n_convs = 3 if bottleneck else 2
-    for li, depth in enumerate(layers, start=1):
-        for b in range(depth):
-            f = f"layer{li}_{b}"
-            t = f"layer{li}.{b}"
-            if "fconv3" in params[f]:
-                # fused_stats layout: fconv1 (groups == 1 only), fconv3 and fdown are
-                # Conv1x1BNStats; the plain convs left keep flax's auto names in order
-                plain = [2] if "fconv1" in params[f] else [1, 2]
-                for i, ci in enumerate(plain):
-                    conv(f"{f}/Conv_{i}/Conv_0", f"{t}.conv{ci}")
-                    bn(f"{f}/_NormAct_{i}/BatchNorm_0/BatchNorm_0", f"{t}.bn{ci}")
-                for name in ("fconv1", "fconv3", "fdown"):
-                    if name in params[f]:
-                        fused(f"{f}/{name}", f"{t}.{name}")
-                continue
-            for ci in range(1, n_convs + 1):
-                conv(f"{f}/Conv_{ci - 1}/Conv_0", f"{t}.conv{ci}")
-                if ci < n_convs:
-                    bn(f"{f}/_NormAct_{ci - 1}/BatchNorm_0/BatchNorm_0", f"{t}.bn{ci}")
-                else:
-                    bn(f"{f}/BatchNorm_0/BatchNorm_0", f"{t}.bn{ci}")
-            if "down_conv" in params[f]:
-                conv(f"{f}/down_conv/Conv_0", f"{t}.downsample.0")
-                bn(f"{f}/down_bn/BatchNorm_0", f"{t}.downsample.1")
-    sd["fc.weight"] = torch.from_numpy(np.ascontiguousarray(_get(params, "fc/kernel", used_p).T))
-    sd["fc.bias"] = torch.from_numpy(_get(params, "fc/bias", used_p).copy())
-    left = (_leaf_paths(params) - used_p) | (_leaf_paths(batch_stats) - used_s)
-    if left:
-        raise KeyError(f"flax_to_torch left leaves unmapped: {sorted(left)[:10]}")
-    return sd
+    """JAX ResNet ``params``/``batch_stats`` (numpy) -> port ``state_dict``,
+    for a ResNet of the default options and ``layers`` (``fused_stats``, and
+    grouped fused blocks, read off the trees): ``flax_to_torch_model`` on
+    that layout, built on the meta device. Raises if a leaf of either tree
+    is left unmapped, so a layout change on either side cannot pass
+    silently."""
+    kw = {}
+    if bottleneck and "fconv3" in params["layer1_0"]:
+        # a fused block without fconv1 has groups > 1; only the module names matter here
+        kw = {"fused_stats": True, "groups": 1 if "fconv1" in params["layer1_0"] else 2}
+    with torch.device("meta"):
+        model = resnet.ResNet(block=resnet.Bottleneck if bottleneck else resnet.BasicBlock, layers=tuple(layers), **kw)
+    return flax_to_torch_model(model, params, batch_stats)
 
 
 def _oihw(kernel: np.ndarray) -> torch.Tensor:
@@ -140,6 +96,14 @@ def _eca(kernel: np.ndarray) -> torch.Tensor:
 
 def _scalar(a: np.ndarray) -> torch.Tensor:
     return _tensor(a).reshape(())
+
+
+def _fan_in_vector(shape) -> Callable[[np.ndarray], torch.Tensor]:
+    """A vector over an HWIO kernel's fan-in, ordered (h, w, i) as the JAX
+    package flattens it, -> the same vector ordered (i, h, w), as the port
+    flattens an OIHW weight (``shape``)."""
+    _, i, kh, kw = shape
+    return lambda a: torch.from_numpy(np.array(np.reshape(a, (kh, kw, i)).transpose(2, 0, 1).reshape(-1)))
 
 
 # one entry of a plan: state_dict key -> (JAX collection, flax path, converter)
@@ -168,9 +132,77 @@ def _plan(model: torch.nn.Module) -> Plan:
         if m is not None:
             walk(m, f"{src}/{type(m).__name__}_0", dst)
 
+    def numbered(m: torch.nn.Module, src: str, dst: str, names: Sequence[str]):
+        """Children that flax names by class and order: each of ``names`` that ``m`` has, counted within its class."""
+        seen: Dict[str, int] = {}
+        for name in names:
+            mod = getattr(m, name, None)
+            if mod is not None:
+                cls = type(mod).__name__
+                walk(mod, f"{src}/{cls}_{seen.setdefault(cls, 0)}", f"{dst}{name}.")
+                seen[cls] += 1
+
+    def norm_act(m: torch.nn.Module, src: str, dst: str):
+        """A norm inside the JAX ResNet's ``_NormAct`` at ``src`` (its activation is the block's)."""
+        walk(m, f"{src}/{type(m).__name__}_0", dst)
+
     def walk(m: torch.nn.Module, src: str, dst: str):
         """``src``: the flax path of ``m``; ``dst``: its state_dict prefix (ends with a dot, or empty)."""
-        if isinstance(m, layers.ScaledStdConv):
+        if isinstance(m, parametrize.ParametrizedModel):
+            walk(m.model, src, dst)
+            shapes = {n: p.shape for n, p in m.model.named_parameters()}
+            key = parametrize.SPECTRAL_STATE_KEY
+            for name in m.stateful_names():  # the spectral state, keyed by the kernel's flax path
+                kernel = plan[dst + name][1]
+                stat(f"{dst}{key}.{name}.u", f"{key}/{kernel}/u")
+                stat(f"{dst}{key}.{name}.v", f"{key}/{kernel}/v", _fan_in_vector(shapes[name]))
+        elif isinstance(m, resnet.ResNet):
+            if m.stem_type == "deep":
+                for i in range(len(m.conv1)):
+                    walk(m.conv1[i], f"stem_conv{i}", f"{dst}conv1.{i}.")
+                    norm_act(m.bn1[i], f"stem_bn{i}", f"{dst}bn1.{i}.")
+            else:
+                walk(m.conv1, "stem_conv", dst + "conv1.")
+                norm_act(m.bn1, "stem_bn", dst + "bn1.")
+            for stage in range(m.num_stages):
+                for b, block in enumerate(getattr(m, f"layer{stage + 1}")):
+                    walk(block, f"layer{stage + 1}_{b}", f"{dst}layer{stage + 1}.{b}.")
+            dense("fc", dst + "fc.", True)
+        elif isinstance(m, (resnet.BasicBlock, resnet.Bottleneck)):
+            # flax numbers the plain convs and the _NormActs apart, in the order the JAX block builds them;
+            # with fused_stats, fconv1 takes conv1's place and fconv3 conv3's
+            bottleneck, k = isinstance(m, resnet.Bottleneck), 0
+            for i in (1, 2) if bottleneck else (1,):
+                if hasattr(m, f"conv{i}"):
+                    walk(getattr(m, f"conv{i}"), f"{src}/Conv_{k}", f"{dst}conv{i}.")
+                    norm_act(getattr(m, f"bn{i}"), f"{src}/_NormAct_{k}", f"{dst}bn{i}.")
+                    k += 1
+            last = 3 if bottleneck else 2
+            if hasattr(m, f"conv{last}"):
+                walk(getattr(m, f"conv{last}"), f"{src}/Conv_{k}", f"{dst}conv{last}.")
+                child(getattr(m, f"bn{last}"), src, f"{dst}bn{last}.")
+            for name in ("fconv1", "fconv3", "fdown"):
+                if getattr(m, name, None) is not None:
+                    walk(getattr(m, name), f"{src}/{name}", f"{dst}{name}.")
+            child(m.attn, src, dst + "attn.")
+            if m.downsample is not None:
+                walk(m.downsample[0], f"{src}/down_conv", dst + "downsample.0.")
+                walk(m.downsample[1], f"{src}/down_bn", dst + "downsample.1.")
+        elif isinstance(m, resnet.Conv1x1BNStats):
+            param(dst + "weight", src + "/kernel", _oihw)
+            for leaf in ("scale", "bias"):
+                param(dst + leaf, f"{src}/{leaf}")
+            for leaf in ("mean", "var"):
+                stat(f"{dst}running_{leaf}", f"{src}/{leaf}")
+        elif isinstance(m, (blocks.PreBasicBlock, blocks.PreInvertedResidual)):
+            numbered(m, src, dst, ("norm1", "norm2", "norm3"))
+            numbered(m, src, dst, ("conv1", "conv2", "conv3"))
+        elif isinstance(m, norms.EstimatedABN):
+            for leaf, name in (("scale", "weight"), ("bias", "bias")):
+                param(dst + name, f"{src}/{leaf}")
+            for leaf in ("mean", "var"):
+                stat(f"{dst}running_{leaf}", f"{src}/{leaf}")
+        elif isinstance(m, layers.ScaledStdConv):
             param(dst + "weight", src + "/kernel", _oihw)
             for leaf in ("gain", "bias"):
                 if getattr(m, leaf) is not None:
@@ -330,3 +362,17 @@ def kernel_parameters(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
     cannot tell a kernel from a norm's scale; the walk can."""
     plan = _plan(model)
     return {n: p for n, p in model.named_parameters() if n in plan and plan[n][1].rsplit("/", 1)[-1] == "kernel"}
+
+
+def conv_kernels(model: torch.nn.Module, ungrouped: bool = False) -> Dict[str, torch.nn.Parameter]:
+    """The parameters of ``model`` that the JAX forward parametrizations
+    transform (parametrize.py:23-36 of the JAX package), by name, in the
+    model's order: 4-d leaves whose flax path holds ``kernel`` (the convs'
+    kernels, ScaledStdConv's and Conv1x1BNStats' included; not ECA's, the
+    Dense heads' or a norm's). ``ungrouped`` leaves out the depthwise ones,
+    whose HWIO kernel has in/groups == 1 (OIHW ``weight.shape[1]`` here)."""
+    plan = _plan(model)
+    return {
+        n: p for n, p in model.named_parameters()
+        if n in plan and p.dim() == 4 and "kernel" in plan[n][1].lower() and (not ungrouped or p.shape[1] > 1)
+    }

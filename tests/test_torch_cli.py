@@ -118,7 +118,7 @@ def test_main_defaults_to_cuda():
 
 @pytest.mark.parametrize(
     "override",
-    ["run.remat=true", "mesh.data=2", "run.bn_stats=local", "weight_standardization=true",
+    ["run.remat=true", "mesh.data=2", "run.bn_stats=local", "mesh.zero1=true",
      "loader.backend=tfrecord", "run.skip_nonfinite=2"],
 )
 def test_unported_options_raise(override, tmp_path):
@@ -370,7 +370,7 @@ def test_non_deep_recipe_runs_with_agc_at_full_width(tmp_path):
 
 @pytest.mark.parametrize(
     "callback, item",
-    [("ForwardSpectralNorm", "item 9"), ("src.callbacks.SAM", "item 9"), ("WeightDistributionTB", "item 7")],
+    [("SAMOriginal", "item 9"), ("src.callbacks.SAM", "item 9"), ("WeightDistributionTB", "item 7")],
 )
 def test_unported_callback_names_its_roadmap_item(callback, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}") as e:

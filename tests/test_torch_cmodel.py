@@ -8,7 +8,8 @@ Each config is built in both packages; the JAX model's tree (every leaf
 drawn anew from a numpy seed) is carried over by ``flax_to_torch_model``,
 which walks both models in layer order; float32 outputs in eval mode within
 1e-5 of the largest output. A module name of the JAX table that is not
-ported raises NotImplementedError naming the module."""
+ported raises NotImplementedError naming the module; ConvActBlock takes
+the activated norms as its pre-norm, as the JAX block does."""
 
 import os
 
@@ -171,7 +172,7 @@ def test_module_table_covers_the_jax_table():
     assert set(TCM._MODULES) == set(JAX_MODULES)
 
 
-@pytest.mark.parametrize("name", ["PreBasicBlock", "VGGBlock", "src.model.ConvMixerBlock", "pt.modules.ABN"])
+@pytest.mark.parametrize("name", ["Yolo5_C3", "VGGBlock", "src.model.ConvMixerBlock", "src.model.FusedRepVGGBlock"])
 def test_unported_module_raises_naming_it(name):
     with pytest.raises(NotImplementedError, match=name.rsplit(".", 1)[-1]) as e:
         CModel(layer_config=[[-1, 1, "conv3x3", [3, 8]], [-1, 1, name, [8]]])
@@ -187,5 +188,11 @@ def test_unknown_module_and_tag_raise_key_error():
 
 @pytest.mark.parametrize("option", [{"pre_norm": "agn"}, {"pre_norm": "abn"}])
 def test_conv_act_block_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        CModel(layer_config=[[-1, 1, "ConvActBlock", [3, 16], option]])
+    """The activated norms as ConvActBlock's pre-norm, which raised before the
+    activated-BN family was ported, now build and match the JAX block (float32,
+    train mode, tests/test_torch_nondeep.py's tolerances)."""
+    from sota_imagenet_tpu.models import blocks as JB
+    from sota_imagenet_tpu_torch.models import blocks as TB
+    from tests.test_torch_nondeep import compare
+
+    compare(JB.ConvActBlock(in_chs=16, out_chs=16, **option), TB.ConvActBlock(16, 16, **option), train=True)

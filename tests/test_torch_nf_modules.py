@@ -161,10 +161,15 @@ def test_var_ema_monitor_returns_its_input_and_updates_once_per_call_as_a_scalar
 
 
 def test_norm_table_is_the_jax_table_and_the_activated_bn_family_names_its_item():
+    """The table is the JAX one; the activated-BN family, which named its
+    ROADMAP item before it was ported, builds the JAX classes' counterparts
+    (their numbers: tests/test_torch_bresnet.py)."""
     assert set(TN._NORMS) == set(JN._NORMS)
-    for name in ("abn", "InplaceABN", "frozenabn", "agn", "estimated_abn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10d"):
-            TN.norm_from_name(name)(8)
+    for name, cls in (("abn", TN.ABN), ("InplaceABN", TN.ABN), ("frozenabn", TN.ABN), ("agn", TN.AGN),
+                      ("estimated_abn", TN.EstimatedABN)):
+        norm = TN.norm_from_name(name)(8)
+        assert type(norm) is cls and norm.weight.shape == (8,)
+    assert TN.norm_from_name("frozenabn")(8).frozen and not TN.norm_from_name("abn")(8).frozen
     assert isinstance(TN.norm_from_name("'VarEMA'")(8), TN.VarEMA)
     with pytest.raises(KeyError):
         TN.norm_from_name("no_such_norm")

@@ -104,7 +104,7 @@ def _leaf(tree, path):
 
 
 def test_unported_optimizers_name_the_roadmap():
-    for cfg in ({"_target_": "adamp"}, {"_target_": "madgrad"}, {"_target_": "novograd"},
+    for cfg in ({"_target_": "adamp"}, {"_target_": "madgrad"}, {"_target_": "adais"},
                 {"_target_": "adamw", "lookahead": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
             build_optimizer(cfg, [("w", torch.nn.Parameter(torch.zeros(2, 2)))])
