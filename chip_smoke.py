@@ -41,6 +41,13 @@ without a build; any failure exits non-zero and prints no result):
              u and v must agree too (bnet_model_phase). These last three
              hold loss to rtol 1e-5, grad_norm to 1e-5 of the CPU's float64
              step, the gradients to 1e-4 and the update to 1e-3 (_within).
+             Then three steps of a depth-cut full-width ResNet-50 for each
+             optimizer of the zoo, the projected sets of AdamP and SGDP
+             equal on both sides, and the parameter histogram on the card
+             against numpy (zoo_model_phase); one SAM step of a depth-cut
+             24.nf_conv-act trunk per kind, bn_from_perturbed both ways,
+             and the weights equal to the saved ones plus the optimizer's
+             update (sam_model_phase).
 4. trainer A — ``cli.main`` on configs/exp/1.r50_baseline.yaml (ResNet-50 at
              full width, batch 256 at 224 px, bf16, synthetic data, debug
              mode: 10 train steps and 20 val steps). Checks: finite loss, the
@@ -134,15 +141,35 @@ without a build; any failure exits non-zero and prints no result):
              weight has per-output-channel mean 0 (1e-5) and std
              1.72/sqrt(fan_in) (1e-3 relative), the raw weight does not
              (bresnet_checks).
-16. profile — trainers A, C, D, H, I, J and K once more with torch.profiler
-             over steps 4-7: device time per step by layer and the top
-             kernels, and the device's busy share (separate runs, so the
-             trainers' times stay clean). D's, I's, J's and K's device time
-             is attributed to the port's layers by the op that launched each
-             kernel (layer_breakdown; UFO, XCA, GEM, AGC, the
-             parametrization, BlurPool and drop-path each a group of its
-             own); I's must show the auxiliary loss's forward and backward
-             in every profiled step.
+16. trainer L — ``cli.main`` on configs/exp/51.r50_adamp.yaml as the file
+             says but for synthetic data, debug mode and one 1-epoch stage
+             of its warmup: ResNet-50, batch 192 at 224 px, bf16, AdamP (wd
+             1e-2), OrthoInitClb, EMA 0.9993, colour twist 0.3,
+             GradDistributionTB every 50 steps and log.histogram's
+             WeightDistributionTB, both into an in-memory writer
+             (RecordingWriter) that the Runner takes as its tb_writer.
+             Checks as trainer A, and: the EMA moved, one parameter
+             histogram (step 0) of sum(ceil(numel / 10)) values over the
+             161 parameters, 161 weight histograms; reports how many of
+             the 54 matrices AdamP projected each step.
+17. trainer M — ``cli.main`` on configs/exp/32.nf_conv-act_sam.yaml as the
+             file says but for synthetic data, debug mode and one 1-epoch
+             stage of its cosine: the 24.nf_conv-act CModel at full width,
+             batch 224 at 224 px, bf16, unit-wise SAM (rho 0.01), BAdam in
+             AdamW mode, CutmixMixup prob 1. Checks as trainer A, and: two
+             training forwards a step (a forward hook), a VarEMA moved, no
+             gain decayed.
+18. profile — trainers A, C, D, H, I, J, K, L and M once more with
+             torch.profiler over steps 4-7: device time per step by layer
+             and the top kernels, and the device's busy share (separate
+             runs, so the trainers' times stay clean). D's, I's, J's, K's,
+             L's and M's device time is attributed to the port's layers by
+             the op that launched each kernel (layer_breakdown; UFO, XCA,
+             GEM, AGC, the parametrization, BlurPool, drop-path, SAM's
+             perturbation and copies and the parameter histogram each a
+             group of its own, the optimizer's step by its own scope); I's
+             must show the auxiliary loss's forward and backward in every
+             profiled step.
 
 Every kernel counter is set to 0 just before each trainer's ``cli.main`` and
 read just after. The line before the last is the card's name and power
@@ -946,6 +973,28 @@ def folder_overrides(tree: str) -> tuple:
     )
 
 
+class RecordingWriter:
+    """The SummaryWriter methods the TensorBoard sinks call, kept in memory,
+    so a trainer's sinks run on the card whether or not the tensorboard
+    package is installed there."""
+
+    def __init__(self):
+        self.calls = []
+
+    def add_scalar(self, tag, value, step):
+        self.calls.append({"kind": "scalar", "tag": tag, "step": step})
+
+    def add_histogram(self, tag, values, step):
+        self.calls.append({"kind": "histogram", "tag": tag, "step": step})
+
+    def add_histogram_raw(self, tag, min, max, num, sum, sum_squares, bucket_limits, bucket_counts, global_step):
+        self.calls.append({"kind": "histogram_raw", "tag": tag, "step": global_step, "num": num, "min": min,
+                           "max": max, "buckets": len(bucket_counts)})
+
+    def close(self):
+        pass
+
+
 def _probe_callback(profile_window=None, record_shapes=False):
     """A host callback that records a CUDA event after each train step is
     queued (no host sync: read once at epoch end), and where the run's
@@ -961,8 +1010,20 @@ def _probe_callback(profile_window=None, record_shapes=False):
         ortho = None
         agc = None
         agc_stats = None
+        writer = None  # set to a RecordingWriter, it becomes the Runner's tb_writer (the last callback's writer)
+        train_forwards = 0
 
         def on_begin(self):
+            self.projected = []  # AdamP's / SGDP's device booleans of each step, read at the epoch's end
+            model = self.runner.state.model
+
+            def count(module, args, out):
+                if module.training:
+                    self.train_forwards += 1
+
+            if not getattr(model, "_probe_hooked", False):
+                model.register_forward_hook(count)
+                model._probe_hooked = True
             # the run's AGC transform, if the config names the callback: it records its last step (below)
             from sota_imagenet_tpu_torch.train.callbacks import AdaptiveGradientClipping
 
@@ -999,6 +1060,9 @@ def _probe_callback(profile_window=None, record_shapes=False):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self.events.append(ev)
+            opt = getattr(self.runner.state.optimizer, "inner", self.runner.state.optimizer)
+            if getattr(opt, "projected", None) is not None:
+                self.projected.append(opt.projected)
             if self.agc is not None and step == 8:
                 # AGC keeps device tensors about the next (last) step's clip: no host read inside any step
                 self.agc.record = True
@@ -1033,6 +1097,9 @@ def _probe_callback(profile_window=None, record_shapes=False):
                 not torch.equal(a, b) for a, b in zip(state.ema.state_dict().values(), state.model.state_dict().values())
             )
             self.std_emas = [float(b) for n, b in state.model.named_buffers() if n.endswith("std_ema")]
+            self.projected_per_step = [int(x) for x in torch.stack([p.sum() for p in self.projected]).tolist()] \
+                if self.projected else []
+            self.matrices = len(self.projected[0]) if self.projected else 0
             if self.agc is not None and self.agc.stats is not None:
                 self.agc.record = False
                 st = self.agc.stats
@@ -1558,6 +1625,285 @@ def bnet_model_phase(spectral: bool = False) -> dict:
     return result
 
 
+# each optimizer of model_zoo: (config node, lr): the configs' arguments, and a tenth of their peak lr (the
+# optimizer without a config, RMSprop, 1e-4), so that three steps move a randomly initialised net by percents
+ZOO_OPTIMIZERS = {
+    "adamp_51": ({"_target_": "adamp", "weight_decay": 1e-2}, 1e-4),
+    "adamp_13": ({"_target_": "adamp", "weight_decay": 3e-4, "eps": 1e-3}, 3e-3),
+    "sgdp": ({"_target_": "sgdp", "momentum": 0.9, "weight_decay": 1e-4}, 0.01),
+    "adai_55": ({"_target_": "adai", "betas": [0.1, 0.99], "weight_decay": 3e-5, "sgd_mom": True,
+                 "stable_wd": True}, 0.01),
+    "adais_50": ({"_target_": "adais", "betas": [0.1, 0.99], "weight_decay": 1e-3}, 0.01),
+    "madgrad_54": ({"_target_": "madgrad"}, 2e-4),
+    "adam_layerwise_49": ({"_target_": "adam_layerwise", "weight_decay": 2e-2, "betas": [0.9, 0.995]}, 2e-4),
+    "rmsprop": ({"_target_": "rmsprop", "momentum": 0.9}, 1e-4),
+    "lookahead_sgd_k2": ({"_target_": "sgd", "momentum": 0.9, "lookahead": True, "lookahead_k": 2}, 0.01),
+}
+ZOO_STEPS = 3
+
+
+def _card_vs_cpu_steps(make_state, images, labels, n_steps: int, step_kw: dict):
+    """``n_steps`` train steps from ``make_state(device, dtype)`` on the CPU in
+    float32, on the card in float32 and on the CPU in float64, on the same
+    batch: each step's loss and grad_norm, AdamP's or SGDP's projected set of
+    each step, the state before and after."""
+    import torch
+
+    from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
+    from sota_imagenet_tpu_torch.train import steps
+
+    runs = {}
+    for dev, dt in (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64)):
+        state = make_state(dev, dt)
+        before = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
+        step = steps.build_train_step(CrossEntropyLoss(smoothing=0.1), input_dtype=dt, **step_kw)
+        losses, norms, projected = [], [], []
+        for _ in range(n_steps):
+            state, m = step(state, {"image": images.to(dev, dt), "label": labels.to(dev, dt)})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            opt = getattr(state.optimizer, "inner", state.optimizer)
+            if getattr(opt, "projected", None) is not None:
+                projected.append(opt.projected.cpu().tolist())
+        after = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
+        runs[dev, dt] = {"loss": losses, "grad_norm": norms, "projected": projected, "before": before,
+                         "after": after, "state": state}
+    return runs
+
+
+def zoo_model_phase() -> dict:
+    """Three f32 train steps of a full-width, depth-cut ResNet-50 (one
+    Bottleneck per stage, SiLU, 64 px, batch 8, TF32 off) on the card
+    against the CPU, from the same seeded weights, for each optimizer of
+    the zoo with its configs' arguments and peak lr (ZOO_OPTIMIZERS): AdamP
+    (configs 51 and 13), SGDP, Adai (55), AdaiS (50), MADGRAD (54),
+    AdamLayerwise (49), RMSprop with momentum, and Lookahead over SGD with
+    k 2 (it syncs at the second step); beside the CPU's float64 steps.
+    Tolerances as the model phases': each step's loss rtol 1e-5 against the
+    CPU, the first step's grad_norm rtol 1e-5 against the CPU's float64 step
+    (the later steps start from weights that float32 and float64 moved
+    apart, and are reported), the update of the three steps (state after
+    minus before) within relative L2 1e-3 of the CPU's. The
+    parameters AdamP and SGDP project must be the same on both sides at
+    every step. Then GradDistributionTB's histogram of a full-width
+    ResNet-50's weights on the card against numpy on the CPU (zoo_histogram)."""
+    import torch
+
+    from sota_imagenet_tpu_torch.models.resnet import Bottleneck, ResNet
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.utils.weights import flax_ranks, unit_dims
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32 on both sides
+    torch.backends.cudnn.allow_tf32 = False
+
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (8, 64, 64, 3), generator=gen).float().sub(127.5).mul(1 / 51.0)
+    labels = torch.nn.functional.one_hot(torch.randint(0, 1000, (8,), generator=gen), 1000).float()
+    out, bad = {}, []
+    for name, (optim, lr) in ZOO_OPTIMIZERS.items():
+
+        def make_state(dev, dt, optim=optim):
+            model = ResNet(block=Bottleneck, layers=(1, 1, 1, 1), norm_act="silu")
+            layout = {"unit_dim": unit_dims(model), "flax_rank": flax_ranks(model)}
+            state = steps.init_state(model, lambda m: build_optimizer(optim, m.named_parameters(), **layout),
+                                     device=dev, seed=0)
+            model.to(dt)
+            return state
+
+        runs = _card_vs_cpu_steps(make_state, images, labels, ZOO_STEPS, {"lr_schedule": lambda i, lr=lr: lr})
+        c, g, d = runs["cpu", torch.float32], runs["cuda", torch.float32], runs["cpu", torch.float64]
+        res = {
+            "optimizer": type(g["state"].optimizer).__name__,
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(g["loss"], c["loss"])),
+            "grad_norm_rel_f64": [abs(a - b) / abs(b) for a, b in zip(g["grad_norm"], d["grad_norm"])],
+            "grad_norm_rel_cpu_f32_vs_f64": [abs(a - b) / abs(b) for a, b in zip(c["grad_norm"], d["grad_norm"])],
+            "init_equal": bool(torch.equal(c["before"], g["before"])),
+            "update_rel_l2": float(((g["after"] - g["before"]) - (c["after"] - c["before"])).norm()
+                                   / (c["after"] - c["before"]).norm()),
+            "update_over_state": float((c["after"] - c["before"]).norm() / c["before"].norm()),
+            "loss": [c["loss"], g["loss"]],
+        }
+        if c["projected"]:
+            res["projected_per_step"] = [sum(p) for p in g["projected"]]
+            res["projected_of"] = len(g["projected"][0])
+            res["projected_flips"] = [sum(a != b for a, b in zip(pc, pg)) for pc, pg in zip(c["projected"], g["projected"])]
+        out[name] = res
+        print(f"[model_zoo] {name} {json.dumps(res)}", flush=True)
+        if not (res["init_equal"] and res["loss_rel"] < 1e-5 and res["grad_norm_rel_f64"][0] < 1e-5
+                and res["update_rel_l2"] < 1e-3 and not any(res.get("projected_flips", []))):
+            bad.append(name)
+    out["histogram"] = zoo_histogram()
+    result = {"phase": "model_zoo", "steps": ZOO_STEPS, "optimizers": out}
+    print(f"[model_zoo] {json.dumps(result)}")
+    if bad or not out["histogram"]["within"]:
+        raise AssertionError(f"model_zoo: the card disagrees with the CPU for {bad}, histogram {out['histogram']}")
+    return result
+
+
+def zoo_histogram() -> dict:
+    """GradDistributionTB's histogram (train.callbacks.log_histogram: every
+    10th weight of each leaf in the flax layout, log10 |w| clipped to
+    [-15, 5], 64 bins) of a full-width ResNet-50's seeded weights on the card,
+    against numpy on the CPU from the same weights. The counts must agree
+    but for values within one float32 ulp of a bin edge (the card's log10
+    and numpy's may round such a value to either side); how many there are
+    is reported."""
+    import numpy as np
+    import torch
+
+    from sota_imagenet_tpu_torch.models import resnet50
+    from sota_imagenet_tpu_torch.train.callbacks import LOG_EDGES, log_histogram
+    from sota_imagenet_tpu_torch.utils.weights import flax_params
+
+    model = resnet50()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    leaves = [v.detach().numpy() for v in flax_params(model).values()]
+    model.cuda()
+    got = log_histogram(list(flax_params(model).values()), 10, torch.from_numpy(LOG_EDGES).cuda())
+    counts = got["counts"].cpu().numpy()
+    vals = np.concatenate([np.abs(a.ravel()[::10]) for a in leaves]).astype(np.float32)
+    logs = np.clip(np.log10(vals + np.float32(1e-30)), np.float32(-15.0), np.float32(5.0))
+    want, _ = np.histogram(logs, bins=LOG_EDGES)
+    ulp = np.spacing(np.abs(LOG_EDGES)).astype(np.float32)
+    near = int(sum(((logs >= e - u) & (logs <= e + u)).sum() for e, u in zip(LOG_EDGES[1:-1], ulp[1:-1])))
+    on_edge = int(np.isin(logs, LOG_EDGES[1:-1]).sum())  # log10(1) = 0 is an edge: the BN scales of 1
+    moved = int(np.abs(counts - want).sum())
+    result = {"values": int(vals.size), "counts_differ_by": moved, "values_within_one_ulp_of_an_edge": near,
+              "of_which_on_an_edge": on_edge,
+              "min": [float(got["min"]), float(logs.min())], "max": [float(got["max"]), float(logs.max())],
+              "sum_rel": abs(float(got["sum"]) - float(logs.astype(np.float64).sum())) / abs(float(logs.sum()))}
+    result["within"] = bool(moved <= 2 * near and int(counts.sum()) == vals.size and result["sum_rel"] < 1e-5)
+    return result
+
+
+# 24.nf_conv-act's layer list (its YAML) at full width, each repeat cut to one block
+NF_SAM_TRUNK = """
+- [-1, 1, ConvActBlock, [3, 16], {stride: 2, conv_kwargs: {gain_init: 1.0}}]
+- [-1, 1, ConvActBlock, [16, 32], {conv_kwargs: {gain_init: 0.5}}]
+- [-1, 1, ConvActBlock, [32, 64], {conv_kwargs: {gain_init: 0.5}}]
+- [-1, 1, VarEMA]
+- [-1, 1, ConvActBlock, [64, 64], {stride: 2}]
+- [-1, 1, VarEMA]
+- [-1, 1, ConvActBlock, [64, 64]]
+- [-1, 1, VarEMA]
+- [-1, 1, ConvActBlock, [64, 128], {stride: 2}]
+- [-1, 1, VarEMA]
+- [-1, 1, ConvActBlock, [128, 128], {groups_width: 64}]
+- [-1, 1, VarEMA]
+- [-1, 1, "pt.modules.BlurPool", 128]
+- [-1, 1, VarEMA]
+- [-1, 1, NormFreeBlockTimm, [128, 768, 384]]
+- [-1, 1, NormFreeBlockTimm, [768, 768, 384]]
+- [-1, 1, VarEMA]
+- [-1, 1, "pt.modules.BlurPool", 768]
+- [-1, 1, VarEMA]
+- [-1, 1, NormFreeBlockTimm, [768, 768, 384]]
+- [-1, 1, scaled_conv1x1, [768, 2304], {gamma: '${init_gamma}'}]
+- [-1, 1, 'torch.nn.SiLU']
+- [-1, 1, "pt.modules.FastGlobalAvgPool2d", [], {flatten: True}]
+- [-1, 1, "torch.nn.Dropout", [0.2]]
+- [-1, 1, "nn.Linear", [2304, 1000]]
+"""
+SAM = "configs/exp/32.nf_conv-act_sam.yaml"
+
+
+def sam_model_phase() -> dict:
+    """One f32 SAM train step of a depth-cut 24.nf_conv-act trunk at full
+    width (NF_SAM_TRUNK with 32.nf_conv-act_sam's extra_kwargs: swish_hard,
+    VarEMA monitors, NormFreeBlockTimm with ECA; drop-path and dropout off)
+    on the card against the CPU, from the same seeded weights, for each kind
+    (asam, asam_unitwise with rho 0.01 as config 32, sam_original with rho
+    0.5, eta 0.01) with bn_from_perturbed true and false: 64 px, batch 8,
+    32's optimizer (BAdam in AdamW mode, wd 5e-3, eps 1e-6, the gain mask),
+    lr 0.005, TF32 off; beside the CPU's float64 step. Tolerances as
+    model_nf_lamb's (loss rtol 1e-4, grad_norm rtol 1e-2, the update within
+    relative L2 1e-2, the VarEMA statistics rtol 1e-4). And on the card, the
+    weights after the step are the saved unperturbed weights plus the
+    optimizer's update of the step's (perturbed-point) gradients: the same
+    optimizer, built anew on a copy holding the saved weights and given
+    those gradients, lands on the same weights bit for bit."""
+    import torch
+    import yaml
+
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.models.cmodel import CModel
+    from sota_imagenet_tpu_torch.models.layers import DropPath, Dropout
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32 on both sides
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = C.load(SAM, strict_env=False)
+    extra = C.to_dict(cfg.model)["extra_kwargs"]
+    layers = yaml.safe_load(NF_SAM_TRUNK.replace("'${init_gamma}'", str(cfg.init_gamma)))
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (8, 64, 64, 3), generator=gen).float().sub(127.5).mul(1 / 51.0)
+    labels = torch.nn.functional.one_hot(torch.randint(0, 1000, (8,), generator=gen), 1000).float()
+    kinds = {"asam": {"rho": 0.01}, "asam_unitwise": {"rho": 0.01}, "sam_original": {"rho": 0.5, "eta": 0.01}}
+    out, bad = {}, []
+
+    def optimizer(m, mask):
+        return build_optimizer(dict(cfg.optim), m.named_parameters(), wd_mask=mask)
+
+    def make_state(dev, dt):
+        model = CModel(layer_config=layers, extra_kwargs=extra)
+        for mod in model.modules():
+            if isinstance(mod, DropPath):
+                mod.keep_prob = 1.0
+            elif isinstance(mod, Dropout):
+                mod.rate = 0.0
+        mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd)
+        state = steps.init_state(model, lambda m: optimizer(m, mask), device=dev, seed=0)
+        model.to(dt)
+        state.mask = mask
+        return state
+
+    for kind, kw in kinds.items():
+        for bn in (True, False):
+            sam = {"kind": kind, "bn_from_perturbed": bn, **kw}
+            runs = _card_vs_cpu_steps(make_state, images, labels, 1, {"lr_schedule": lambda i: 0.005, "sam": sam})
+            c, g, d = runs["cpu", torch.float32], runs["cuda", torch.float32], runs["cpu", torch.float64]
+            std = lambda r: torch.tensor([float(b) for n, b in r["state"].model.named_buffers() if n.endswith("std_ema")])
+            res = {
+                "loss_rel": abs(g["loss"][0] - c["loss"][0]) / abs(c["loss"][0]),
+                "grad_norm_rel": abs(g["grad_norm"][0] - c["grad_norm"][0]) / abs(c["grad_norm"][0]),
+                "grad_norm_rel_f64": abs(g["grad_norm"][0] - d["grad_norm"][0]) / abs(d["grad_norm"][0]),
+                "init_equal": bool(torch.equal(c["before"], g["before"])),
+                "update_rel_l2": float(((g["after"] - g["before"]) - (c["after"] - c["before"])).norm()
+                                       / (c["after"] - c["before"]).norm()),
+                "std_ema_rel": float(((std(g) - std(c)).abs() / std(c).abs()).max()),
+                "loss": [c["loss"][0], g["loss"][0], d["loss"][0]],
+            }
+            # the card's weights are the saved ones plus the optimizer's update of the step's gradients (each
+            # parameter's .grad holds them after the step): put the saved weights back, step a new optimizer
+            model = g["state"].model
+            stepped = [p.detach().clone() for p in model.parameters()]
+            sd = model.state_dict()
+            saved = dict(zip(sd, g["before"].split([v.numel() for v in sd.values()])))
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(saved[n].view(p.shape).to(p.dtype))
+            opt = optimizer(model, g["state"].mask)
+            for group in opt.param_groups:
+                group["lr"] = 0.005
+            opt.step()
+            res["weights_equal_saved_plus_update"] = all(torch.equal(p, q) for p, q in zip(model.parameters(), stepped))
+            out[f"{kind}{'' if bn else '_bn_from_clean'}"] = res
+            print(f"[model_sam] {kind} bn_from_perturbed={bn} {json.dumps(res)}", flush=True)
+            if not (res["init_equal"] and res["loss_rel"] < 1e-4 and res["grad_norm_rel"] < 1e-2
+                    and res["update_rel_l2"] < 1e-2 and res["std_ema_rel"] < 1e-4
+                    and res["weights_equal_saved_plus_update"]):
+                bad.append((kind, bn))
+    result = {"phase": "model_sam", "runs": out}
+    print(f"[model_sam] {json.dumps(result)}")
+    if bad:
+        raise AssertionError(f"model_sam: the SAM step on the card disagrees with the CPU for {bad}: {out}")
+    return result
+
+
 def forward_gmac(config: str, image_size: int = 224) -> dict:
     """The model of ``config``'s forward MACs per image at ``image_size``,
     counted by torch.utils.flop_counter on the meta device (no memory, no
@@ -1704,6 +2050,8 @@ def trainer_phase(
     from sota_imagenet_tpu_torch.tools.accuracy_proof import imagenet_dir
 
     probe = _probe_callback(profile_window, record_shapes=recipe is not None)
+    if recipe in ("adamp", "sam"):
+        probe.writer = RecordingWriter()
     counters = kernel_counters()
     scopes = _layer_scopes() if (recipe and profile_window) else contextlib.nullcontext()
     data = TRAINER_OVERRIDES if tree is None else CACHE_OVERRIDES if cache else folder_overrides(tree)
@@ -1789,6 +2137,22 @@ def trainer_phase(
         result["parameters_m"] = sum(p.numel() for p in probe.runner.state.model.parameters()) / 1e6
     if recipe == "bresnet":
         result.update(bresnet_checks(probe.runner.state.model))
+    if recipe in ("adamp", "sam"):
+        model = probe.runner.state.model
+        calls = probe.writer.calls
+        result["parameters"] = len(list(model.parameters()))
+        result["parameters_m"] = sum(p.numel() for p in model.parameters()) / 1e6
+        result["tb_calls"] = {k: sum(1 for c in calls if c["kind"] == k) for k in ("scalar", "histogram", "histogram_raw")}
+        result["param_log_histograms"] = [c for c in calls if c["kind"] == "histogram_raw"]
+        result["param_log_histogram_num_expected"] = sum(-(-p.numel() // 10) for p in model.parameters())
+        result["optimizer"] = type(probe.runner.state.optimizer).__name__
+    if recipe == "adamp":
+        # the parameters whose step AdamP projected, each step (device booleans read at the epoch's end)
+        result["adamp_projected_per_step"] = probe.projected_per_step
+        result["adamp_matrix_parameters"] = probe.matrices
+    if recipe == "sam":
+        result["train_forwards"] = probe.train_forwards
+        result["std_ema"] = probe.std_emas
     if recipe == "nondeep":
         from sota_imagenet_tpu_torch.utils.weights import unit_dims
 
@@ -1824,11 +2188,30 @@ def trainer_phase(
         raise AssertionError(f"{name}: val batches of shapes {probe.val_shapes}, want {val_shapes} shapes")
     if recipe:
         groups = result["weight_decay_groups"]
-        if recipe in ("nfnet", "bresnet") and not probe.ema_differs:
+        if recipe in ("nfnet", "bresnet", "adamp") and not probe.ema_differs:
             raise AssertionError(f"{name}: the EMA equals the weights after {steps} steps")
-        gains = any("gain" in k for k in probe.weight_decay_of)  # bresnet50 has none; bresnet50.yaml decays all
-        if groups["gains_decayed"] or not groups["decayed"] or gains != (recipe != "bresnet"):
+        gains = any("gain" in k for k in probe.weight_decay_of)
+        if recipe in ("nfnet", "nf_lamb", "nondeep", "sam") and (
+                groups["gains_decayed"] or not groups["decayed"] or not gains):
             raise AssertionError(f"{name}: weight decay groups {groups}")
+        # resnet50 and bresnet50 have no gain
+        if recipe in ("bresnet", "adamp") and (not groups["decayed"] or gains):
+            raise AssertionError(f"{name}: weight decay groups {groups}")
+    if recipe == "adamp":
+        hists = result["param_log_histograms"]
+        if result["optimizer"] != "AdamP" or result["parameters"] != 161 or len(result["adamp_projected_per_step"]) != steps:
+            raise AssertionError(f"{name}: optimizer {result['optimizer']}, {result['parameters']} parameters, "
+                                 f"projections {result['adamp_projected_per_step']}")
+        if [h["step"] for h in hists] != [0] or hists[0]["num"] != result["param_log_histogram_num_expected"]:
+            raise AssertionError(f"{name}: GradDistributionTB's histograms {hists}, want one at step 0 of "
+                                 f"{result['param_log_histogram_num_expected']} values")
+        if result["tb_calls"]["histogram"] != 161:  # log.histogram's WeightDistributionTB, at the epoch's start
+            raise AssertionError(f"{name}: TensorBoard calls {result['tb_calls']}")
+    if recipe == "sam":
+        if result["train_forwards"] != 2 * steps:
+            raise AssertionError(f"{name}: {result['train_forwards']} training forwards in {steps} steps, want two a step")
+        if not any(abs(v - 1.0) > 1e-3 for v in probe.std_emas):
+            raise AssertionError(f"{name}: no VarEMA std_ema moved from 1: {probe.std_emas}")
     if recipe == "bresnet":
         ws = result["weight_standardisation"]
         if not (result["state_dict_keys_unwrapped"] and result["standardised_kernels"] == 53 and all(
@@ -1922,8 +2305,10 @@ def _device_time_breakdown(prof, wall_ms: float, window) -> dict:
 def _layer_scopes():
     """For a profiled run: wrap the weight standardisation (ScaledStdConv's,
     and a ParametrizedModel's effective weights), the ECA gate, VarEMA, the
-    auxiliary losses, cutmix_mixup, UFO, XCA, the GEM pools, AGC, BlurPool
-    and drop-path in torch.profiler.record_function scopes (SCOPE_LAYERS), so
+    auxiliary losses, cutmix_mixup, UFO, XCA, the GEM pools, AGC, BlurPool,
+    drop-path, SAM's perturbation and its copies of the weights and buffers,
+    and GradDistributionTB's histogram in torch.profiler.record_function
+    scopes (SCOPE_LAYERS), so
     layer_breakdown can tell their kernels from the other ones (UFO's and
     XCA's 1x1 convs count as theirs). The originals are
     put back on exit; the scopes cost the host a few microseconds each, which
@@ -1937,7 +2322,7 @@ def _layer_scopes():
     from sota_imagenet_tpu_torch.models.norms import VarEMA
     from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel
     from sota_imagenet_tpu_torch.optim.factory import AGC
-    from sota_imagenet_tpu_torch.train import callbacks
+    from sota_imagenet_tpu_torch.train import callbacks, steps
 
     def scoped(label, fn):
         @functools.wraps(fn)
@@ -1953,7 +2338,8 @@ def _layer_scopes():
         (callbacks.NormLossClb, "_loss", "aux"), (callbacks, "cutmix_mixup", "mixup"),
         (UFO, "forward", "ufo"), (XCA, "forward", "xca"), (GEMPool, "forward", "gem"), (AGC, "__call__", "agc"),
         (ParametrizedModel, "effective_parameters", "param"), (BlurPool, "forward", "blur"),
-        (DropPath, "forward", "droppath"),
+        (DropPath, "forward", "droppath"), (steps.SamPerturbation, "__call__", "sam_perturb"),
+        (steps, "_restore", "sam_restore"), (callbacks, "log_histogram", "histogram"),
     )
     originals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
     try:
@@ -1967,7 +2353,8 @@ def _layer_scopes():
 
 SCOPE_LAYERS = {"ws": "weight standardisation", "eca": "ECA", "varema": "VarEMA", "aux": "aux loss", "mixup": "mixup",
                 "ufo": "UFO", "xca": "XCA", "gem": "GEM", "agc": "AGC", "param": "parametrization (WS)",
-                "blur": "BlurPool", "droppath": "drop-path"}
+                "blur": "BlurPool", "droppath": "drop-path", "sam_perturb": "SAM perturb",
+                "sam_restore": "SAM save/restore", "histogram": "param histogram"}
 CONV_OPS = {"aten::cudnn_convolution": (0, 1), "aten::convolution": (0, 1), "aten::_convolution": (0, 1),
             "aten::conv2d": (0, 1), "aten::convolution_backward": (1, 2)}  # op -> positions of (input, weight)
 
@@ -2063,7 +2450,8 @@ def layer_breakdown(prof, window):
 
 
 PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "trainer_i",
-          "trainer_j", "trainer_k", "data", "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
+          "trainer_j", "trainer_k", "trainer_l", "trainer_m", "data", "trainer_f", "trainer_g", "packed", "trainer_h",
+          "learn", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
@@ -2075,6 +2463,9 @@ NF_LAMB = "configs/exp/41.nf_conv-act_lamb.yaml"
 NF_LAMB_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.003, 0], lr_mode: cos}]",)  # the recipe's cosine in one epoch
 NONDEEP = "configs/exp/80_1.non-deeps_ufo-0.5_no-res.yaml"
 NONDEEP_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.1, 0], lr_mode: cos}]",)  # the recipe's cosine in one epoch
+ADAMP = "configs/exp/51.r50_adamp.yaml"
+ADAMP_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0, 0.001]}]",)  # the recipe's warmup, cut to the one debug epoch
+SAM_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.005, 0], lr_mode: cos}]",)  # the recipe's cosine in one epoch
 
 
 def main(argv=None) -> int:
@@ -2129,6 +2520,8 @@ def main(argv=None) -> int:
         run("model_bresnet_leaky_relu", bresnet_model_phase, norm_act="leaky_relu", check=False)
         run("model_bnet", bnet_model_phase)
         run("model_bnet_spectral", bnet_model_phase, spectral=True)
+        run("model_zoo", zoo_model_phase)
+        run("model_sam", sam_model_phase)
     aug_only = {"fused_aug": 1}
     if "trainer_a" in phases:
         run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only)
@@ -2147,6 +2540,10 @@ def main(argv=None) -> int:
         run("trainer_j", trainer_phase, "trainer_j", NONDEEP, NONDEEP_STAGE, gpu, aug_only, recipe="nondeep")
     if "trainer_k" in phases:
         run("trainer_k", trainer_phase, "trainer_k", BRESNET, BRESNET_STAGE, gpu, aug_only, recipe="bresnet")
+    if "trainer_l" in phases:
+        run("trainer_l", trainer_phase, "trainer_l", ADAMP, ADAMP_STAGE, gpu, aug_only, recipe="adamp")
+    if "trainer_m" in phases:
+        run("trainer_m", trainer_phase, "trainer_m", SAM, SAM_STAGE, gpu, aug_only, recipe="sam")
     cached = {"packed", "trainer_h"} & set(phases) or "profile" in phases
     with tempfile.TemporaryDirectory() as data_root:
         if {"data", "trainer_f", "trainer_g"} & set(phases) or cached:
@@ -2184,6 +2581,10 @@ def main(argv=None) -> int:
             recipe="nondeep")
         run("profile_k", trainer_phase, "profile_k", BRESNET, BRESNET_STAGE, gpu, aug_only, profile_window=(2, 6),
             recipe="bresnet")
+        run("profile_l", trainer_phase, "profile_l", ADAMP, ADAMP_STAGE, gpu, aug_only, profile_window=(2, 6),
+            recipe="adamp")
+        run("profile_m", trainer_phase, "profile_m", SAM, SAM_STAGE, gpu, aug_only, profile_window=(2, 6),
+            recipe="sam")
     if "profile_h" in results:
         # the cache's input stage inside H's step: the gather and the augment kernel, as shares of its device time
         by_group = results["profile_h"]["profile"]["by_group_ms_per_step"]
@@ -2196,7 +2597,7 @@ def main(argv=None) -> int:
         a, h = results["trainer_a"], results["trainer_h"]
         print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median_4_10'], 'ms_per_step_a': a['ms_per_step_median_4_10'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
     for trainer, profile in (("trainer_d", "profile_d"), ("trainer_i", "profile_i"), ("trainer_j", "profile_j"),
-                             ("trainer_k", "profile_k")):
+                             ("trainer_k", "profile_k"), ("trainer_l", "profile_l"), ("trainer_m", "profile_m")):
         if trainer not in results or profile not in results:
             continue
         # the profiler (shapes recorded, thousands of ops a step) slows these hosts far more than A's or C's:
@@ -2226,6 +2627,8 @@ def main(argv=None) -> int:
     kernels[0]["launches_nf_lamb"] = results["trainer_i"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_nondeep"] = results["trainer_j"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_bresnet"] = results["trainer_k"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_adamp"] = results["trainer_l"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_sam"] = results["trainer_m"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))

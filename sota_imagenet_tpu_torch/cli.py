@@ -11,7 +11,9 @@ run dir + git snapshot → model / criterion / optimizer → resume → callback
 → stage loop over the DataManager → final eval + save. It runs on one CUDA
 device unless the caller passes ``device="cpu"``. Options that would change
 the numbers and are not ported yet raise NotImplementedError naming the
-ROADMAP item; the TensorBoard sinks log one warning instead.
+ROADMAP item. The TensorBoard sinks write event files into the run dir;
+where the tensorboard package is missing they log one warning and the run
+goes on.
 """
 
 from __future__ import annotations
@@ -31,14 +33,22 @@ from sota_imagenet_tpu_torch.config import instantiate, parse_stages
 from sota_imagenet_tpu_torch.data.pipeline import DataManager
 from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel, weight_standardization_fn
 from sota_imagenet_tpu_torch.optim import build_optimizer
+from sota_imagenet_tpu_torch.optim.factory import needs_layout
 from sota_imagenet_tpu_torch.registry import NotPortedError
-from sota_imagenet_tpu_torch.train.callbacks import Callback, CheckpointSaver, ConsoleLogger, Timer
+from sota_imagenet_tpu_torch.train.callbacks import (
+    Callback,
+    CheckpointSaver,
+    ConsoleLogger,
+    TensorBoard,
+    Timer,
+    WeightDistributionTB,
+)
 from sota_imagenet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from sota_imagenet_tpu_torch.train.loop import Runner
 from sota_imagenet_tpu_torch.train.schedule import phases_from_stages
 from sota_imagenet_tpu_torch.utils.logging import get_logger, setup_logger
 from sota_imagenet_tpu_torch.utils.misc import count_parameters, filter_from_weight_decay, resolve_device, set_random_seed
-from sota_imagenet_tpu_torch.utils.weights import unit_dims
+from sota_imagenet_tpu_torch.utils.weights import flax_ranks, unit_dims
 
 
 def find_auto_resume(log_dir: str, exp_name: str) -> Optional[str]:
@@ -135,9 +145,6 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
         log.info(f"PyTorch {torch.__version__} | device: {device} ({torch.cuda.get_device_name(device)})")
     else:
         log.info(f"PyTorch {torch.__version__} | device: {device}")
-    if cfg.log.tensorboard or cfg.log.histogram:
-        log.warning("log.tensorboard / log.histogram: TensorBoard sinks are not ported yet (ROADMAP.md Queue 1 item 7); "
-                    "metrics go to stdout and logs.txt only")
     if cfg.debug_nans:
         log.warning("debug_nans has no effect in sota_imagenet_tpu_torch yet")
     seed = cfg.random_seed if cfg.random_seed is not None else 0
@@ -160,17 +167,28 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
     # (cli.py:199-202 of the JAX package)
     mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd) if cfg.filter_from_wd is not None else None
 
-    # unitwise optimizers take a norm per output unit, found on the weights plan
-    units = unit_dims if cfg.optim.get("unitwise") else lambda m: None
+    # the unitwise optimizers, AdamP and SGDP take each parameter's units and rank from the weights plan
+    layout = needs_layout(cfg.optim)
+
+    def make_optimizer(m):
+        units = {"unit_dim": unit_dims(m), "flax_rank": flax_ranks(m)} if layout else {}
+        return build_optimizer(dict(cfg.optim), m.named_parameters(), wd_mask=mask, **units)
+
+    # the TensorBoard sinks (cli.py:205-212 of the JAX package): scalars every 50 steps, and with
+    # log.histogram the weights' histograms every epoch; the config's callbacks may add more
+    sinks = [TensorBoard(run_dir, log_every=50)] if cfg.log.tensorboard else []
+    if cfg.log.histogram:
+        sinks.append(WeightDistributionTB())
     runner = Runner(
         model,
         criterion,
-        lambda m: build_optimizer(dict(cfg.optim), m.named_parameters(), wd_mask=mask, unit_dim=units(m)),
+        make_optimizer,
         lr_phases=lr_phases,
         callbacks=[
             Timer(),
             ConsoleLogger(),
             CheckpointSaver(run_dir, save_name="model.ckpt", include_optimizer=cfg.log.save_optim),
+            *sinks,
             *(instantiate(clb_cfg) for clb_cfg in cfg.run.extra_callbacks or []),
             *callbacks,
         ],

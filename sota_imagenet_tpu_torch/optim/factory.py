@@ -21,10 +21,11 @@ value to rounding, with eps outside the square root in both.
 with ``lamb`` or ``lamb_mode`` set (factory.py:137-145).
 
 ``novograd`` is the JAX package's Novograd (optim/zoo.py:57-121):
-``Novograd`` below.
-
-SGD, AdamW, LAMB and Novograd are ported; the other optimizers of the JAX
-package raise naming the ROADMAP item.
+``Novograd`` below. The rest of the JAX zoo (factory.py:149-156) is in
+``optim/zoo.py``: ``adamp``, ``sgdp``, ``adai``, ``adais``, ``madgrad``,
+``adam_layerwise`` and ``rmsprop``; ``lookahead: true`` wraps any of them in
+``Lookahead`` (factory.py:159-197). Every optimizer of the JAX package is
+ported; an unknown name raises KeyError, as there.
 
 ``agc`` is adaptive gradient clipping (factory.py:200-214 of the JAX package),
 a gradient transform for the train step's ``grad_transform``.
@@ -32,11 +33,12 @@ a gradient transform for the train step's ``grad_transform``.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
-from sota_imagenet_tpu_torch.registry import NotPortedError
+from sota_imagenet_tpu_torch.optim import zoo
 from sota_imagenet_tpu_torch.utils.weights import unit_dims
 
 _OPTIM_ALIASES = {
@@ -54,6 +56,19 @@ _OPTIM_ALIASES = {
     "MyNovograd": "novograd",
     "src.optimizers.NovogradApex": "novograd",
     "NovogradApex": "novograd",
+    "adamp.AdamP": "adamp",
+    "AdamP": "adamp",
+    "src.optimizers.AdamLayerwise": "adam_layerwise",
+    "AdamLayerwise": "adam_layerwise",
+    "src.optimizers.MyAdai": "adai",
+    "MyAdai": "adai",
+    "src.optimizers.AdaiS": "adais",
+    "AdaiS": "adais",
+    "src.optimizers.MADGRAD": "madgrad",
+    "MADGRAD": "madgrad",
+    "RMSprop": "rmsprop",
+    "torch.optim.RMSprop": "rmsprop",
+    "SGDP": "sgdp",
     # legacy flat-schema names (the fused_* prefix meant apex multi-tensor variants of the same math)
     "fused_sgd": "sgd",
     "fused_adam": "adamw",
@@ -254,7 +269,45 @@ def badam(named_params, lamb_mode: bool = False, lamb: bool = False, **kw) -> to
     return _BUILDERS["lamb" if (lamb or lamb_mode) else "adamw"](named_params, **kw)
 
 
-_BUILDERS = {"sgd": sgd, "adamw": adamw, "lamb": lamb, "badam": badam, "novograd": novograd}
+def _zoo_builder(name: str):
+    """A builder of ``zoo.ZOO[name]``: the wd mask's groups, and the layout
+    (``unit_dim``, ``flax_rank``: name -> value) for those that take it."""
+    cls = zoo.ZOO[name]
+    layout = name in ("adamp", "sgdp")
+    accepted = set(inspect.signature(cls).parameters)
+
+    def build(named_params, wd_mask=None, weight_decay: float = 0.0, unit_dim=None, flax_rank=None, **kw):
+        named = list(named_params)
+        groups = _param_groups(named, weight_decay, wd_mask)
+        if layout:
+            kw["unit_dim"] = {p: unit_dim[n] for n, p in named if n in unit_dim} if unit_dim else None
+            kw["flax_rank"] = {p: flax_rank[n] for n, p in named if n in flax_rank} if flax_rank else None
+        if "betas" in kw:
+            kw["betas"] = tuple(kw["betas"])
+        # other keys of a config are accepted and unused, as the JAX builders' ``**_``
+        return cls(groups, **{k: v for k, v in kw.items() if k in accepted})
+
+    build.__name__ = name
+    return build
+
+
+_BUILDERS = {"sgd": sgd, "adamw": adamw, "lamb": lamb, "badam": badam, "novograd": novograd,
+             **{name: _zoo_builder(name) for name in zoo.ZOO}}
+
+
+def optimizer_name(optim_cfg: Mapping[str, Any]) -> str:
+    """The builder a config node names (its ``_target_``, through the aliases); KeyError for an unknown one."""
+    target = str(optim_cfg.get("_target_", "sgd"))
+    name = _OPTIM_ALIASES.get(target, target if target in _BUILDERS else target.rsplit(".", 1)[-1].lower())
+    if name not in _BUILDERS:
+        raise KeyError(f"unknown optimizer {target!r}; known: {sorted(_BUILDERS)}")
+    return name
+
+
+def needs_layout(optim_cfg: Mapping[str, Any]) -> bool:
+    """Whether the optimizer takes each parameter's units from the weights
+    plan: the unitwise ones, and AdamP's and SGDP's projection."""
+    return bool(optim_cfg.get("unitwise")) or optimizer_name(optim_cfg) in ("adamp", "sgdp")
 
 
 def _unitwise_norm(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -340,19 +393,23 @@ def build_optimizer(
     named_params: Iterable[Tuple[str, torch.nn.Parameter]],
     wd_mask: Optional[Mapping[str, bool]] = None,
     unit_dim: Optional[Mapping[str, int]] = None,
+    flax_rank: Optional[Mapping[str, int]] = None,
 ) -> torch.optim.Optimizer:
     """Build from a config node like {_target_: sgd, momentum: 0.9, ...}.
-    ``unit_dim`` (``utils.weights.unit_dims``) serves the unitwise optimizers."""
+    ``unit_dim`` (``utils.weights.unit_dims``) and ``flax_rank``
+    (``utils.weights.flax_ranks``), by parameter name, serve the unitwise
+    optimizers and AdamP's and SGDP's projection. ``lookahead: true`` (with
+    ``lookahead_k``, default 5, and ``lookahead_alpha``, 0.5) wraps the
+    optimizer in ``Lookahead``."""
     cfg = dict(optim_cfg)
-    target = str(cfg.pop("_target_", "sgd"))
-    name = _OPTIM_ALIASES.get(target, target if target in _BUILDERS else target.rsplit(".", 1)[-1].lower())
-    if name not in _BUILDERS:
-        raise NotPortedError(f"optimizer {target!r}", "Queue 1 item 10", f"ported: {sorted(_BUILDERS)}")
-    cfg.pop("lr", None)
-    if cfg.pop("lookahead", False):
-        raise NotPortedError("optim.lookahead", "Queue 1 item 10")
-    for k in ("lookahead_k", "lookahead_alpha"):
+    name = optimizer_name(cfg)
+    for k in ("_target_", "lr"):
         cfg.pop(k, None)
+    use_lookahead = bool(cfg.pop("lookahead", False))
+    la_k, la_alpha = int(cfg.pop("lookahead_k", 5)), float(cfg.pop("lookahead_alpha", 0.5))
     if unit_dim is not None:
         cfg["unit_dim"] = unit_dim
-    return _BUILDERS[name](named_params, wd_mask=wd_mask, **cfg)
+    if flax_rank is not None:
+        cfg["flax_rank"] = flax_rank
+    opt = _BUILDERS[name](named_params, wd_mask=wd_mask, **cfg)
+    return zoo.Lookahead(opt, k=la_k, alpha=la_alpha) if use_lookahead else opt

@@ -24,9 +24,22 @@ The auxiliary pieces select the parameters that are ``kernel`` leaves in
 the JAX model (``utils.weights.kernel_parameters``), as the JAX callbacks
 select them by flax path.
 
-The callbacks of the JAX package that are not ported (SAM, the TensorBoard
-sinks, the profiler) are registered under their names and raise
-NotImplementedError naming the ROADMAP item.
+SAM and SAMOriginal add the ``sam`` option of the train step (its second
+forward and backward at the perturbed weights).
+
+The TensorBoard sinks (``TensorBoard``, ``WeightDistributionTB``,
+``SpectralDistributionTB``, ``GradDistributionTB``) write through the
+Runner's ``tb_writer``, which the ``TensorBoard`` callback opens
+(``torch.utils.tensorboard``, imported when it starts; where the package
+cannot be imported it logs one warning and the run goes on without the
+sinks). They name and order their tags as the JAX package does, by the flax
+paths of the weights (``utils.weights.flax_params``). Scalars and the
+parameter histogram are device tensors buffered during the epoch and read
+once at its end; the weight and spectrum histograms run on the host once an
+epoch.
+
+The profiler callback of the JAX package is not ported: it is registered
+under its name and raises NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -48,7 +62,8 @@ from sota_imagenet_tpu_torch.models.parametrize import (
 from sota_imagenet_tpu_torch.optim.factory import agc
 from sota_imagenet_tpu_torch.train.steps import cutmix_mixup
 from sota_imagenet_tpu_torch.utils.logging import get_logger
-from sota_imagenet_tpu_torch.utils.weights import kernel_parameters
+from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
+from sota_imagenet_tpu_torch.utils.weights import flax_params, kernel_parameters
 
 
 class Callback:
@@ -136,6 +151,36 @@ class Mixup(Callback):
                 cutmix_mixup, cutmix_alpha=1.0, mixup_alpha=self.alpha, prob=self.prob, choice_prob=0.0
             )
         }
+
+
+class SAMOriginal(Callback):
+    """ASAM as SamsungLabs has it (reference callbacks.py:279-337;
+    callbacks.py:133-149 of the JAX package): a second gradient inside the
+    train step at the weights moved by ``rho`` along the gradient scaled by
+    max(p^2, eta) (``steps.SamPerturbation`` kind ``sam_original``)."""
+
+    def __init__(self, rho: float = 0.5, eta: float = 0.01, bn_from_perturbed: bool = True):
+        self.rho, self.eta = rho, eta
+        self.bn_from_perturbed = bn_from_perturbed
+
+    def step_options(self):
+        return {"sam": {"kind": "sam_original", "rho": self.rho, "eta": self.eta,
+                        "bn_from_perturbed": self.bn_from_perturbed}}
+
+
+class SAM(Callback):
+    """Layer-wise or unit-wise adaptive SAM (reference callbacks.py:339-419;
+    callbacks.py:152-168 of the JAX package). ``bn_from_perturbed=True``
+    matches the reference (its perturbed forward also moves the BN
+    statistics); False keeps the clean pass's."""
+
+    def __init__(self, unitwise: bool = False, rho: float = 0.01, bn_from_perturbed: bool = True):
+        self.unitwise, self.rho = unitwise, rho
+        self.bn_from_perturbed = bn_from_perturbed
+
+    def step_options(self):
+        return {"sam": {"kind": "asam_unitwise" if self.unitwise else "asam", "rho": self.rho,
+                        "bn_from_perturbed": self.bn_from_perturbed}}
 
 
 class WeightNorm(Callback):
@@ -385,6 +430,170 @@ class CheckpointSaver(Callback):
             get_logger().info(f"Epoch {epoch:3d} | new best {self.monitor}: {val:.4f}")
 
 
+def tensorboard_writer(log_dir: str):
+    """A ``torch.utils.tensorboard.SummaryWriter`` on ``log_dir``; None, with
+    one warning, where the tensorboard package cannot be imported."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        get_logger().warning(f"TensorBoard sinks off: torch.utils.tensorboard cannot be imported ({e}); "
+                             "metrics go to stdout and logs.txt only")
+        return None
+    return SummaryWriter(log_dir)
+
+
+def _read_once(rows):
+    """Each row's device tensors as host floats, in one read for all of them."""
+    tensors = [v for row in rows for v in row if isinstance(v, torch.Tensor)]
+    flat = iter(torch.cat([t.detach().reshape(-1).double() for t in tensors]).tolist() if tensors else [])
+    out = []
+    for row in rows:
+        vals = []
+        for v in row:
+            if isinstance(v, torch.Tensor):
+                vals.append([next(flat) for _ in range(v.numel())] if v.dim() else next(flat))
+            else:
+                vals.append(float(v))
+        out.append(vals)
+    return out
+
+
+class TensorBoard(Callback):
+    """The train metrics every ``log_every`` steps and the val metrics every
+    epoch as scalars (reference TensorBoard, train.py:139; callbacks.py:473-516
+    of the JAX package). The step's metrics are device tensors: they are
+    buffered during the epoch and read in one go at its end, so no step
+    waits for the device; the tags and steps are the JAX package's."""
+
+    def __init__(self, log_dir: str = ".", log_every: int = 50):
+        self.log_dir = log_dir
+        self.log_every = log_every
+        self.writer = None
+        self._buf = []  # [(step, metrics)], flushed per epoch
+
+    def on_begin(self):
+        if process_index() == 0 and self.writer is None:
+            self.writer = tensorboard_writer(self.log_dir)
+
+    def on_batch_end(self, step, metrics):
+        if self.writer is None or step % self.log_every:
+            return
+        self._buf.append((step, metrics))
+
+    def on_epoch_end(self, epoch, train_metrics, val_metrics):
+        if self.writer is None:
+            return
+        buf, self._buf = self._buf, []
+        # the tags of each step in sorted order, as the JAX package's device_get of the metric dicts gives them
+        keys = [sorted(m) for _, m in buf]
+        values = _read_once([[m[k] for k in ks] for (_, m), ks in zip(buf, keys)])
+        for (step, _), ks, vals in zip(buf, keys, values):
+            for k, v in zip(ks, vals):
+                self.writer.add_scalar(f"train/{k}", v, step)
+        for k, v in (val_metrics or {}).items():
+            self.writer.add_scalar(f"val/{k}", float(v), epoch)
+
+    def on_end(self):
+        if self.writer is not None:
+            self.writer.close()
+
+
+def _tb_writer(callback: Callback):
+    return getattr(callback.runner, "tb_writer", None) if callback.runner is not None else None
+
+
+class WeightDistributionTB(Callback):
+    """A histogram of each parameter at the start of every epoch, on the host
+    (reference callbacks.py:11-17; callbacks.py:519-529 of the JAX package),
+    tagged ``model/<flax path>``."""
+
+    def on_epoch_begin(self, epoch):
+        tb = _tb_writer(self)
+        if tb is None or process_index() != 0:
+            return
+        for path, leaf in flax_params(self.runner.state.model).items():
+            tb.add_histogram(f"model/{path}", leaf.detach().cpu().numpy().ravel(), epoch)
+
+
+class SpectralDistributionTB(Callback):
+    """The singular values of every conv and Dense kernel at the start of each
+    epoch, on the host (reference callbacks.py:20-28; callbacks.py:532-545 of
+    the JAX package): each kernel as the JAX package reshapes it, (out,
+    fan_in) from the flax layout, tagged ``spectrum/<flax path>``."""
+
+    def on_epoch_begin(self, epoch):
+        tb = _tb_writer(self)
+        if tb is None or process_index() != 0:
+            return
+        for path, leaf in flax_params(self.runner.state.model).items():
+            if leaf.dim() < 2 or "kernel" not in path:
+                continue
+            mat = leaf.detach().cpu().numpy().reshape(-1, leaf.shape[-1]).T
+            tb.add_histogram(f"spectrum/{path}", np.linalg.svd(mat, compute_uv=False), epoch)
+
+
+LOG_EDGES = np.linspace(-15.0, 5.0, 65, dtype=np.float32)  # GradDistributionTB's bins of log10 |p|
+
+
+def log_histogram(leaves, subsample: int, edges: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The JAX ``GradDistributionTB`` histogram on the device (callbacks.py:562-579
+    of the JAX package): every ``subsample``-th value of each leaf, raveled in
+    the flax layout, as log10 |v| (+1e-30) clipped to [-15, 5], counted into
+    ``edges``'s 64 bins as ``jnp.histogram`` counts (a value on an edge
+    falls in the bin above it, the last edge in the last bin), with the
+    values' min, max, sum and sum of squares."""
+    vals = torch.cat([leaf.detach().float().reshape(-1)[::subsample].abs() for leaf in leaves])
+    logs = torch.log10(vals + 1e-30).clamp(-15.0, 5.0)
+    return {"counts": bin_counts(logs, edges), "min": logs.min(), "max": logs.max(), "sum": logs.sum(),
+            "sumsq": logs.square().sum()}
+
+
+def bin_counts(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """``jnp.histogram(x, bins=edges)``'s counts: a value on an edge falls in
+    the bin above it, one on the last edge in the last bin, values outside
+    the edges in none."""
+    idx = torch.bucketize(x, edges, right=True)
+    idx = torch.where(x == edges[-1], len(edges) - 1, idx)
+    return torch.bincount(idx, minlength=len(edges) + 1)[1:len(edges)]
+
+
+class GradDistributionTB(Callback):
+    """The distribution of log10 |params| every ``log_every`` steps (reference
+    callbacks.py:30-60; callbacks.py:548-616 of the JAX package): the
+    histogram is computed on the device (``log_histogram``) and only its 64
+    counts and four scalars are buffered, read once at the epoch's end and
+    written as ``optim/model_params_log``. In one process without a writer
+    it does nothing."""
+
+    def __init__(self, log_every: int = 500, subsample: int = 10):
+        self.log_every = log_every
+        self.subsample = subsample
+        self._edges = None
+        self._buf = []  # [(step, device stats)], flushed per epoch
+
+    def on_batch_end(self, step, metrics):
+        if step % self.log_every or self.runner is None:
+            return
+        if process_count() == 1 and _tb_writer(self) is None:
+            return  # one process, no sink: no device work
+        leaves = list(flax_params(self.runner.state.model).values())
+        if self._edges is None or self._edges.device != leaves[0].device:
+            self._edges = torch.from_numpy(LOG_EDGES).to(leaves[0].device)
+        self._buf.append((step, log_histogram(leaves, self.subsample, self._edges)))
+
+    def on_epoch_end(self, epoch, train_metrics, val_metrics):
+        tb = _tb_writer(self)
+        buf, self._buf = self._buf, []
+        if tb is None or not buf:
+            return
+        keys = ("counts", "min", "max", "sum", "sumsq")
+        for (step, _), (counts, lo, hi, total, sumsq) in zip(buf, _read_once([[s[k] for k in keys] for _, s in buf])):
+            tb.add_histogram_raw(
+                "optim/model_params_log", min=lo, max=hi, num=int(sum(counts)), sum=total, sum_squares=sumsq,
+                bucket_limits=LOG_EDGES[1:].tolist(), bucket_counts=counts, global_step=step,
+            )
+
+
 # registry entries so configs instantiate these by target path
 registry.register("Callback", aliases=("pytorch_tools.fit_wrapper.callbacks.Callback",))(Callback)
 registry.register("CutmixMixup", aliases=("src.callbacks.CutmixMixup", "sota_imagenet.callbacks.CutmixMixup"))(
@@ -408,8 +617,7 @@ for _name, _cls in (("WeightNorm", WeightNorm), ("OrthoLossClb", OrthoLossClb), 
 registry.register(
     "AdaptiveGradientClipping", aliases=("pytorch_tools.fit_wrapper.callbacks.AdaptiveGradientClipping",)
 )(AdaptiveGradientClipping)
-for _name in ("SAM", "SAMOriginal"):
-    _register_unported(_name, "Queue 1 item 9", aliases=(f"src.callbacks.{_name}",))
-for _name in ("WeightDistributionTB", "SpectralDistributionTB", "GradDistributionTB"):
-    _register_unported(_name, "Queue 1 item 7", aliases=(f"src.callbacks.{_name}",))
+for _name, _cls in (("SAM", SAM), ("SAMOriginal", SAMOriginal), ("WeightDistributionTB", WeightDistributionTB),
+                   ("SpectralDistributionTB", SpectralDistributionTB), ("GradDistributionTB", GradDistributionTB)):
+    registry.register(_name, aliases=(f"src.callbacks.{_name}",))(_cls)
 _register_unported("Profiler", "Queue 1 item 9")

@@ -80,6 +80,7 @@ class Runner:
         self.state: Optional[TrainState] = None
         self.epoch = 0
         self.batch_size = 0
+        self.tb_writer = None  # the TensorBoard sinks' writer: the last callback's ``writer`` after on_begin
         self.val_metrics: Dict[str, float] = {}
         self.train_metrics: Dict[str, float] = {}
         self._began = False
@@ -145,6 +146,7 @@ class Runner:
             self._began = True
             for c in self.callbacks:
                 c.on_begin()
+                self.tb_writer = getattr(c, "writer", None) or self.tb_writer
 
     def fit(
         self,

@@ -23,8 +23,17 @@ threefry and Philox cannot agree, so each random transform is a ``draw``
 function on a generator and an ``apply`` function on tensors: tests feed the
 JAX package's draws to ``apply``.
 
-Step features of the JAX package that are not ported raise
-NotImplementedError naming the ROADMAP item: SAM and remat.
+SAM (``sam``) runs a second forward and backward through the same
+microbatch loop at the perturbed weights p + epsilon (``SamPerturbation``),
+and the update applies that pass's gradients to the saved, unperturbed
+weights. The second pass moves the buffers too (BN statistics, VarEMA,
+the spectral u/v) with ``bn_from_perturbed`` (the default, as the
+reference); without it, it starts from the step's buffers and the step
+keeps the clean pass's. Loss and logits are the clean pass's; grad_norm is
+the perturbed point's gradients' after the transform (JAX steps.py:339).
+
+The step feature of the JAX package that is not ported raises
+NotImplementedError naming the ROADMAP item: remat.
 """
 
 from __future__ import annotations
@@ -36,9 +45,11 @@ import torch
 
 from sota_imagenet_tpu_torch.losses.base import call_criterion
 from sota_imagenet_tpu_torch.models.layers import bind_generator
+from sota_imagenet_tpu_torch.optim.factory import _unitwise_norm
 from sota_imagenet_tpu_torch.registry import NotPortedError
 from sota_imagenet_tpu_torch.train.metrics import accuracy_topk, classification_metrics
 from sota_imagenet_tpu_torch.train.state import TrainState
+from sota_imagenet_tpu_torch.utils.weights import flax_ranks, unit_dims
 
 Batch = Dict[str, torch.Tensor]
 MixupDraws = Dict[str, torch.Tensor]
@@ -199,6 +210,72 @@ def step_seed(seed: int, step: int) -> int:
 # --------------------------------------------------------------------------- #
 
 
+def _restore(dst, src) -> None:
+    """Copy ``src`` into ``dst``, tensor by tensor (multi-tensor copies, no host read)."""
+    if dst:
+        torch._foreach_copy_(dst, src)
+
+
+def _snapshot(tensors):
+    """Copies of ``tensors``."""
+    out = [torch.empty_like(t) for t in tensors]
+    _restore(out, tensors)
+    return out
+
+
+class SamPerturbation:
+    """The SAM perturbation epsilon of each parameter (steps.py:257-289 of the
+    JAX package; reference callbacks.py:279-419), from the parameters p and
+    the clean pass's gradients g:
+
+      * ``asam`` (layer-wise): rho * max(||p||, 1e-3) / max(||g||, 1e-5) * g;
+      * ``asam_unitwise``: the same with a norm per output unit (the weights
+        plan's ``unit_dims``; a 0-d or 1-d parameter is one unit);
+      * ``sam_original``: with w = max(|p|, eta) for a matrix (a JAX leaf of
+        more than one axis, ``flax_rank``) and 1 otherwise, scale = rho /
+        max(||g w||, 2e-5) over all parameters, and epsilon = max(p^2, eta) g
+        scale for a matrix, g scale otherwise.
+
+    Called with the model, its parameters and their gradients, it adds
+    epsilon to the parameters in place. The layout is read off the weights
+    plan once per model."""
+
+    def __init__(self, kind: str = "asam", rho: float = 0.05, eta: float = 0.01):
+        if kind not in ("asam", "asam_unitwise", "sam_original"):
+            raise ValueError(f"unknown SAM kind {kind!r}")
+        self.kind, self.rho, self.eta = kind, rho, eta
+        self._model, self._dims, self._ranks = None, {}, {}
+
+    def _layout(self, model: torch.nn.Module) -> None:
+        if model is not self._model:
+            dims, ranks = unit_dims(model), flax_ranks(model)
+            named = list(model.named_parameters())
+            self._model = model
+            self._dims = {id(p): dims[n] for n, p in named}
+            self._ranks = {id(p): ranks[n] for n, p in named}
+
+    def epsilon(self, model: torch.nn.Module, params, grads) -> list:
+        eps_n, eps_w = 1e-5, 1e-3
+        if self.kind == "asam":
+            pn = torch.stack(torch._foreach_norm(params)).clamp(min=eps_w)
+            gn = torch.stack(torch._foreach_norm(grads)).clamp(min=eps_n)
+            return list(torch._foreach_mul(grads, list((self.rho * pn / gn).unbind())))
+        self._layout(model)
+        if self.kind == "asam_unitwise":
+            return [
+                self.rho * _unitwise_norm(p, self._dims[id(p)]).clamp(min=eps_w)
+                / _unitwise_norm(g, self._dims[id(p)]).clamp(min=eps_n) * g
+                for p, g in zip(params, grads)
+            ]
+        matrix = [self._ranks[id(p)] > 1 for p in params]
+        weighted = [g * p.abs().clamp(min=self.eta) if m else g for p, g, m in zip(params, grads, matrix)]
+        scale = self.rho / torch.linalg.vector_norm(torch.stack(torch._foreach_norm(weighted))).clamp(min=2e-5)
+        return [(p.square().clamp(min=self.eta) * g if m else g) * scale for p, g, m in zip(params, grads, matrix)]
+
+    def __call__(self, model: torch.nn.Module, params, grads) -> None:
+        torch._foreach_add_(params, self.epsilon(model, params, grads))
+
+
 def build_train_step(
     criterion: Callable,
     lr_schedule: Callable[[int], float] = lambda step: 0.1,
@@ -207,33 +284,26 @@ def build_train_step(
     ema_decay: float = 0.0,
     mixup_fn: Optional[Callable] = None,  # fn(generator, images, labels) -> (images, labels)
     aux_loss: Optional[Callable] = None,  # aux_loss(model) -> f32 scalar, e.g. the ortho loss
-    sam: Optional[Dict[str, Any]] = None,
+    sam: Optional[Dict[str, Any]] = None,  # {kind: 'asam'|'asam_unitwise'|'sam_original', rho, eta, bn_from_perturbed}
     grad_transform: Optional[Callable] = None,  # fn(model, params, grads), in place before the update (AGC)
     post_step_transform: Optional[Callable] = None,  # fn(model), in place after the update (WeightNorm)
     remat: Any = False,
     input_dtype: torch.dtype = torch.bfloat16,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, Any]]]:
-    if sam:
-        raise NotPortedError("SAM", "Queue 1 item 9")
     if remat:
         raise NotPortedError("run.remat", "Queue 1 item 9")
     accumulate_steps = max(int(accumulate_steps or 1), 1)
+    perturb = SamPerturbation(sam.get("kind", "asam"), sam.get("rho", 0.05), sam.get("eta", 0.01)) if sam else None
+    bn_from_perturbed = bool(sam.get("bn_from_perturbed", True)) if sam else True
 
-    def train_step(state: TrainState, batch: Batch):
-        model, opt = state.model, state.optimizer
-        model.train()
-        if state.generator is not None:
-            state.generator.manual_seed(step_seed(state.seed, state.step))
-        images, labels = batch["image"], batch["label"]
-        if mixup_fn is not None:
-            # on the whole batch, before the split: the partner of sample i is B-1-i of the whole batch
-            with torch.no_grad():
-                images, labels = mixup_fn(state.generator, images, labels)
+    def batch_grads(model, opt, images, labels):
+        """Mean loss and gradients over the batch, into the parameters'
+        ``.grad``: the same microbatch loop for the clean and the SAM pass, so
+        accumulation bounds the second forward's memory too. The loader's
+        batch is split, not several batches gathered; BN buffers chain
+        through the microbatches and the dropout stream runs on through them."""
         opt.zero_grad(set_to_none=True)
-        # the loader's batch is split, not several batches gathered; BN buffers chain
-        # through the microbatches and the dropout stream runs on through them
         mb = images.shape[0] // accumulate_steps
-        images, labels = images[: mb * accumulate_steps], labels[: mb * accumulate_steps]
         loss_sum, all_logits = 0.0, []
         for im, lb in zip(images.split(mb), labels.split(mb)):
             mb_logits = model(im.to(input_dtype))
@@ -245,12 +315,42 @@ def build_train_step(
             mb_loss.backward()  # sums into .grad
             loss_sum = loss_sum + mb_loss.detach()
             all_logits.append(mb_logits.detach())
-        loss = loss_sum / accumulate_steps
-        logits = torch.cat(all_logits)
         params = [p for group in opt.param_groups for p in group["params"]]
         grads = [p.grad for p in params]
         if accumulate_steps > 1:
             torch._foreach_div_(grads, float(accumulate_steps))
+        return loss_sum / accumulate_steps, torch.cat(all_logits), params, grads
+
+    def train_step(state: TrainState, batch: Batch):
+        model, opt = state.model, state.optimizer
+        model.train()
+        if state.generator is not None:
+            state.generator.manual_seed(step_seed(state.seed, state.step))
+        images, labels = batch["image"], batch["label"]
+        if mixup_fn is not None:
+            # on the whole batch, before the split: the partner of sample i is B-1-i of the whole batch
+            with torch.no_grad():
+                images, labels = mixup_fn(state.generator, images, labels)
+        mb = images.shape[0] // accumulate_steps
+        images, labels = images[: mb * accumulate_steps], labels[: mb * accumulate_steps]
+        keep_buffers = perturb is not None and not bn_from_perturbed
+        # the second pass starts from the step's buffers (the JAX state.batch_stats)
+        before = _snapshot(list(model.buffers())) if keep_buffers else None
+        loss, logits, params, grads = batch_grads(model, opt, images, labels)
+        if perturb is not None:
+            # the second gradient, at p + epsilon (JAX steps.py:314-327); the update then applies to the
+            # saved p, copied back, since p + eps - eps need not be p in floating point
+            with torch.no_grad():
+                saved = _snapshot(params)
+                perturb(model, params, grads)
+                if keep_buffers:
+                    after = _snapshot(list(model.buffers()))  # the clean pass's, which the step keeps
+                    _restore(list(model.buffers()), before)
+            _, _, params, grads = batch_grads(model, opt, images, labels)
+            with torch.no_grad():
+                _restore(params, saved)
+                if keep_buffers:
+                    _restore(list(model.buffers()), after)
         if grad_transform is not None:
             # before grad_norm and before the optimizer adds the weight decay, as the JAX step and optax order them
             with torch.no_grad():

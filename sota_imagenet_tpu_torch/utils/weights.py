@@ -354,6 +354,40 @@ def unit_dims(model: torch.nn.Module) -> Dict[str, int]:
     return {n: _LAST_AXIS[plan[n][2]] for n, _ in model.named_parameters()}
 
 
+# the rank of the flax leaf, by converter (a leaf carried as is keeps the port's rank; ``_scalar``'s are 0-d in both)
+_FLAX_RANK = {_oihw: 4, _dense: 2, _eca: 3}
+# the port's tensor -> its flax counterpart's layout, by converter (the inverse of each)
+_TO_FLAX = {
+    _oihw: lambda t: t.permute(2, 3, 1, 0),
+    _dense: lambda t: t.T,
+    _eca: lambda t: t.permute(2, 1, 0),
+    _tensor: lambda t: t,
+    _scalar: lambda t: t,
+}
+
+
+def flax_ranks(model: torch.nn.Module) -> Dict[str, int]:
+    """For each parameter of ``model``, by name: the rank of its JAX leaf.
+    The JAX optimizers and SAM treat a leaf with more than one axis as a
+    matrix of units (AdamP's and SGDP's projection, ``sam_original``'s
+    weighting: ``p.ndim > 1`` on the flax leaf); the plan's converters keep
+    the rank, and this reads it off the plan, not off the port's tensor."""
+    plan = _plan(model)
+    return {n: _FLAX_RANK.get(plan[n][2], p.dim()) for n, p in model.named_parameters()}
+
+
+def flax_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s parameters as the JAX package's params tree holds them:
+    flax path -> the parameter viewed in the flax layout (HWIO conv
+    kernels, (in, out) Dense kernels; views, not copies), in the JAX
+    tree's leaf order (keys sorted at every level). The TensorBoard sinks
+    read the weights through it, so their tags, subsamples and histograms
+    are the JAX package's."""
+    plan = _plan(model)
+    leaves = {plan[n][1]: _TO_FLAX[plan[n][2]](p) for n, p in model.named_parameters()}
+    return {k: leaves[k] for k in sorted(leaves, key=lambda k: k.split("/"))}
+
+
 def kernel_parameters(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
     """The parameters of ``model`` that are ``kernel`` leaves in its JAX
     counterpart (conv, Dense and ECA kernels), by name, in the model's order:

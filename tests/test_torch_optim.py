@@ -104,10 +104,13 @@ def _leaf(tree, path):
 
 
 def test_unported_optimizers_name_the_roadmap():
-    for cfg in ({"_target_": "adamp"}, {"_target_": "madgrad"}, {"_target_": "adais"},
-                {"_target_": "adamw", "lookahead": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-            build_optimizer(cfg, [("w", torch.nn.Parameter(torch.zeros(2, 2)))])
+    """Every optimizer of the JAX package is ported now (optim/zoo.py): the names this test once held
+    to the ROADMAP build, and a name the JAX factory does not know raises KeyError, as there."""
+    for cfg, cls in (({"_target_": "adamp"}, "AdamP"), ({"_target_": "madgrad"}, "MADGRAD"),
+                     ({"_target_": "adais"}, "AdaiS"), ({"_target_": "adamw", "lookahead": True}, "Lookahead")):
+        assert type(build_optimizer(cfg, [("w", torch.nn.Parameter(torch.zeros(2, 2)))])).__name__ == cls
+    with pytest.raises(KeyError, match="unknown optimizer"):
+        build_optimizer({"_target_": "no_such_optimizer"}, [("w", torch.nn.Parameter(torch.zeros(2, 2)))])
 
 
 LAMB_OPTIMS = {
