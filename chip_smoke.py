@@ -47,7 +47,15 @@ without a build; any failure exits non-zero and prints no result):
              against numpy (zoo_model_phase); one SAM step of a depth-cut
              24.nf_conv-act trunk per kind, bn_from_perturbed both ways,
              and the weights equal to the saved ones plus the optimizer's
-             update (sam_model_phase).
+             update (sam_model_phase). Then one f32 step of a trunk of the
+             CModel table's new blocks (VGGBlock, ConvMixBlock, ConvResidual,
+             FusedRepVGGBlock, Yolo5_C3, ConvMixerBlock, SphereMLPLayer) and
+             one of vgg16_bn's layer list (cmodel_tables_model_phase); f32
+             steps with each new criterion, two with sigmoid_trick's bias,
+             AdaCos three with its state (losses_model_phase). The CPU
+             steps of the phases built on _card_vs_cpu_step(s) (bresnet,
+             bnet, zoo, sam and these two) run PyTorch's own convs, not
+             oneDNN's (cpu_reference).
 4. trainer A — ``cli.main`` on configs/exp/1.r50_baseline.yaml (ResNet-50 at
              full width, batch 256 at 224 px, bf16, synthetic data, debug
              mode: 10 train steps and 20 val steps). Checks: finite loss, the
@@ -159,7 +167,20 @@ without a build; any failure exits non-zero and prints no result):
              AdamW mode, CutmixMixup prob 1. Checks as trainer A, and: two
              training forwards a step (a forward hook), a VarEMA moved, no
              gain decayed.
-18. profile — trainers A, C, D, H, I, J, K, L and M once more with
+18. trainer N — ``cli.main`` on configs/exp/adacos_sphere.yaml as the file
+             says but for synthetic data, debug mode and one 1-epoch stage
+             of its warmup: seven ConvActBlocks, the SphereLinearLayer head,
+             AdaCos (max_s 20), batch 256 at 160 px, bf16, SGD. Checks as
+             trainer A, and: AdaCos's state after each step (device copies,
+             read at the epoch's end) finite, its scale moved from 20; the
+             val pass left it as the last step did; an eval resumed from
+             model_last.ckpt restores it and leaves it so (_resume_eval).
+19. trainer O — ``cli.main`` on configs/exp/66.conv-mix_original.yaml as the
+             file says but for synthetic data, debug mode and one 1-epoch
+             stage of its warmup: ConvMixer-768/30 (patch 7, kernel 7),
+             batch 48 at 224 px, bf16, SGD. Checks as trainer A, and: 30
+             ConvMixerBlocks, 19-21M parameters; reports the forward GMAC.
+20. profile — trainers A, C, D, H, I, J, K, L, M and O once more with
              torch.profiler over steps 4-7: device time per step by layer
              and the top kernels, and the device's busy share (separate
              runs, so the trainers' times stay clean). D's, I's, J's, K's,
@@ -167,9 +188,10 @@ without a build; any failure exits non-zero and prints no result):
              the op that launched each kernel (layer_breakdown; UFO, XCA,
              GEM, AGC, the parametrization, BlurPool, drop-path, SAM's
              perturbation and copies and the parameter histogram each a
-             group of its own, the optimizer's step by its own scope); I's
-             must show the auxiliary loss's forward and backward in every
-             profiled step.
+             group of its own, the depthwise convs apart from the grouped
+             ones, the optimizer's step by its own scope, each layer's top
+             kernels); I's must show the auxiliary loss's forward and
+             backward in every profiled step.
 
 Every kernel counter is set to 0 just before each trainer's ``cli.main`` and
 read just after. The line before the last is the card's name and power
@@ -1042,6 +1064,7 @@ def _probe_callback(profile_window=None, record_shapes=False):
         def on_epoch_begin(self, epoch):
             self.events = [torch.cuda.Event(enable_timing=True)]
             self.events[0].record()
+            self.loss_states = []  # a stateful criterion's state after each step (device copies)
             self.metric_devices = set()
             self.val_batches = []  # (_weight tensor or None, image shape) of each val batch
             for name in ("_eval_step", "_eval_step_ema"):  # built by now; wrapped once
@@ -1063,6 +1086,9 @@ def _probe_callback(profile_window=None, record_shapes=False):
             opt = getattr(self.runner.state.optimizer, "inner", self.runner.state.optimizer)
             if getattr(opt, "projected", None) is not None:
                 self.projected.append(opt.projected)
+            loss_state = self.runner.state.loss_state
+            if loss_state is not None:
+                self.loss_states.append({k: v.clone() for k, v in loss_state.items()})
             if self.agc is not None and step == 8:
                 # AGC keeps device tensors about the next (last) step's clip: no host read inside any step
                 self.agc.record = True
@@ -1097,6 +1123,10 @@ def _probe_callback(profile_window=None, record_shapes=False):
                 not torch.equal(a, b) for a, b in zip(state.ema.state_dict().values(), state.model.state_dict().values())
             )
             self.std_emas = [float(b) for n, b in state.model.named_buffers() if n.endswith("std_ema")]
+            self.loss_state_per_step = [{k: float(v) for k, v in ls.items()} for ls in self.loss_states]
+            # after the epoch's val pass, which reads the state and must leave it as the last step left it
+            self.loss_state_after_val = None if state.loss_state is None else {
+                k: float(v) for k, v in state.loss_state.items()}
             self.projected_per_step = [int(x) for x in torch.stack([p.sum() for p in self.projected]).tolist()] \
                 if self.projected else []
             self.matrices = len(self.projected[0]) if self.projected else 0
@@ -1429,25 +1459,46 @@ def _seeded_masks(seed: int = 0):
     return draw
 
 
-def _card_vs_cpu_step(make_state, images, labels, step_kw: dict):
+@contextlib.contextmanager
+def cpu_reference(device: str):
+    """Around a run on ``device``: on the CPU, PyTorch's own conv kernels in
+    place of oneDNN's. On an H100's host, oneDNN's float32 convs left
+    model_cmodel_tables' trunk's gradients 1.7e-3 off float64 (relative L2),
+    PyTorch's own 4e-6, and the card's were 6.9e-6 from those (PERF.md
+    section 6).
+    Float64 runs do not use oneDNN."""
+    import torch
+
+    if device != "cpu":
+        yield
+    else:
+        with torch.backends.mkldnn.flags(enabled=False):
+            yield
+
+
+def _card_vs_cpu_step(make_state, images, labels, step_kw: dict, criterion=None):
     """Run one train step from ``make_state(device, dtype)`` on the CPU in
     float32, on the card in float32 and on the CPU in float64: loss,
     grad_norm, the gradients, the state before and after, and the state
-    itself, by (device, dtype)."""
+    itself, by (device, dtype). The criterion is label-smoothing CE unless
+    one is given. The CPU runs on PyTorch's own conv kernels (cpu_reference)."""
     import torch
 
     from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
     from sota_imagenet_tpu_torch.models import layers
     from sota_imagenet_tpu_torch.train import steps
 
+    criterion = criterion or CrossEntropyLoss(smoothing=0.1)
     runs, draw = {}, layers.draw_keep_mask
     try:
         for dev, dt in (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64)):
             layers.draw_keep_mask = _seeded_masks(0)
-            state = make_state(dev, dt)
+            with cpu_reference(dev):
+                state = make_state(dev, dt)
             before = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
-            step = steps.build_train_step(CrossEntropyLoss(smoothing=0.1), input_dtype=dt, **step_kw)
-            state, m = step(state, {"image": images.to(dev, dt), "label": labels.to(dev, dt)})
+            step = steps.build_train_step(criterion, input_dtype=dt, **step_kw)
+            with cpu_reference(dev):
+                state, m = step(state, {"image": images.to(dev, dt), "label": labels.to(dev, dt)})
             grads = torch.cat([p.grad.detach().double().flatten().cpu() for p in state.model.parameters()])
             after = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
             runs[dev, dt] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "grads": grads,
@@ -1642,32 +1693,38 @@ ZOO_OPTIMIZERS = {
 ZOO_STEPS = 3
 
 
-def _card_vs_cpu_steps(make_state, images, labels, n_steps: int, step_kw: dict):
+def _card_vs_cpu_steps(make_state, images, labels, n_steps: int, step_kw: dict, criterion=None):
     """``n_steps`` train steps from ``make_state(device, dtype)`` on the CPU in
     float32, on the card in float32 and on the CPU in float64, on the same
     batch: each step's loss and grad_norm, AdamP's or SGDP's projected set of
-    each step, the state before and after."""
+    each step, a stateful criterion's state after each step, the state
+    before and after. The criterion is label-smoothing CE unless one is
+    given. The CPU runs on PyTorch's own conv kernels (cpu_reference)."""
     import torch
 
     from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
     from sota_imagenet_tpu_torch.train import steps
 
+    criterion = criterion or CrossEntropyLoss(smoothing=0.1)
     runs = {}
     for dev, dt in (("cpu", torch.float32), ("cuda", torch.float32), ("cpu", torch.float64)):
         state = make_state(dev, dt)
         before = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
-        step = steps.build_train_step(CrossEntropyLoss(smoothing=0.1), input_dtype=dt, **step_kw)
-        losses, norms, projected = [], [], []
+        step = steps.build_train_step(criterion, input_dtype=dt, **step_kw)
+        losses, norms, projected, loss_states = [], [], [], []
         for _ in range(n_steps):
-            state, m = step(state, {"image": images.to(dev, dt), "label": labels.to(dev, dt)})
+            with cpu_reference(dev):
+                state, m = step(state, {"image": images.to(dev, dt), "label": labels.to(dev, dt)})
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+            if state.loss_state is not None:
+                loss_states.append({k: float(v) for k, v in state.loss_state.items()})
             opt = getattr(state.optimizer, "inner", state.optimizer)
             if getattr(opt, "projected", None) is not None:
                 projected.append(opt.projected.cpu().tolist())
         after = torch.cat([v.detach().double().flatten().cpu() for v in state.model.state_dict().values()])
-        runs[dev, dt] = {"loss": losses, "grad_norm": norms, "projected": projected, "before": before,
-                         "after": after, "state": state}
+        runs[dev, dt] = {"loss": losses, "grad_norm": norms, "projected": projected, "loss_state": loss_states,
+                         "before": before, "after": after, "state": state}
     return runs
 
 
@@ -1904,6 +1961,192 @@ def sam_model_phase() -> dict:
     return result
 
 
+TABLES_TRUNK = """
+- [-1, 1, conv3x3, [3, 32], {bias: true}]
+- [-1, 2, VGGBlock, [32, 32], {pre_norm: "VarEMA(32)", activation: silu, conv_kwargs: {gamma: 1.7, gain_init: 1, n_heads: 1}}]
+- [-1, 1, VGGBlock, [32, 64], {pre_norm: "VarEMA(32)", groups_width: 16, activation: silu, conv_kwargs: {gamma: 1.7}}]
+- [-1, 1, ConvMixBlock, [64, 64], {partial_factor: 0.5, activation: silu, pre_norm: "VarEMA(64)", groups_width: 16}]
+- [-1, 1, ConvResidual, [conv3x3, 64, 96]]
+- [-1, 1, nn.BatchNorm2d, 96]
+- [-1, 1, ConvResidual, [96, 96]]
+- [-1, 1, FusedRepVGGBlock, [96, 96], {activation: silu}]
+- [-1, 1, FusedRepVGGBlock, [96, 128], {stride: 2, activation: silu}]
+- [-1, 1, Yolo5_C3, [128], {num_blocks: 2, block_kwargs: {se_kwargs: null}}]
+- [-1, 1, ConvMixerBlock, [128, 7]]
+- [-1, 1, "pt.modules.FastGlobalAvgPool2d", [], {flatten: True}]
+- [-1, 1, SphereMLPLayer, [128, 1000], {hidden_size: 512}]
+"""
+
+
+def _seeded_batch(size: int, batch: int = 8):
+    """A seeded batch of normalized pixels and one-hot labels over 1000 classes."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (batch, size, size, 3), generator=gen).float().sub(127.5).mul(1 / 51.0)
+    labels = torch.nn.functional.one_hot(torch.randint(0, 1000, (batch,), generator=gen), 1000).float()
+    return images, labels
+
+
+def cmodel_tables_model_phase() -> dict:
+    """One f32 train step (SGD, TF32 off) on the card against the CPU of the
+    CModel table's new blocks: a trunk at 64 px, batch 8, of config 61's
+    VGGBlock (VarEMA pre-norm, groups_width), ConvMixBlock (factor 0.5),
+    config 68's ConvResidual (``[conv3x3, i, o]``: a Conv with bias) and a
+    scaled one, FusedRepVGGBlock (with and without its identity branch),
+    Yolo5_C3 (two NonDeepBlocks, SE off through ``se_kwargs: null``), a
+    ConvMixerBlock (k 7) and the SphereMLPLayer head (its flax BatchNorm);
+    and vgg16_bn's layer list at full width (1000 classes, 64 px, its two
+    dropouts at rate 0). Tolerances as the model phases' (_within), against
+    the CPU's float32 step on PyTorch's own convs (cpu_reference); the
+    activations are SiLU where the blocks take one and in vgg16_bn's place
+    of ReLU (kinks: the Chaos note of ROADMAP.md), but Yolo5_C3's and the
+    NonDeepBlocks' hard_silu, which they fix."""
+    import torch
+    import yaml
+
+    from sota_imagenet_tpu_torch.models.cmodel import CModel, vgg16_bn
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images, labels = _seeded_batch(64)
+    optim = {"_target_": "sgd", "momentum": 0.9, "weight_decay": 3e-5}
+    # vgg16_bn's own layer list, with SiLU for its ReLUs and its dropouts at 0: at 0.5 (equal masks) the
+    # card's float32 gradients came 6.4e-4 off the CPU's, whose own were 1e-5 off float64 (PERF.md section
+    # 6); the dropout masks are held in model_bresnet
+    vgg = [{**e, "module": "SiLU"} if e["module"] == "ReLU" else
+           {**e, "kwargs": {"activation": "silu"}} if e["module"] == "ConvBnAct" else
+           {**e, "args": [0.0]} if e["module"] == "Dropout" else e
+           for e in (vars(st) for st in vgg16_bn().structures)]
+    models = {"trunk": lambda: CModel(layer_config=yaml.safe_load(TABLES_TRUNK)),
+              "vgg16_bn_silu": lambda: CModel(layer_config=vgg)}
+    out, bad = {}, []
+    for name, build in models.items():
+
+        def make_state(dev, dt, build=build):
+            model = build()
+            state = steps.init_state(model, lambda m: build_optimizer(optim, m.named_parameters()), device=dev, seed=0)
+            model.to(dt)
+            return state
+
+        runs = _card_vs_cpu_step(make_state, images, labels, {"lr_schedule": lambda i: 0.1})
+        model = runs["cuda", torch.float32]["state"].model
+        kinds = sorted({type(m).__name__ for m in model.modules()})
+        res = _step_agreement(f"model_cmodel_tables {name}", runs, {
+            "parameters_m": sum(p.numel() for p in model.parameters()) / 1e6, "module_kinds": kinds})
+        out[name] = res
+        if not _within(res):
+            bad.append(name)
+    result = {"phase": "model_cmodel_tables", "models": out}
+    print(f"[model_cmodel_tables] {json.dumps(result)}")
+    if bad:
+        raise AssertionError(f"model_cmodel_tables: the card disagrees with the CPU for {bad}")
+    return result
+
+
+# criterion config -> the model it takes: a depth-cut ResNet-50 for the logit losses (``trick``: with
+# sigmoid_trick's classifier bias), adacos_sphere's trunk for the cosine ones; AdaCos runs three steps
+LOSS_CRITERIA = {
+    "focal": ({"_target_": "focal", "gamma": 2.0}, "r50"),
+    "binary_focal_sigmoid_trick": ({"_target_": "binary_focal", "alpha": 0.25}, "r50_trick"),
+    "binary_kl": ({"_target_": "kld", "smoothing": 0.01}, "r50"),
+    "sigmoid_sigmoid_trick": ({"_target_": "sigmoid"}, "r50_trick"),
+    "hard_negative": ({"_target_": "hard_negative", "hard_pct": 0.02,
+                       "loss": {"_target_": "binary_kl", "reduction": "none"}}, "r50"),
+    "fixmatch": ({"_target_": "fixmatch", "hard_weight": 0.01, "hard_pct": 0.01}, "r50"),
+    "adacos": ({"_target_": "adacos", "margin": 0.0, "max_s": 20}, "sphere"),
+    "arcface": ({"_target_": "arcface"}, "sphere"),
+    "cosface": ({"_target_": "cosface"}, "sphere"),
+    "arc_softmax_center": ({"_target_": "arc-softmax-center", "center_weight": 0.5}, "sphere"),
+    "my_loss_1": ({"_target_": "my_loss_1"}, "sphere"),
+}
+ADACOS = "configs/exp/adacos_sphere.yaml"
+ADACOS_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.001, 0.5]}]",)  # the recipe's warmup, cut to the one debug epoch
+
+
+def losses_model_phase() -> dict:
+    """f32 train steps (SGD, TF32 off, 64 px, batch 8) on the card against the
+    CPU with each new criterion (LOSS_CRITERIA): the logit losses on a
+    full-width, depth-cut ResNet-50 (one Bottleneck per stage, SiLU), two of
+    them with sigmoid_trick's classifier bias (-log 999 on ``fc.bias``,
+    checked before the step); the cosine losses on adacos_sphere's trunk at
+    full width (its ConvActBlocks with SiLU, its SphereLinearLayer), AdaCos
+    for three steps with its state (running B, median cosine, s) after each.
+    Tolerances as the zoo's: each step's loss rtol 1e-5 against the CPU (its
+    float32 steps on PyTorch's own convs, cpu_reference), the first step's
+    grad_norm rtol 1e-5 against the CPU's float64 step, the update within
+    relative L2 1e-3; AdaCos's state rtol 1e-5 after every step."""
+    import torch
+    import yaml
+
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.models.cmodel import CModel
+    from sota_imagenet_tpu_torch.models.resnet import Bottleneck, ResNet
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.utils.weights import apply_sigmoid_trick
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images, labels = _seeded_batch(64)
+    optim = {"_target_": "sgd", "momentum": 0.9, "weight_decay": 3e-5}
+    sphere_layers = C.to_dict(C.load(ADACOS, strict_env=False).model)["layer_config"]
+    out, bad = {}, []
+    for name, (crit_cfg, kind) in LOSS_CRITERIA.items():
+        criterion = C.instantiate(crit_cfg)
+        trick = {}
+
+        def make_state(dev, dt, kind=kind, criterion=criterion, trick=trick):
+            if kind == "sphere":
+                model = CModel(layer_config=sphere_layers, extra_kwargs={"ConvActBlock": {"activation": "silu"}})
+            else:
+                model = ResNet(block=Bottleneck, layers=(1, 1, 1, 1), norm_act="silu")
+            state = steps.init_state(model, lambda m: build_optimizer(optim, m.named_parameters()), device=dev,
+                                     seed=0, criterion=criterion)
+            if kind == "r50_trick":
+                trick["names"] = apply_sigmoid_trick(model)
+                trick["bias"] = sorted({float(v) for v in model.fc.bias.detach().cpu()})
+            model.to(dt)
+            return state
+
+        n_steps = 3 if name == "adacos" else 1
+        runs = _card_vs_cpu_steps(make_state, images, labels, n_steps, {"lr_schedule": lambda i: 0.1},
+                                  criterion=criterion)
+        c, g, d = runs["cpu", torch.float32], runs["cuda", torch.float32], runs["cpu", torch.float64]
+        res = {
+            "criterion": type(criterion).__name__,
+            "model": kind,
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(g["loss"], c["loss"])),
+            "grad_norm_rel_f64": [abs(a - b) / abs(b) for a, b in zip(g["grad_norm"], d["grad_norm"])],
+            "init_equal": bool(torch.equal(c["before"], g["before"])),
+            "update_rel_l2": float(((g["after"] - g["before"]) - (c["after"] - c["before"])).norm()
+                                   / (c["after"] - c["before"]).norm()),
+            "loss": [c["loss"], g["loss"]],
+        }
+        ok = (res["init_equal"] and res["loss_rel"] < 1e-5 and res["grad_norm_rel_f64"][0] < 1e-5
+              and res["update_rel_l2"] < 1e-3)
+        if g["loss_state"]:
+            res["loss_state"] = g["loss_state"]
+            res["loss_state_rel"] = max(abs(gs[k] - cs[k]) / abs(cs[k])
+                                        for gs, cs in zip(g["loss_state"], c["loss_state"]) for k in cs)
+            prev_s = [s["prev_s"] for s in g["loss_state"]]
+            ok = ok and res["loss_state_rel"] < 1e-5 and all(math.isfinite(v) for v in prev_s) and prev_s[0] != 20.0
+        if kind == "r50_trick":
+            res["sigmoid_trick"] = dict(trick)
+            ok = ok and trick["names"] == ["fc.bias"] and trick["bias"] == [float(torch.tensor(-math.log(999.0)))]
+        out[name] = res
+        print(f"[model_losses] {name} {json.dumps(res)}", flush=True)
+        if not ok:
+            bad.append(name)
+    result = {"phase": "model_losses", "criteria": out}
+    print(f"[model_losses] {json.dumps(result)}")
+    if bad:
+        raise AssertionError(f"model_losses: the card disagrees with the CPU for {bad}")
+    return result
+
+
 def forward_gmac(config: str, image_size: int = 224) -> dict:
     """The model of ``config``'s forward MACs per image at ``image_size``,
     counted by torch.utils.flop_counter on the meta device (no memory, no
@@ -2014,6 +2257,32 @@ def kernel_counters() -> dict:
     return {"fused_aug": fused_augment, "conv1x1_stats": conv1x1_stats, "moments": moments}
 
 
+def _resume_eval(config: str, overrides: list, ckpt: str, val: dict) -> dict:
+    """``run.evaluate=true`` from ``ckpt`` through cli.main: the criterion's
+    state in the checkpoint, as the eval finds it (after the restore) and as
+    it leaves it, and the eval's metrics beside the run's final val ones."""
+    import torch
+
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch.train.callbacks import Callback
+
+    def host(state):
+        return {k: float(v) for k, v in state.items()}
+
+    class StateProbe(Callback):
+        def on_begin(self):
+            self.at_begin = host(self.runner.state.loss_state)
+
+        def on_end(self):
+            self.at_end = host(self.runner.state.loss_state)
+
+    probe = StateProbe()
+    again = cli.main(["-c", config, *overrides, "run.evaluate=true", f"run.resume={ckpt}"], callbacks=[probe])
+    saved = host(torch.load(ckpt, map_location="cpu", weights_only=True)["state"]["loss_state"])
+    return {"saved": saved, "restored": probe.at_begin, "after_eval": probe.at_end, "val": again,
+            "val_equal": again == val, "val_max_abs_diff": max(abs(again[k] - val[k]) for k in val)}
+
+
 def trainer_phase(
     name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None, recipe: str = None,
     tree: str = None, val_shapes: int = 1, cache: bool = False,
@@ -2071,6 +2340,7 @@ def trainer_phase(
         launches = {k: fn.launches for k, fn in counters.items()}
         by_path = dict(by_path)
         ckpts = glob.glob(os.path.join(logdir, "*", "*", "model_last.ckpt"))
+        resumed = _resume_eval(config, overrides, ckpts[0], val) if recipe == "adacos" and ckpts else None
     steps = len(probe.step_ms)
     loss = probe.train_metrics.get("loss", float("nan"))
     steady = probe.step_ms[3:10]  # steps 4-10
@@ -2120,9 +2390,10 @@ def trainer_phase(
     if probe.prof is not None:
         result["profile"] = _device_time_breakdown(probe.prof, probe.prof_wall_ms, profile_window)
         if recipe:
-            by_layer, aux_steps = layer_breakdown(probe.prof, profile_window)
+            by_layer, aux_steps, kernels_by_layer = layer_breakdown(probe.prof, profile_window)
             result["profile"]["by_layer_ms_per_step"] = by_layer
             result["profile"]["aux_loss_steps"] = aux_steps
+            result["profile"]["top_kernels_by_layer"] = kernels_by_layer
     if recipe:
         decay = probe.weight_decay_of
         result["ema_differs_from_weights"] = probe.ema_differs
@@ -2153,6 +2424,18 @@ def trainer_phase(
     if recipe == "sam":
         result["train_forwards"] = probe.train_forwards
         result["std_ema"] = probe.std_emas
+    if recipe == "adacos":
+        result["loss_state_per_step"] = probe.loss_state_per_step
+        result["loss_state_after_val"] = probe.loss_state_after_val
+        result["resume_eval"] = resumed
+        result["parameters_m"] = sum(p.numel() for p in probe.runner.state.model.parameters()) / 1e6
+    if recipe == "convmixer":
+        model = probe.runner.state.model
+        result["parameters_m"] = sum(p.numel() for p in model.parameters()) / 1e6
+        result["blocks"] = sum(1 for m in model.modules() if type(m).__name__ == "ConvMixerBlock")
+        result["forward"] = forward_gmac(config)
+        # fwd + bwd = 3x the forward's MACs, 2 FLOP each, over the batch
+        result["tflop_per_step"] = 6 * result["forward"]["gmac_per_image"] * probe.batch_size / 1e3
     if recipe == "nondeep":
         from sota_imagenet_tpu_torch.utils.weights import unit_dims
 
@@ -2218,6 +2501,19 @@ def trainer_phase(
                 c["effective_mean_max"] < 1e-5 and c["effective_std_rel_err"] < 1e-3
                 and (c["raw_mean_max"] > 1e-5 or c["raw_std_rel_err"] > 1e-3) for c in ws.values())):
             raise AssertionError(f"{name}: weight standardisation of the run's model: {result}")
+    if recipe == "adacos":
+        states, r = result["loss_state_per_step"], resumed
+        prev_s = [st["prev_s"] for st in states]
+        if len(states) != steps or not all(math.isfinite(v) for st in states for v in st.values()) or len(
+                set(prev_s)) < 2 or prev_s[0] == 20.0:
+            raise AssertionError(f"{name}: AdaCos's state after each step {states}")
+        if result["loss_state_after_val"] != states[-1]:
+            raise AssertionError(f"{name}: the val pass moved the state: {states[-1]} -> {result['loss_state_after_val']}")
+        if r is None or not (r["saved"] == states[-1] == r["restored"] == r["after_eval"]):
+            raise AssertionError(f"{name}: the state saved, restored and after the resumed eval: {r}, last {states[-1]}")
+    if recipe == "convmixer":
+        if result["blocks"] != 30 or not 19.0 < result["parameters_m"] < 21.0:
+            raise AssertionError(f"{name}: {result['blocks']} ConvMixerBlocks, {result['parameters_m']}M parameters")
     if recipe == "nondeep":
         agc = result["agc"]
         if agc is None or agc["device"] != "cuda" or agc["units"] != result["agc_units_expected"] or not (
@@ -2422,6 +2718,8 @@ def layer_breakdown(prof, window):
             if a.name in CONV_OPS and a.input_shapes:
                 i, w = (a.input_shapes[k] for k in CONV_OPS[a.name])
                 if len(w) == 4 and len(i) == 4 and w[1] > 0:
+                    if w[1] == 1 and i[1] > 1:
+                        return "depthwise convs"
                     return "grouped convs" if i[1] // w[1] > 1 else "dense convs"
         if any("_foreach" in a.name for a in ancestors(e)):
             return "EMA"
@@ -2430,6 +2728,7 @@ def layer_breakdown(prof, window):
         return "elementwise/activations"
 
     layers: dict = {}
+    kernels: dict = {}  # layer -> kernel name -> ms
     for e in cpu:
         for k in e.kernels:
             low = k.name.lower()
@@ -2437,6 +2736,8 @@ def layer_breakdown(prof, window):
                 continue
             layer = "copies" if ("memcpy" in low or "memset" in low) else layer_of(e)
             layers[layer] = layers.get(layer, 0.0) + k.duration / 1e3
+            by_name = kernels.setdefault(layer, {})
+            by_name[k.name] = by_name.get(k.name, 0.0) + k.duration / 1e3
     scopes = {e.name for e in cpu if e.is_user_annotation}  # mirrored on the device as spans, not work
     device = [
         e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation and e.name not in scopes
@@ -2446,12 +2747,14 @@ def layer_breakdown(prof, window):
     layers["unattributed"] = total - sum(layers.values())
     steps = window[1] - window[0]
     by_layer = {k: v / steps for k, v in sorted(layers.items(), key=lambda kv: -kv[1])}
-    return by_layer, {k: len(v) for k, v in aux.items()}
+    top = {layer: [{"ms_per_step": ms / steps, "name": n[:120]} for n, ms in sorted(v.items(), key=lambda kv: -kv[1])[:4]]
+           for layer, v in kernels.items()}
+    return by_layer, {k: len(v) for k, v in aux.items()}, top
 
 
 PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "trainer_i",
-          "trainer_j", "trainer_k", "trainer_l", "trainer_m", "data", "trainer_f", "trainer_g", "packed", "trainer_h",
-          "learn", "profile")
+          "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n", "trainer_o", "data", "trainer_f", "trainer_g",
+          "packed", "trainer_h", "learn", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
@@ -2466,6 +2769,8 @@ NONDEEP_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.1, 0], lr_mode: cos}]",)
 ADAMP = "configs/exp/51.r50_adamp.yaml"
 ADAMP_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0, 0.001]}]",)  # the recipe's warmup, cut to the one debug epoch
 SAM_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.005, 0], lr_mode: cos}]",)  # the recipe's cosine in one epoch
+CONVMIXER = "configs/exp/66.conv-mix_original.yaml"
+CONVMIXER_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.001, 0.1]}]",)  # the recipe's warmup, cut to the one debug epoch
 
 
 def main(argv=None) -> int:
@@ -2522,6 +2827,8 @@ def main(argv=None) -> int:
         run("model_bnet_spectral", bnet_model_phase, spectral=True)
         run("model_zoo", zoo_model_phase)
         run("model_sam", sam_model_phase)
+        run("model_cmodel_tables", cmodel_tables_model_phase)
+        run("model_losses", losses_model_phase)
     aug_only = {"fused_aug": 1}
     if "trainer_a" in phases:
         run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only)
@@ -2544,6 +2851,10 @@ def main(argv=None) -> int:
         run("trainer_l", trainer_phase, "trainer_l", ADAMP, ADAMP_STAGE, gpu, aug_only, recipe="adamp")
     if "trainer_m" in phases:
         run("trainer_m", trainer_phase, "trainer_m", SAM, SAM_STAGE, gpu, aug_only, recipe="sam")
+    if "trainer_n" in phases:
+        run("trainer_n", trainer_phase, "trainer_n", ADACOS, ADACOS_STAGE, gpu, aug_only, recipe="adacos")
+    if "trainer_o" in phases:
+        run("trainer_o", trainer_phase, "trainer_o", CONVMIXER, CONVMIXER_STAGE, gpu, aug_only, recipe="convmixer")
     cached = {"packed", "trainer_h"} & set(phases) or "profile" in phases
     with tempfile.TemporaryDirectory() as data_root:
         if {"data", "trainer_f", "trainer_g"} & set(phases) or cached:
@@ -2585,6 +2896,8 @@ def main(argv=None) -> int:
             recipe="adamp")
         run("profile_m", trainer_phase, "profile_m", SAM, SAM_STAGE, gpu, aug_only, profile_window=(2, 6),
             recipe="sam")
+        run("profile_o", trainer_phase, "profile_o", CONVMIXER, CONVMIXER_STAGE, gpu, aug_only,
+            profile_window=(2, 6), recipe="convmixer")
     if "profile_h" in results:
         # the cache's input stage inside H's step: the gather and the augment kernel, as shares of its device time
         by_group = results["profile_h"]["profile"]["by_group_ms_per_step"]
@@ -2597,7 +2910,8 @@ def main(argv=None) -> int:
         a, h = results["trainer_a"], results["trainer_h"]
         print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median_4_10'], 'ms_per_step_a': a['ms_per_step_median_4_10'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
     for trainer, profile in (("trainer_d", "profile_d"), ("trainer_i", "profile_i"), ("trainer_j", "profile_j"),
-                             ("trainer_k", "profile_k"), ("trainer_l", "profile_l"), ("trainer_m", "profile_m")):
+                             ("trainer_k", "profile_k"), ("trainer_l", "profile_l"), ("trainer_m", "profile_m"),
+                             ("trainer_o", "profile_o")):
         if trainer not in results or profile not in results:
             continue
         # the profiler (shapes recorded, thousands of ops a step) slows these hosts far more than A's or C's:
@@ -2629,6 +2943,8 @@ def main(argv=None) -> int:
     kernels[0]["launches_bresnet"] = results["trainer_k"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_adamp"] = results["trainer_l"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_sam"] = results["trainer_m"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_adacos"] = results["trainer_n"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_convmixer"] = results["trainer_o"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))

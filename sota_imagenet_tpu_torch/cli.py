@@ -48,7 +48,7 @@ from sota_imagenet_tpu_torch.train.loop import Runner
 from sota_imagenet_tpu_torch.train.schedule import phases_from_stages
 from sota_imagenet_tpu_torch.utils.logging import get_logger, setup_logger
 from sota_imagenet_tpu_torch.utils.misc import count_parameters, filter_from_weight_decay, resolve_device, set_random_seed
-from sota_imagenet_tpu_torch.utils.weights import flax_ranks, unit_dims
+from sota_imagenet_tpu_torch.utils.weights import apply_sigmoid_trick, flax_ranks, unit_dims
 
 
 def find_auto_resume(log_dir: str, exp_name: str) -> Optional[str]:
@@ -63,7 +63,6 @@ def reject_unported(cfg) -> None:
         (cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1 or cfg.mesh.spatial != 1 or cfg.mesh.zero1,
          "mesh.* beyond one device (data parallelism, ZeRO-1, spatial / head TP)", "Queue 1 items 8 and 14"),
         (cfg.run.bn_stats not in (None, "global", 1), f"run.bn_stats={cfg.run.bn_stats!r}", "Queue 1 item 8"),
-        (bool(cfg.get("sigmoid_trick", False)), "sigmoid_trick", "Queue 1 item 11"),
         (bool(cfg.run.skip_nonfinite), "run.skip_nonfinite", "Queue 1 item 9"),
         (bool(cfg.run.remat), "run.remat", "Queue 1 item 9"),
     )
@@ -199,6 +198,13 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
         device=device,
     )
     runner.init_state(seed=seed)
+    if cfg.get("sigmoid_trick", False):
+        # the focal prior's classifier bias (cli.py:225-236 of the JAX package), the EMA copy's too
+        divisor = max(int(cfg.loader.get("classes_divisor", 1) or 1), 1)
+        apply_sigmoid_trick(runner.state.model, num_classes=-(-int(cfg.loader.num_classes) // divisor))
+        if runner.state.ema is not None:
+            runner.state.ema.load_state_dict(runner.state.model.state_dict())
+        log.info("sigmoid_trick: classifier bias initialized to -log(C-1)")
     log.info(f"Model params: {count_parameters(runner.state.model) / 1e6:.2f}M")
 
     start_epoch = cfg.run.start_epoch

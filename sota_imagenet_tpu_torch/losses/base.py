@@ -1,5 +1,5 @@
 """Loss base class with arithmetic (port of ``sota_imagenet_tpu/losses/base.py``
-:13-60; pytorch_tools.losses.Loss equivalent).
+:13-69; pytorch_tools.losses.Loss equivalent).
 
 The reference's auxiliary-loss callbacks rebuild the criterion as
 ``criterion + aux_loss * weight`` (reference callbacks.py:200-203); ``+`` and
@@ -41,10 +41,12 @@ class WeightedLoss(Loss):
 
 
 class StatefulLoss(Loss):
-    """A loss with running statistics (e.g. AdaCos). No such criterion is
-    ported yet (ROADMAP.md Queue 1 item 11); the class keeps the interface."""
+    """A loss with running statistics (AdaCos's running B, median cosine and
+    scale). The state is a dict of device tensors that the train step
+    threads through its microbatches (``TrainState.loss_state``): a call
+    returns the loss and the new state and changes nothing in place."""
 
-    def init_state(self):
+    def init_state(self, device=None):
         return {}
 
     def __call__(self, logits, target, state=None):  # -> (loss, new_state)
@@ -56,3 +58,13 @@ def call_criterion(criterion, logits, target, state=None):
     if isinstance(criterion, StatefulLoss):
         return criterion(logits, target, state)
     return criterion(logits, target), state
+
+
+class FnLoss(Loss):
+    """Wrap a plain callable as a Loss."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)

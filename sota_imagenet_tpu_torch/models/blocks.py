@@ -1,8 +1,9 @@
 """Blocks for config-built models (port of ``sota_imagenet_tpu/models/blocks.py``:
-partial_residual :31, _make_pre_norm :45, ConvActBlock :57, NormFreeBlock
-:152, NormFreeBlockTimm :193, NonDeepBlock :258, EMABlock :309,
-PreInvertedResidual :342, PreBasicBlock :367, ConvBnAct :450). The rest of
-the block zoo is not ported yet (ROADMAP.md Queue 1 item 10).
+partial_residual :31, _make_pre_norm :45, ConvActBlock :57, VGGBlock :93,
+ConvMixBlock :117, NormFreeBlock :152, NormFreeBlockTimm :193, NonDeepBlock
+:258, EMABlock :309, PreInvertedResidual :342, PreBasicBlock :367, Yolo5_C3
+:392, FusedRepVGGBlock :426, ConvBnAct :450, ConvResidual :466, Residual
+:488, ConvMixerBlock :499): the whole block zoo.
 
 Submodules that hold parameters carry the JAX module's names where it names
 them (``conv1``, ``conv2``...); ``utils/weights.py`` maps the others onto
@@ -53,7 +54,11 @@ class ConvActBlock(nn.Module):
     an XCA (residual by default) after the activation; the JAX block calls
     it without ``train``, so its dropout never runs, and here it is built
     with its dropout rates at 0. ``sse`` adds an SEVar3 gate when the width
-    does not change."""
+    does not change. ``input_chs`` is the width the block receives where it
+    differs from ``in_chs``: a CModel repeat of a widening block feeds the
+    later copies the first one's output, and the JAX block reads its conv's
+    and pre-norm's width off that input while ``in_chs`` still sets the
+    groups and the SE condition."""
 
     def __init__(
         self,
@@ -67,13 +72,15 @@ class ConvActBlock(nn.Module):
         attn_kwargs: Optional[Dict] = None,
         pre_norm: Optional[str] = None,
         sse: bool = False,
+        input_chs: Optional[int] = None,
     ):
         super().__init__()
-        self.pre_norm = _make_pre_norm(pre_norm, in_chs)
+        self.in_chs, self.out_chs = in_chs, out_chs
+        self.pre_norm = _make_pre_norm(pre_norm, input_chs or in_chs)
         groups = _groups(in_chs, groups, groups_width)
         ck = dict(conv_kwargs or {})
         ck["groups"] = groups
-        self.conv = ScaledStdConv(in_chs, out_chs, kernel_size=3, stride=stride, padding=1, **ck)
+        self.conv = ScaledStdConv(input_chs or in_chs, out_chs, kernel_size=3, stride=stride, padding=1, **ck)
         self.shuffle = ChannelShuffle(groups)
         self.blur = BlurPool() if stride == 2 else None
         self.act = activation_from_name(activation)
@@ -367,3 +374,177 @@ class ConvBnAct(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.bn(self.conv(x)))
+
+
+class VGGBlock(nn.Module):
+    """[pre_norm ->] act -> scaled conv3x3 -> shuffle, no residual (reference
+    model.py:591-621). ``groups_width`` sets the conv's groups and the
+    shuffle's."""
+
+    def __init__(
+        self,
+        in_chs: int,
+        out_chs: int,
+        groups_width: Optional[int] = None,
+        activation: str = "relu",
+        conv_kwargs: Optional[Dict] = None,
+        pre_norm: Optional[str] = None,
+    ):
+        super().__init__()
+        groups = _groups(in_chs, 1, groups_width)
+        ck = dict(conv_kwargs or {})
+        ck["groups"] = groups
+        self.pre_norm = _make_pre_norm(pre_norm, in_chs)
+        self.act = activation_from_name(activation)
+        self.conv = ScaledStdConv(in_chs, out_chs, kernel_size=3, padding=1, **ck)
+        self.shuffle = ChannelShuffle(groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pre_norm is not None:
+            x = self.pre_norm(x)
+        return self.shuffle(self.conv(self.act(x)))
+
+
+class ConvMixBlock(nn.Module):
+    """act -> [pre_norm ->] scaled conv3x3 -> shuffle -> + x on the first
+    ``partial_factor`` of the channels both sides share (factor 0, 0.5 or 1;
+    reference model.py:773-819, whose 0.5 branch the JAX block repairs)."""
+
+    def __init__(
+        self,
+        in_chs: int,
+        out_chs: int,
+        groups_width: Optional[int] = None,
+        activation: str = "relu",
+        partial_factor: float = 1.0,
+        conv_kwargs: Optional[Dict] = None,
+        pre_norm: Optional[str] = None,
+    ):
+        super().__init__()
+        if partial_factor not in (0, 0.5, 1, 1.0):
+            raise ValueError("partial_factor must be one of {0, 0.5, 1}")
+        groups = _groups(in_chs, 1, groups_width)
+        ck = dict(conv_kwargs or {})
+        ck["groups"] = groups
+        self.act = activation_from_name(activation)
+        self.pre_norm = _make_pre_norm(pre_norm, in_chs)
+        self.conv = ScaledStdConv(in_chs, out_chs, kernel_size=3, padding=1, **ck)
+        self.shuffle = ChannelShuffle(groups)
+        n_common = min(in_chs, out_chs)
+        self.n_res = {0: 0, 0.5: int(n_common * 0.5)}.get(partial_factor, n_common)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.act(x)
+        if self.pre_norm is not None:
+            out = self.pre_norm(out)
+        out = self.shuffle(self.conv(out))
+        return partial_residual(out, x[:, : self.n_res]) if self.n_res else out
+
+
+class Yolo5_C3(nn.Module):
+    """CSP bottleneck with NonDeepBlocks (reference model.py:728-754): cv1_2
+    (scaled 1x1 -> BatchNorm, or BatchNorm -> scaled 1x1 with ``pre_norm``,
+    -> hard_silu) at the input width c; its first half through
+    ``num_blocks`` NonDeepBlocks of width c/2, concatenated before the
+    second half; cv3 as cv1_2. ``block_kwargs`` go to the NonDeepBlocks
+    (SE off by default); its ``se_kwargs`` spelling turns SE off when None."""
+
+    def __init__(self, in_chs: int, num_blocks: int = 1, pre_norm: bool = False, block_kwargs: Optional[Dict] = None):
+        super().__init__()
+        c = in_chs
+        bk = dict(block_kwargs or dict(use_se=False))
+        if "se_kwargs" in bk:
+            bk["use_se"] = bk.pop("se_kwargs") is not None
+        self.pre_norm = pre_norm
+        self.cv1_2_bn = BatchNorm(c)
+        self.cv1_2_conv = ScaledStdConv(c, c, kernel_size=1, padding=0)
+        self.m = nn.ModuleList(NonDeepBlock(c // 2, c // 2, **bk) for _ in range(num_blocks))
+        self.cv3_bn = BatchNorm(c)
+        self.cv3_conv = ScaledStdConv(c, c, kernel_size=1, padding=0)
+
+    def _cv(self, bn: BatchNorm, conv: ScaledStdConv, t: torch.Tensor) -> torch.Tensor:
+        return F.hardswish(conv(bn(t)) if self.pre_norm else bn(conv(t)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        block_inp, res = self._cv(self.cv1_2_bn, self.cv1_2_conv, x).chunk(2, dim=1)
+        for block in self.m:
+            block_inp = block(block_inp)
+        return self._cv(self.cv3_bn, self.cv3_conv, torch.cat([block_inp, res], dim=1))
+
+
+class FusedRepVGGBlock(nn.Module):
+    """RepVGG block (arXiv:2101.03697; pytorch_tools FusedRepVGGBlock):
+    3x3 conv -> BN, plus 1x1 conv -> BN, plus BN of the input where the
+    shape is kept, summed, then the activation. The three branches stay
+    apart in inference too, as in the JAX block (no re-parameterisation)."""
+
+    def __init__(self, in_chs: int, out_chs: int, stride: int = 1, activation: str = "relu"):
+        super().__init__()
+        self.conv3 = Conv(in_chs, out_chs, 3, stride, 1, use_bias=False)
+        self.bn3 = BatchNorm(out_chs)
+        self.conv1 = Conv(in_chs, out_chs, 1, stride, 0, use_bias=False)
+        self.bn1 = BatchNorm(out_chs)
+        self.bn_id = BatchNorm(in_chs) if in_chs == out_chs and stride == 1 else None
+        self.act = activation_from_name(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn3(self.conv3(x)) + self.bn1(self.conv1(x))
+        if self.bn_id is not None:
+            out = out + self.bn_id(x)
+        return self.act(out)
+
+
+class ConvResidual(nn.Module):
+    """One conv with a (partial) residual around it (reference model.py:1038-1053):
+    a ScaledStdConv, or with ``scaled`` False a plain Conv with bias (the JAX
+    Conv's default); padding k // 2."""
+
+    def __init__(
+        self, in_chs: int, out_chs: int, kernel_size: int = 3, stride: int = 1, scaled: bool = True,
+        conv_kwargs: Optional[Dict] = None,
+    ):
+        super().__init__()
+        if in_chs > out_chs:
+            raise ValueError("in_chs > out_chs unsupported (reference model.py:1052)")
+        ck = dict(conv_kwargs or {})
+        pad = kernel_size // 2
+        if scaled:
+            self.conv = ScaledStdConv(in_chs, out_chs, kernel_size=kernel_size, stride=stride, padding=pad, **ck)
+        else:
+            self.conv = Conv(in_chs, out_chs, kernel_size, stride, pad, **ck)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return partial_residual(self.conv(x), x)
+
+
+class Residual(nn.Module):
+    """fn(x) + x (reference model.py:1066-1072)."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x) + x
+
+
+class ConvMixerBlock(nn.Module):
+    """ConvMixer block (reference model.py:1075-1089; "Patches Are All You
+    Need?"): depthwise k x k conv with bias -> gelu -> BatchNorm -> + x ->
+    1x1 conv with bias -> gelu -> BatchNorm. gelu is the tanh approximation
+    (``jax.nn.gelu``). The depthwise conv pads 3 whatever k, as the
+    reference: with k = 9 the map shrinks by 2 and the residual is cropped
+    to the centre."""
+
+    def __init__(self, dim: int, kernel_size: int = 9):
+        super().__init__()
+        self.conv1 = Conv(dim, dim, kernel_size, 1, 3, groups=dim, use_bias=True)
+        self.bn1 = BatchNorm(dim)
+        self.conv2 = Conv(dim, dim, 1, 1, 0, use_bias=True)
+        self.bn2 = BatchNorm(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn1(F.gelu(self.conv1(x), approximate="tanh"))
+        dh, dw = x.shape[2] - out.shape[2], x.shape[3] - out.shape[3]
+        res = x[:, :, dh // 2: x.shape[2] - (dh - dh // 2), dw // 2: x.shape[3] - (dw - dw // 2)] if dh or dw else x
+        return self.bn2(F.gelu(self.conv2(out + res), approximate="tanh"))

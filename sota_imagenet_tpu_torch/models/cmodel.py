@@ -15,9 +15,7 @@ receive them positionally.
 
 The modules are built once, in ``__init__``: ``layers`` is an
 ``nn.ModuleList`` in layer order, each entry the ``nn.ModuleList`` of that
-layer's ``repeat`` modules. A module name of the JAX table that is not
-ported yet raises NotImplementedError naming the module when the model is
-built.
+layer's ``repeat`` modules. Every name of the JAX table is ported.
 """
 
 from __future__ import annotations
@@ -34,7 +32,6 @@ from sota_imagenet_tpu_torch.models import attention as A
 from sota_imagenet_tpu_torch.models import blocks as B
 from sota_imagenet_tpu_torch.models import layers as L
 from sota_imagenet_tpu_torch.models import norms as N
-from sota_imagenet_tpu_torch.registry import NotPortedError
 
 
 @dataclass
@@ -79,9 +76,29 @@ def _norm_ctor(cls):
     return lambda *args, **kw: cls(*args[:1], **kw)
 
 
-def _unported(name: str) -> Callable[..., nn.Module]:
-    def make(*args, **kwargs):
-        raise NotPortedError(f"CModel module {name!r}", "Queue 1 item 10")
+def _conv_residual(*a, **kw):
+    """ConvResidual takes an optional leading conv-constructor name in the
+    reference (``[ConvResidual, [conv3x3, 48, 64]]``, model.py:1038-1053;
+    config 68): a name that does not start with "scaled" gives a plain Conv
+    with bias, "1x1" in it a 1x1 kernel (cmodel.py:74-84 of the JAX package)."""
+    if a and isinstance(a[0], str):
+        name, i, o = a[0], a[1], a[2]
+        kw.setdefault("scaled", name.startswith("scaled"))
+        kw.setdefault("kernel_size", 1 if "1x1" in name else 3)
+        return B.ConvResidual(i, o, **kw)
+    return B.ConvResidual(a[0], a[1], **kw)
+
+
+def _sphere(name: str) -> Callable[..., nn.Module]:
+    """A sphere head of losses/angular.py, imported when a model first names it
+    (the losses package imports the models' layers)."""
+
+    def make(emb, nc, **kw):
+        from sota_imagenet_tpu_torch.losses import angular
+
+        if name == "SphereLinearLayer":
+            return angular.SphereLinearLayer(emb, nc)
+        return angular.SphereMLPLayer(emb, nc, **kw)
 
     return make
 
@@ -96,6 +113,13 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     "EMABlock": lambda i, o, **kw: B.EMABlock(i, o, **kw),
     "PreInvertedResidual": lambda i, o, m=None, **kw: B.PreInvertedResidual(i, o, mid_chs=m, **kw),
     "PreBasicBlock": lambda i, o, m=None, **kw: B.PreBasicBlock(i, o, mid_chs=m, **kw),
+    "VGGBlock": lambda i, o, **kw: B.VGGBlock(i, o, **kw),
+    "ConvMixBlock": lambda i, o, **kw: B.ConvMixBlock(i, o, **kw),
+    "Yolo5_C3": lambda i, **kw: B.Yolo5_C3(i, **kw),
+    "ConvMixerBlock": lambda dim, k=9, **kw: B.ConvMixerBlock(dim, kernel_size=k, **kw),
+    "FusedRepVGGBlock": lambda i, o, **kw: B.FusedRepVGGBlock(i, o, **kw),
+    "ConvResidual": _conv_residual,
+    "Residual": lambda fn=None, **kw: B.Residual(fn),
     # convs
     "scaled_conv3x3": L.scaled_conv3x3,
     "scaled_conv1x1": L.scaled_conv1x1,
@@ -138,6 +162,9 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     "Identity": lambda *a, **kw: nn.Identity(),
     "Concat": lambda *a, **kw: L.Concat(**kw),
     "Flatten": lambda *a, **kw: L.Flatten(),
+    # sphere heads (reference angular_losses.py:202-245) as final layers
+    "SphereLinearLayer": _sphere("SphereLinearLayer"),
+    "SphereMLPLayer": _sphere("SphereMLPLayer"),
     # torch activation class names seen in configs
     "SiLU": _act("silu"),
     "ReLU": _act("relu"),
@@ -147,15 +174,6 @@ _MODULES: Dict[str, Callable[..., nn.Module]] = {
     "Mish": _act("mish"),
     "Sigmoid": _act("sigmoid"),
 }
-# the rest of the JAX package's table: known names, not ported yet
-_MODULES.update(
-    (name, _unported(name))
-    for name in (
-        "VGGBlock", "ConvMixBlock",
-        "Yolo5_C3", "ConvMixerBlock", "FusedRepVGGBlock",
-        "ConvResidual", "Residual", "SphereLinearLayer", "SphereMLPLayer",
-    )
-)
 
 # strings appearing as kwarg *values* in reference configs -> the port's names
 _VALUE_ALIASES = {
@@ -223,6 +241,19 @@ def _parse_entry(entry: Union[Dict, List]) -> ModuleStructure:
     raise ValueError(f"bad CModel layer entry: {entry!r}")
 
 
+def _repeat(ctor: Callable[..., nn.Module], args: list, kwargs: dict, n: int) -> List[nn.Module]:
+    """The ``n`` modules of a layer. A JAX module reads its input width off its
+    input, and the port's are built before any input: where a repeat widens
+    (adacos_sphere's ``[-1, 2, ConvActBlock, [32, 64]]``), the copies after
+    the first are built for the width the first one outputs (``input_chs``)."""
+    if n <= 0:
+        return []
+    first = ctor(*args, **kwargs)
+    widens = isinstance(first, B.ConvActBlock) and first.in_chs != first.out_chs
+    extra = {"input_chs": first.out_chs} if widens else {}
+    return [first] + [ctor(*args, **kwargs, **extra) for _ in range(n - 1)]
+
+
 def build_structures(layer_config: Sequence[Any], extra_kwargs: Optional[Dict[str, Dict]]) -> List[ModuleStructure]:
     structures = [_parse_entry(e) for e in layer_config]
     if extra_kwargs:
@@ -265,7 +296,7 @@ class CModel(nn.Module):
             ctor = resolve_module(str(s.module))
             args = [_norm_value(a) for a in s.args]
             kwargs = {k: _norm_value(v) for k, v in s.kwargs.items()}
-            self.layers.append(nn.ModuleList(ctor(*args, **kwargs) for _ in range(int(s.repeat))))
+            self.layers.append(nn.ModuleList(_repeat(ctor, args, kwargs, int(s.repeat))))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Re-initialize every parameter from ``generator`` (module order)."""
@@ -285,3 +316,29 @@ class CModel(nn.Module):
                 inps = [x]
             saved.append(x if idx in self.saved_needed else None)
         return x
+
+
+def vgg16_bn(num_classes: int = 1000, **kwargs) -> CModel:
+    """VGG16-BN as the JAX package builds it (models/__init__.py:77-102): the
+    13 3x3 ConvBnAct (ReLU) of torchvision's layout with a 2x2 max-pool after
+    each stage, then a global average pool and the 512-4096-4096 MLP head with
+    dropout 0.5, as a CModel."""
+    kwargs.pop("pretrained", None)
+    cfg: List[Dict[str, Any]] = []
+    in_chs = 3
+    for stage_chs, n in ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3)):
+        for _ in range(n):
+            cfg.append({"module": "ConvBnAct", "args": [in_chs, stage_chs], "kwargs": {"activation": "relu"}})
+            in_chs = stage_chs
+        cfg.append({"module": "MaxPool2d", "args": [2, 2]})
+    cfg += [
+        {"module": "FastGlobalAvgPool2d", "kwargs": {"flatten": True}},
+        {"module": "Linear", "args": [512, 4096]},
+        {"module": "ReLU"},
+        {"module": "Dropout", "args": [0.5]},
+        {"module": "Linear", "args": [4096, 4096]},
+        {"module": "ReLU"},
+        {"module": "Dropout", "args": [0.5]},
+        {"module": "Linear", "args": [4096, num_classes]},
+    ]
+    return CModel(layer_config=cfg, **kwargs)

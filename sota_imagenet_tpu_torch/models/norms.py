@@ -30,10 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sota_imagenet_tpu_torch.models.layers import activation_from_name
-
-
-def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+from sota_imagenet_tpu_torch.utils.misc import at_least_f32
 
 
 class BatchNorm(nn.Module):
@@ -72,8 +69,8 @@ class BatchNorm(nn.Module):
     def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
             m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var.float(), alpha=m)
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
 
     def _normalize(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         """(x - mean) * rsqrt(var + eps) * weight + bias, every factor in ``dt`` (the _BNCore order)."""
@@ -89,13 +86,13 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps).to(dt)
         if self.subsample > 1:
             s = self.subsample
-            xf = _at_least_f32(x[:, :, ::s, ::s])
+            xf = at_least_f32(x[:, :, ::s, ::s])
             mean = xf.mean(dim=(0, 2, 3))
             var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0.0)
             self._update(mean.detach(), var.detach())
             return self._normalize(x, mean, var, dt)
         y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps)
-        self._update(mean, (invstd.detach().float().pow(-2) - self.eps).clamp_(min=0.0))  # biased batch variance
+        self._update(mean, (invstd.detach().pow(-2) - self.eps).clamp_(min=0.0))  # biased batch variance
         return y.to(dt)
 
 
@@ -133,7 +130,7 @@ class GroupNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(_at_least_f32(x), self.num_groups, self.weight, self.bias, self.eps)
+        y = F.group_norm(at_least_f32(x), self.num_groups, self.weight, self.bias, self.eps)
         return y.to(x.dtype)
 
 
@@ -178,7 +175,7 @@ class EstimatedABN(nn.Module):
         mean, var = self.running_mean.clone(), self.running_var.clone()
         if self.training:
             with torch.no_grad():
-                xf = _at_least_f32(x)
+                xf = at_least_f32(x)
                 bmean = xf.mean(dim=(0, 2, 3))
                 bvar = xf.square().mean(dim=(0, 2, 3)) - bmean.square()
                 m = self.momentum
@@ -204,7 +201,7 @@ class ScaleNorm(nn.Module):
             nn.init.ones_(self.scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = _at_least_f32(x)
+        xf = at_least_f32(x)
         norm = torch.linalg.vector_norm(xf, dim=1, keepdim=True)
         scale = 1.0 if self.scale is None else self.scale.to(xf.dtype).view(1, 1, 1, 1)
         return (xf * (scale / norm.clamp(min=self.eps))).to(x.dtype)
@@ -274,7 +271,7 @@ class FRNv1(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = _at_least_f32(x)
+        xf = at_least_f32(x)
         if self.training:
             x2 = xf.square().mean(dim=(0, 2, 3))  # per-channel batch RMS^2
             y = xf * torch.rsqrt(x2 + self.eps).view(1, -1, 1, 1)
@@ -309,7 +306,7 @@ class FRNv2(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = _at_least_f32(x)
+        xf = at_least_f32(x)
         if self.training:
             x2_ln = xf.square().mean(dim=(1, 2, 3), keepdim=True)  # per sample
             y = xf * torch.rsqrt(x2_ln + self.eps)
@@ -349,10 +346,10 @@ class VarEMA(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return (_at_least_f32(x) / self.std_ema).to(x.dtype) if self.use else x
+            return (at_least_f32(x) / self.std_ema).to(x.dtype) if self.use else x
         # a monitor's statistics need no graph
         with torch.set_grad_enabled(self.use and torch.is_grad_enabled()):
-            xf = _at_least_f32(x)
+            xf = at_least_f32(x)
             std, mean = torch.std_mean(xf, correction=0)
         _ema_(self.std_ema, self.decay, std)
         _ema_(self.mean_ema, self.decay, mean)
@@ -370,7 +367,7 @@ class MeanEMA(nn.Module):
         del num_channels, decay
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = _at_least_f32(x)
+        xf = at_least_f32(x)
         return (xf - xf.mean(dim=(1, 2, 3), keepdim=True)).to(x.dtype)
 
 

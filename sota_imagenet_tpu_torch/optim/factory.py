@@ -39,6 +39,7 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 import torch
 
 from sota_imagenet_tpu_torch.optim import zoo
+from sota_imagenet_tpu_torch.utils.misc import foreach_sqrt_, sqrt
 from sota_imagenet_tpu_torch.utils.weights import unit_dims
 
 _OPTIM_ALIASES = {
@@ -115,7 +116,7 @@ class Lamb(torch.optim.Optimizer):
             torch._foreach_mul_(v, b2)
             torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
             denom = torch._foreach_div(v, [1.0 - b2 ** st["step"] for st in states])
-            torch._foreach_sqrt_(denom)
+            foreach_sqrt_(denom)
             torch._foreach_add_(denom, group["eps"])
             update = torch._foreach_div(m, [1.0 - b1 ** st["step"] for st in states])
             torch._foreach_div_(update, denom)
@@ -178,7 +179,7 @@ class Novograd(torch.optim.Optimizer):
                     st["ema_norm"] = torch.full((), self.ema_norm_init, dtype=torch.float32, device=p.device)
                 g = p.grad
                 v = b2 * st["ema_norm"] + (1.0 - b2) * self._norm_sq(p, g)
-                m = b1 * st["ema_grad"] + (1.0 - b1) * g / (v.sqrt() + group["eps"])
+                m = b1 * st["ema_grad"] + (1.0 - b1) * g / (sqrt(v) + group["eps"])
                 st["ema_norm"], st["ema_grad"] = v, m
                 upd = -lr * m
                 if wd:

@@ -38,6 +38,8 @@ from typing import Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from sota_imagenet_tpu_torch.utils.misc import foreach_sqrt_, sqrt
+
 
 def _f32(x: float) -> float:
     """``x`` rounded to float32, as a host float."""
@@ -179,7 +181,7 @@ class AdamP(ZooOptimizer):
             torch._foreach_mul_(v, b2)
             torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
             denom = torch._foreach_div(v, bc2)
-            torch._foreach_sqrt_(denom)
+            foreach_sqrt_(denom)
             torch._foreach_add_(denom, group["eps"])
             if self.nesterov:
                 steps = torch._foreach_div(torch._foreach_mul(m, b1), bc1)
@@ -295,7 +297,7 @@ class Adai(ZooOptimizer):
     def _beta1(self, v: torch.Tensor, v_mean: torch.Tensor, b0: float, eps: float) -> torch.Tensor:
         ratio = v / v_mean
         if self.sqrt_mom:
-            ratio = ratio.sqrt()
+            ratio = sqrt(ratio)
         return (1.0 - ratio * b0).clamp(0.0, 1.0 - eps)
 
     @torch.no_grad()
@@ -447,9 +449,9 @@ class AdamLayerwise(ZooOptimizer):
             for p in group["params"]:
                 st, g = self.state[p], _grad(p)
                 v = b2 * st["exp_avg_sq"] + (1.0 - b2) * _mean(g.float().square())
-                denom = v.sqrt() + eps
+                denom = sqrt(v) + eps
                 m = b1 * st["exp_avg"] + (1.0 - b1) * g / denom
-                step = m * _mean(p.float().square()).sqrt().clamp(min=1e-3) if self.weight_adapt else m
+                step = m * sqrt(_mean(p.float().square())).clamp(min=1e-3) if self.weight_adapt else m
                 upd = -lr * step
                 if wd:
                     lr_wd = _f32_mul(lr, wd)
@@ -494,9 +496,9 @@ class RMSprop(ZooOptimizer):
                 sq = alpha * st["square_avg"] + (1.0 - alpha) * g**2
                 if group["centered"]:
                     st["grad_avg"] = alpha * st["grad_avg"] + (1.0 - alpha) * g
-                    avg = (sq - st["grad_avg"] ** 2).clamp(min=0.0).sqrt() + eps
+                    avg = sqrt((sq - st["grad_avg"] ** 2).clamp(min=0.0)) + eps
                 else:
-                    avg = sq.sqrt() + eps
+                    avg = sqrt(sq) + eps
                 if mom:
                     st["momentum_buffer"] = mom * st["momentum_buffer"] + g / avg
                     p.add_(-lr * st["momentum_buffer"])

@@ -1,15 +1,19 @@
 """Checkpoints with ``torch.save`` (port of ``sota_imagenet_tpu/train/checkpoint.py``
 :86-171; reference train.py:98-109,134,183-184).
 
-Payload: ``{"state": {step, model, optimizer, ema}, "epoch"}``, state dicts
-of tensors. Saves are atomic: written to ``<name>.tmp-<pid>`` and renamed
+Payload: ``{"state": {step, model, optimizer, ema, loss_state}, "epoch"}``,
+state dicts of tensors (``loss_state``: a stateful criterion's tensors, or
+None). Saves are atomic: written to ``<name>.tmp-<pid>`` and renamed
 over ``<name>``, so a crash leaves the previous complete file.
 
 Restore semantics follow the JAX package: a checkpoint written without the
 optimizer state (``log.save_optim=false``, the reference default) restores
 params, BN buffers and EMA only, and does NOT restore ``step`` — the fresh
 optimizer and the lr schedule's step anchor restart together (the resumed
-epoch is carried by the epoch counter instead).
+epoch is carried by the epoch counter instead). The criterion's state is
+optional, as in the JAX restore (checkpoint.py:169): it is restored where
+the checkpoint holds it with the same keys, and a checkpoint without it
+leaves the run's fresh ``init_state()``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ def save_checkpoint(
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict() if include_optimizer else None,
             "ema": state.ema.state_dict() if state.ema is not None else None,
+            "loss_state": state.loss_state,
         },
         "epoch": int(epoch),
     }
@@ -50,6 +55,12 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
     state.model.load_state_dict(disk["model"])
     if state.ema is not None and disk.get("ema") is not None:
         state.ema.load_state_dict(disk["ema"])
+    saved_ls = disk.get("loss_state")
+    if state.loss_state is not None and saved_ls is not None:
+        if set(saved_ls) == set(state.loss_state):
+            state.loss_state = {k: saved_ls[k].to(device=v.device, dtype=v.dtype) for k, v in state.loss_state.items()}
+        else:
+            get_logger().info("Partial restore: loss_state keys differ; keeping the criterion's initial state")
     if disk.get("optimizer") is None:
         get_logger().info("Checkpoint has no optimizer state (log.save_optim=false); restoring params/batch_stats")
     else:

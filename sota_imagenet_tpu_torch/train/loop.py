@@ -95,7 +95,7 @@ class Runner:
         # stateful parametrization seeds its state from the initial weights
         self.state = steps_lib.init_state(
             self._effective_model(self._collect_step_options()), self.optimizer_factory, device=self.device,
-            seed=seed, ema_decay=self.ema_decay,
+            seed=seed, ema_decay=self.ema_decay, criterion=self.criterion,
         )
         return self.state
 

@@ -8,13 +8,15 @@ buffers are the EMA (``ema_params`` / ``ema_batch_stats``). ``step`` is the
 global optimizer step, a host int (the lr schedule reads it on the host).
 ``generator`` is the device generator of the step's random draws (mixup,
 dropout, drop-path); each step seeds it from ``seed`` and ``step``, so
-neither needs to be in a checkpoint beyond the step.
+neither needs to be in a checkpoint beyond the step. ``loss_state`` holds
+the running statistics of a stateful criterion (AdaCos), a dict of device
+tensors that each train step replaces (None for a stateless one).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -27,3 +29,4 @@ class TrainState:
     ema: Optional[torch.nn.Module] = None
     generator: Optional[torch.Generator] = None
     seed: int = 0
+    loss_state: Optional[Dict[str, torch.Tensor]] = None

@@ -4,8 +4,9 @@ build_eval_step :355-406, its masked branch included).
 
 One train step: CutmixMixup on the whole batch -> the batch split into
 ``accumulate_steps`` microbatches, each forward (activation dtype) -> loss
-(f32, plus the auxiliary loss of the parameters where one is given) ->
-backward, gradients summed then divided -> the gradient transform where
+(f32, plus the auxiliary loss of the parameters where one is given; a
+stateful criterion's state advanced once per microbatch, chained through
+them) -> backward, gradients summed then divided -> the gradient transform where
 one is given (AGC), in place on the device -> grad_norm (global L2 norm of
 the averaged gradients after the transform, before weight decay, as the JAX
 step reports it) -> one optimizer step with the
@@ -27,10 +28,12 @@ SAM (``sam``) runs a second forward and backward through the same
 microbatch loop at the perturbed weights p + epsilon (``SamPerturbation``),
 and the update applies that pass's gradients to the saved, unperturbed
 weights. The second pass moves the buffers too (BN statistics, VarEMA,
-the spectral u/v) with ``bn_from_perturbed`` (the default, as the
-reference); without it, it starts from the step's buffers and the step
-keeps the clean pass's. Loss and logits are the clean pass's; grad_norm is
-the perturbed point's gradients' after the transform (JAX steps.py:339).
+the spectral u/v) and the criterion's state with ``bn_from_perturbed``
+(the default, as the reference); without it, it starts from the step's
+buffers and criterion state and the step keeps the clean pass's. Loss and
+logits are the clean pass's; grad_norm is the perturbed point's gradients'
+after the transform (JAX steps.py:339). The eval steps read the
+criterion's state and leave it as it is.
 
 The step feature of the JAX package that is not ported raises
 NotImplementedError naming the ROADMAP item: remat.
@@ -43,7 +46,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from sota_imagenet_tpu_torch.losses.base import call_criterion
+from sota_imagenet_tpu_torch.losses.base import StatefulLoss, call_criterion
 from sota_imagenet_tpu_torch.models.layers import bind_generator
 from sota_imagenet_tpu_torch.optim.factory import _unitwise_norm
 from sota_imagenet_tpu_torch.registry import NotPortedError
@@ -181,20 +184,24 @@ def init_state(
     device: torch.device,
     seed: int = 0,
     ema_decay: float = 0.0,
+    criterion: Optional[Callable] = None,
 ) -> TrainState:
     """Initialize the model's parameters from ``seed`` (on the host, so the
     weights do not depend on the device), move it to ``device`` in
-    channels_last memory, and build its optimizer, its EMA copy and the
+    channels_last memory, and build its optimizer, its EMA copy, the
     step's random generator on the device (bound to the model's dropout and
-    drop-path modules)."""
+    drop-path modules) and, for a stateful ``criterion``, its initial state
+    on the device."""
     if hasattr(model, "reset_parameters"):
         model.reset_parameters(torch.Generator().manual_seed(int(seed)))
     model.to(device=device, memory_format=torch.channels_last)
     ema = copy.deepcopy(model).requires_grad_(False) if ema_decay else None
     generator = torch.Generator(device=device)
     bind_generator(model, generator)
+    loss_state = criterion.init_state(device) if isinstance(criterion, StatefulLoss) else None
     return TrainState(
-        step=0, model=model, optimizer=optimizer_factory(model), ema=ema, generator=generator, seed=int(seed)
+        step=0, model=model, optimizer=optimizer_factory(model), ema=ema, generator=generator, seed=int(seed),
+        loss_state=loss_state,
     )
 
 
@@ -296,18 +303,19 @@ def build_train_step(
     perturb = SamPerturbation(sam.get("kind", "asam"), sam.get("rho", 0.05), sam.get("eta", 0.01)) if sam else None
     bn_from_perturbed = bool(sam.get("bn_from_perturbed", True)) if sam else True
 
-    def batch_grads(model, opt, images, labels):
+    def batch_grads(model, opt, images, labels, loss_state):
         """Mean loss and gradients over the batch, into the parameters'
-        ``.grad``: the same microbatch loop for the clean and the SAM pass, so
-        accumulation bounds the second forward's memory too. The loader's
-        batch is split, not several batches gathered; BN buffers chain
-        through the microbatches and the dropout stream runs on through them."""
+        ``.grad``, and the criterion's state after it: the same microbatch
+        loop for the clean and the SAM pass, so accumulation bounds the second
+        forward's memory too. The loader's batch is split, not several batches
+        gathered; BN buffers and the criterion's state chain through the
+        microbatches and the dropout stream runs on through them."""
         opt.zero_grad(set_to_none=True)
         mb = images.shape[0] // accumulate_steps
         loss_sum, all_logits = 0.0, []
         for im, lb in zip(images.split(mb), labels.split(mb)):
             mb_logits = model(im.to(input_dtype))
-            mb_loss, _ = call_criterion(criterion, mb_logits, lb)
+            mb_loss, loss_state = call_criterion(criterion, mb_logits, lb, loss_state)
             if aux_loss is not None:
                 # once per microbatch, as inside the JAX scan; float32 whatever an autocast around the step says
                 with torch.autocast(images.device.type, enabled=False):
@@ -319,7 +327,7 @@ def build_train_step(
         grads = [p.grad for p in params]
         if accumulate_steps > 1:
             torch._foreach_div_(grads, float(accumulate_steps))
-        return loss_sum / accumulate_steps, torch.cat(all_logits), params, grads
+        return loss_sum / accumulate_steps, torch.cat(all_logits), params, grads, loss_state
 
     def train_step(state: TrainState, batch: Batch):
         model, opt = state.model, state.optimizer
@@ -336,7 +344,7 @@ def build_train_step(
         keep_buffers = perturb is not None and not bn_from_perturbed
         # the second pass starts from the step's buffers (the JAX state.batch_stats)
         before = _snapshot(list(model.buffers())) if keep_buffers else None
-        loss, logits, params, grads = batch_grads(model, opt, images, labels)
+        loss, logits, params, grads, loss_state = batch_grads(model, opt, images, labels, state.loss_state)
         if perturb is not None:
             # the second gradient, at p + epsilon (JAX steps.py:314-327); the update then applies to the
             # saved p, copied back, since p + eps - eps need not be p in floating point
@@ -346,7 +354,10 @@ def build_train_step(
                 if keep_buffers:
                     after = _snapshot(list(model.buffers()))  # the clean pass's, which the step keeps
                     _restore(list(model.buffers()), before)
-            _, _, params, grads = batch_grads(model, opt, images, labels)
+            second_state = loss_state if bn_from_perturbed else state.loss_state
+            _, _, params, grads, second_state = batch_grads(model, opt, images, labels, second_state)
+            if bn_from_perturbed:
+                loss_state = second_state
             with torch.no_grad():
                 _restore(params, saved)
                 if keep_buffers:
@@ -375,6 +386,7 @@ def build_train_step(
         metrics["grad_norm"] = grad_norm
         metrics["lr"] = lr
         state.step += 1
+        state.loss_state = loss_state
         return state, metrics
 
     return train_step
@@ -390,7 +402,7 @@ def build_eval_step(
             logits = model(batch["image"].to(input_dtype))
             labels = batch["label"]
             if "mask" not in batch:
-                loss, _ = call_criterion(criterion, logits, labels)
+                loss, _ = call_criterion(criterion, logits, labels, state.loss_state)
                 return classification_metrics(logits, labels, loss)
             # padded (rectangular or tail) val batch: padded samples are masked
             # out; metrics are exact masked means, and "_weight" carries the
@@ -405,12 +417,12 @@ def build_eval_step(
             if hasattr(criterion, "reduction"):
                 per_sample_criterion = copy.copy(criterion)
                 per_sample_criterion.reduction = "none"
-                per_sample, _ = call_criterion(per_sample_criterion, logits, labels)
+                per_sample, _ = call_criterion(per_sample_criterion, logits, labels, state.loss_state)
                 if per_sample.dim() > 1:  # e.g. a (B, C) elementwise loss
                     per_sample = per_sample.mean(dim=tuple(range(1, per_sample.dim())))
                 m["loss"] = (per_sample.to(torch.float32) * mask).sum() / n
             else:  # criteria without a per-sample form: the loss over the full batch, pads included
-                loss, _ = call_criterion(criterion, logits, labels)
+                loss, _ = call_criterion(criterion, logits, labels, state.loss_state)
                 m["loss"] = loss.to(torch.float32)
             # weight by the true count, so an all-padding batch contributes 0,
             # not a phantom sample of accuracy 0

@@ -57,3 +57,42 @@ def filter_from_weight_decay(named_params: Iterable[Tuple[str, torch.Tensor]], s
     paths; the ndim rule, which decides every ResNet parameter, is the same."""
     skip = [s.lower() for s in skip_list]
     return {n: not (p.dim() <= 1 or any(s in n.lower() for s in skip)) for n, p in named_params}
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or float64 if it is float64 (the JAX ``at_least_f32``)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of a float32 ``x``, as
+    XLA's ``jnp.sqrt``.
+
+    PyTorch's CPU kernels of ``sqrt`` (and ``_foreach_sqrt``, ``rsqrt``,
+    ``pow(0.5)``) do not round every result correctly on every host: on
+    some x86 CPUs many float32 values come out one ulp off. A
+    float32 tensor on the CPU therefore takes its root in float64 and is
+    rounded once to float32. That is the correctly rounded float32 root even
+    where the float64 root is itself one float64 ulp off, as it can be on
+    such a host: the exact root of a float32 lies at least
+    2^-50 (relative) from a float32 rounding boundary, and a float64 ulp is
+    2^-52. Every other tensor takes ``torch.sqrt``: a float64 root's
+    one-ulp faults (1e-16 relative) are below every tolerance that holds a
+    float64 run, and CUDA's float32 ``sqrt`` rounds to nearest (nvcc's
+    default ``-prec-sqrt=true``), so the card computes the same number
+    without the detour and this helper does not route it."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return x.double().sqrt().float()
+    return torch.sqrt(x)
+
+
+def foreach_sqrt_(tensors) -> None:
+    """``torch._foreach_sqrt_`` with the rounding of ``sqrt`` above: in place,
+    float32 CPU tensors through float64, the rest through the multi-tensor
+    kernel."""
+    fix = [t for t in tensors if t.dtype == torch.float32 and t.device.type == "cpu"]
+    rest = [t for t in tensors if not (t.dtype == torch.float32 and t.device.type == "cpu")]
+    for t in fix:
+        t.copy_(sqrt(t))
+    if rest:
+        torch._foreach_sqrt_(rest)

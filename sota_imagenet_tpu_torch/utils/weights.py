@@ -24,11 +24,12 @@ order.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from sota_imagenet_tpu_torch.losses import angular
 from sota_imagenet_tpu_torch.models import attention, blocks, cmodel, layers, nfnet, norms, parametrize, resnet
 
 
@@ -281,6 +282,35 @@ def _plan(model: torch.nn.Module) -> Plan:
         elif isinstance(m, blocks.ConvBnAct):
             walk(m.conv, src + "/Conv_0", dst + "conv.")
             walk(m.bn, src + "/BatchNorm_0", dst + "bn.")
+        elif isinstance(m, (blocks.VGGBlock, blocks.ConvMixBlock)):
+            child(m.pre_norm, src, dst + "pre_norm.")
+            walk(m.conv, src + "/ScaledStdConv_0", dst + "conv.")
+        elif isinstance(m, blocks.ConvResidual):
+            walk(m.conv, f"{src}/{type(m.conv).__name__}_0", dst + "conv.")
+        elif isinstance(m, blocks.ConvMixerBlock):
+            numbered(m, src, dst, ("conv1", "bn1", "conv2", "bn2"))
+        elif isinstance(m, blocks.Residual):
+            if isinstance(m.fn, torch.nn.Module):
+                walk(m.fn, src + "/fn", dst + "fn.")
+        elif isinstance(m, blocks.Yolo5_C3):  # the JAX block names its children
+            for name in ("cv1_2_bn", "cv1_2_conv", "cv3_bn", "cv3_conv"):
+                walk(getattr(m, name), f"{src}/{name}", f"{dst}{name}.")
+            for i, block in enumerate(m.m):
+                walk(block, f"{src}/m{i}", f"{dst}m.{i}.")
+        elif isinstance(m, blocks.FusedRepVGGBlock):
+            for name in ("conv3", "bn3", "conv1", "bn1", "bn_id"):
+                if getattr(m, name) is not None:
+                    walk(getattr(m, name), f"{src}/{name}", f"{dst}{name}.")
+        elif isinstance(m, (angular.SphereLinearLayer, angular.SphereMLPLayer)):
+            # the class weights keep flax's (embedding, classes) layout
+            param(dst + "weight", src + "/weight")
+            if isinstance(m, angular.SphereMLPLayer):  # flax's own Dense and BatchNorm, named
+                dense(src + "/fc1", dst + "fc1.", False)
+                dense(src + "/fc2", dst + "fc2.", True)
+                param(dst + "bn.weight", src + "/bn/scale")
+                param(dst + "bn.bias", src + "/bn/bias")
+                stat(dst + "bn.running_mean", src + "/bn/mean")
+                stat(dst + "bn.running_var", src + "/bn/var")
         elif isinstance(m, blocks.NormFreeBlock):  # its convs are ScaledStdConv_0 and _1
             child(m.pre_norm, src, dst + "pre_norm.")
             walk(m.conv1, src + "/ScaledStdConv_0", dst + "conv1.")
@@ -410,3 +440,26 @@ def conv_kernels(model: torch.nn.Module, ungrouped: bool = False) -> Dict[str, t
         n: p for n, p in model.named_parameters()
         if n in plan and p.dim() == 4 and "kernel" in plan[n][1].lower() and (not ungrouped or p.shape[1] > 1)
     }
+
+
+def apply_sigmoid_trick(model: torch.nn.Module, num_classes: Optional[int] = None) -> List[str]:
+    """Set the classifier bias of ``model`` to -log(C - 1), so each class's
+    initial sigmoid probability is about 1/C (the RetinaNet prior,
+    arXiv:1708.02002 section 4.1; the legacy ``sigmoid_trick: true``), as the
+    JAX ``apply_sigmoid_trick`` (utils/misc.py:163) finds it: every 1-d
+    parameter whose flax path ends in ``fc/bias``, else the last 1-d
+    ``bias`` of width ``num_classes`` in the model's order (a CModel's
+    ``nn.Linear`` head). In place; returns the names it set."""
+    plan = _plan(model)
+    named = [(n, p) for n, p in model.named_parameters() if p.dim() == 1]
+    hits = [n for n, _ in named if plan[n][1].split("/")[-2:] == ["fc", "bias"]]
+    if not hits and num_classes is not None:
+        hits = [n for n, p in named if plan[n][1].split("/")[-1] == "bias" and p.shape[0] == num_classes][-1:]
+    if not hits:
+        raise ValueError("sigmoid_trick: no fc/bias leaf found in params (classifier must be "
+                         "named 'fc' with a bias, or pass num_classes for the fallback)")
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for n in hits:
+            params[n].fill_(-float(np.log(max(params[n].shape[0] - 1, 1))))
+    return hits

@@ -54,10 +54,12 @@ def test_registry_knows_the_slice_and_names_the_roadmap_for_the_rest():
     for name in ("resnet18", "resnet34", "resnet50", "resnet101", "pytorch_tools.models.resnet50", "cross_entropy",
                  "CrossEntropyLoss"):
         assert callable(registry.resolve(name))
+    for name in ("vgg16_bn", "timm.models.vgg16_bn", "adacos", "fixmatch", "kld", "a-focal"):
+        assert callable(registry.resolve(name))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.resolve("vgg16_bn")
+        registry.resolve("darknet53")
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # never imports the JAX package to find a name
-        registry.resolve("sota_imagenet_tpu.models.vgg16_bn")
+        registry.resolve("sota_imagenet_tpu.models.darknet53")
     with pytest.raises(KeyError, match="unknown optimizer"):  # an unknown optimizer, as the JAX factory
         build_optimizer({"_target_": "no_such_optimizer"}, [])
     for name in ("eca_nfnet_l0", "timm.models.eca_nfnet_l1", "CModel", "src.model.CModel", "CutmixMixup",
@@ -68,7 +70,7 @@ def test_registry_knows_the_slice_and_names_the_roadmap_for_the_rest():
 
 EXP_YAML = sorted(glob.glob(os.path.join(CONFIG_DIR, "exp", "*.yaml")))
 # configs/exp files whose model and optimizer build in the port (ROADMAP.md records the count)
-N_EXP_CONFIGS_THAT_BUILD = 101
+N_EXP_CONFIGS_THAT_BUILD = 108
 
 
 def _build_model_and_optimizer(path):
