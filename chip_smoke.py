@@ -180,7 +180,31 @@ without a build; any failure exits non-zero and prints no result):
              stage of its warmup: ConvMixer-768/30 (patch 7, kernel 7),
              batch 48 at 224 px, bf16, SGD. Checks as trainer A, and: 30
              ConvMixerBlocks, 19-21M parameters; reports the forward GMAC.
-20. profile — trainers A, C, D, H, I, J, K, L, M and O once more with
+20. model_ddp — first a probe (ddp_probe_phase): two ranks on the card
+             under gloo try each collective on CUDA tensors, and two under
+             NCCL must be refused (one device). Then three float64 steps of
+             each leg (model_ddp_phase: the truncated Bottleneck ResNet of
+             tools/dryrun_multichip.py at 64 px, global batch 16, TF32 off,
+             cuDNN deterministic) on two gloo ranks sharing the card against
+             one process on it: SGD + EMA + sync-BN + cutmix; bn_stats local
+             and 4; accumulation 2 with unit-wise SAM; ZeRO-1 under AdamW,
+             AdaiS and Lookahead(SGD) against the replicated run (bit for
+             bit; AdaiS within DDP_TOL); a depth-cut adacos_sphere trunk with
+             AdaCos's state. Both ranks' weights bit for bit equal.
+21. trainer P — configs/exp/1.r50_baseline.yaml at full width through
+             cli.main as two gloo ranks on the card (mesh.data=2,
+             mesh.zero1=true; 128 of the 256 rows each, bf16, synthetic,
+             debug, A's stage): ms/step and img/s of the global batch, the
+             gradient all-reduce, BN and ZeRO-1 collectives a step (calls,
+             bytes, ms), the gradient-sized all-reduce alone, peak memory per
+             rank. Checks: the ranks' parameters and buffers bit for bit
+             equal after step 10, fused_aug 10 in 10 on each rank,
+             model_last.ckpt written once, an eval resumed from it on two
+             ranks reproduces the run's val metrics exactly.
+22. trainer P1 — the same config as one rank under NCCL, from torchrun's
+             environment (WORLD_SIZE=1, mesh.data=-1): its ms/step against
+             trainer A's is the cost of the port's collectives at one rank.
+23. profile — trainers A, C, D, H, I, J, K, L, M and O once more with
              torch.profiler over steps 4-7: device time per step by layer
              and the top kernels, and the device's busy share (separate
              runs, so the trainers' times stay clean). D's, I's, J's, K's,
@@ -2534,6 +2558,387 @@ def trainer_phase(
     return result
 
 
+# --------------------------------------------------------------------------- #
+# Data parallelism on the one card: two gloo ranks over CUDA tensors, one NCCL rank
+# --------------------------------------------------------------------------- #
+
+PROBE_DTYPES = ("float32", "float64", "bfloat16", "uint8", "int64")
+
+
+def _probe_rank() -> dict:
+    """On one rank of a two-rank group on the card: each collective on CUDA
+    tensors, "ok" with the right values or the first line of its error."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    rank, out = dist.get_rank(), {"backend": dist.get_backend()}
+
+    def attempt(name, fn):
+        try:
+            good = fn()
+            torch.cuda.synchronize()
+            out[name] = "ok" if good else "wrong values"
+        except Exception as e:  # noqa: BLE001 - the probe records what the backend refuses
+            out[name] = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:240]}"
+
+    def all_reduce(dt):
+        t = torch.full((4096,), rank + 1, dtype=getattr(torch, dt), device="cuda")
+        dist.all_reduce(t)
+        return bool((t.double() == 3).all())
+
+    for dt in PROBE_DTYPES:
+        attempt(f"all_reduce_{dt}", lambda dt=dt: all_reduce(dt))
+
+    def broadcast():
+        t = torch.full((4096,), float(rank), device="cuda")
+        dist.broadcast(t, 1)
+        return bool((t == 1).all())
+
+    def all_gather():
+        parts = [torch.empty(8, device="cuda") for _ in range(2)]
+        dist.all_gather(parts, torch.full((8,), float(rank), device="cuda"))
+        return bool((parts[1] == 1).all())
+
+    def reduce_scatter():
+        t = torch.empty(8, device="cuda")
+        dist.reduce_scatter(t, [torch.full((8,), float(rank + 1), device="cuda") for _ in range(2)])
+        return bool((t == 3).all())
+
+    def objects():
+        box = [{"rank": rank}]
+        dist.broadcast_object_list(box, 0)
+        return box[0] == {"rank": 0}
+
+    for name, fn in (("broadcast", broadcast), ("all_gather", all_gather), ("reduce_scatter", reduce_scatter),
+                     ("broadcast_object_list", objects), ("barrier", lambda: dist.barrier() or True)):
+        attempt(name, fn)
+    return out
+
+
+def ddp_probe_phase(gpu: str) -> dict:
+    """Which collectives gloo takes on CUDA tensors in this PyTorch, and that
+    NCCL refuses two ranks on the one card (the ground of parallel/mesh.py's
+    design: all_reduce and broadcast only, gloo when ranks share a card)."""
+    from sota_imagenet_tpu_torch.tools.ranks import run_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        gloo = run_ranks(_probe_rank, 2, tmp_dir=tmp, timeout=180)
+        gloo_s = time.perf_counter() - t0
+        try:
+            nccl = run_ranks(_probe_rank, 2, tmp_dir=tmp, timeout=120, backend="nccl")
+        except RuntimeError as e:  # the group itself may fail to form: that is the refusal too
+            nccl = [{"error": str(e)[-600:]}]
+    result = {"phase": "ddp_probe", "gloo_cuda": gloo[0], "nccl_two_ranks_one_card": nccl[0], "gloo_wall_s": gloo_s,
+              "gpu": gpu}
+    print(f"[ddp_probe] {json.dumps(result)}")
+    needed = ("all_reduce_float32", "all_reduce_float64", "all_reduce_uint8", "broadcast")
+    if any(gloo[0][k] != "ok" for k in needed):
+        raise AssertionError(f"ddp_probe: gloo refuses a collective the port needs on CUDA tensors: {gloo[0]}")
+    if all(v == "ok" for k, v in nccl[0].items() if k != "backend"):
+        raise AssertionError(f"ddp_probe: NCCL took two ranks on one card: {nccl[0]}")
+    return result
+
+
+ADACOS_TRUNK = """
+- [-1, 1, ConvActBlock, [3, 32], {stride: 2}]
+- [-1, 1, ConvActBlock, [32, 64], {stride: 2}]
+- [-1, 1, ConvActBlock, [64, 128], {stride: 2}]
+- [-1, 1, "pt.modules.FastGlobalAvgPool2d", [], {flatten: True}]
+- [-1, 1, SphereLinearLayer, [128, 1000]]
+"""
+DDP_STEPS = 3
+# two ranks against one process on the card, relative L2 of the state's change (float64): the BN statistics
+# are summed in another order over ranks; AdaCos's head rounds its cosines to float32 and AdaiS keeps float32
+# second moments whose mean the shards sum in two parts (1.1e-8 on the CPU, tests/test_torch_ddp_step.py)
+DDP_TOL = {"state": 1e-10, "float32_parts": 1e-7}
+
+
+def _ddp_legs() -> dict:
+    """The model_ddp legs: specs of tools/ranks.train_steps on the card, float64, global batch 16 at 64 px."""
+    import copy
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from sota_imagenet_tpu_torch.config import instantiate
+    from sota_imagenet_tpu_torch.tools.dryrun_multichip import spec
+
+    base = {**spec(2, 1, per_rank=8, steps=DDP_STEPS), "device": "cuda", "zero1": False, "accumulate_steps": 1,
+            "sam": None, "ema_decay": 0.0, "mixup": None}
+    sgd = base["optim"]
+    adacos_model = {"_target_": "CModel", "layer_config": yaml.safe_load(ADACOS_TRUNK),
+                    "extra_kwargs": {"ConvActBlock": {"activation": "swish_hard"}}}
+    m = instantiate(copy.deepcopy(adacos_model))
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    adacos_batches = [(rng.uniform(-2.0, 2.0, (16, 64, 64, 3)), np.eye(1000)[rng.integers(0, 1000, 16)])
+                      for _ in range(DDP_STEPS)]
+    legs = {
+        "a_sgd_ema_cutmix": {**base, "ema_decay": 0.999, "mixup": spec(2, 1, per_rank=8, steps=DDP_STEPS)["mixup"]},
+        "b_bn_local": {**base, "bn_stats": 2},
+        "b_bn_4": {**base, "bn_stats": 4},
+        "c_accumulate_2_asam_unitwise": {**base, "accumulate_steps": 2,
+                                         "sam": {"kind": "asam_unitwise", "rho": 0.05, "eta": 0.01,
+                                                 "bn_from_perturbed": True}},
+        "e_adacos": {**base, "model": adacos_model, "init": {k: v.numpy().copy() for k, v in m.state_dict().items()},
+                     "criterion": {"_target_": "adacos", "margin": 0.0, "max_s": 20}, "batches": adacos_batches},
+    }
+    for name, optim, lr in (("adamw", {"_target_": "adamw", "weight_decay": 1e-2}, 1e-3),
+                            ("adais", {"_target_": "adais", "weight_decay": 1e-4}, base["lr"]),
+                            ("lookahead_sgd", {**sgd, "lookahead": True, "lookahead_k": 2}, base["lr"])):
+        legs[f"d_zero1_{name}"] = {**base, "optim": optim, "lr": lr, "zero1": True}
+        legs[f"d_replicated_{name}"] = {**base, "optim": optim, "lr": lr}
+    return legs
+
+
+def _rel_delta(got: dict, want: dict, init: dict) -> float:
+    keys = [k for k in init if init[k].dtype.kind == "f"]
+    err = sum(float(((got[k] - want[k]) ** 2).sum()) for k in keys)
+    ref = sum(float(((want[k] - init[k]) ** 2).sum()) for k in keys)
+    return (err / max(ref, 1e-300)) ** 0.5
+
+
+def model_ddp_phase(gpu: str) -> dict:
+    """Three float64 steps on the card of each leg, on two gloo ranks sharing
+    it against one process on it with the same global batch of 16 (TF32
+    off): (a) SGD, EMA, sync-BN, cutmix with pre-drawn values; (b)
+    bn_stats=local and bn_stats=4; (c) accumulate_steps=2 with unit-wise
+    SAM; (d) ZeRO-1 under AdamW, AdaiS and Lookahead(SGD), each against the
+    replicated two-rank run (bit for bit, AdaiS within DDP_TOL); (e) a
+    depth-cut adacos_sphere trunk with AdaCos's state. Loss, grad_norm, the
+    weights, BN buffers and EMA, and the criterion's state."""
+    import numpy as np
+
+    from sota_imagenet_tpu_torch.tools.ranks import run_ranks, train_legs, train_steps
+
+    legs = _ddp_legs()
+    names = list(legs)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(train_legs, 2, ([legs[n] for n in names],), tmp_dir=tmp, timeout=600)
+    ranks_s = time.perf_counter() - t0
+    out, failures = {}, []
+    for i, name in enumerate(names):
+        r0, r1 = ranks[0][i], ranks[1][i]
+        init = legs[name]["init"]
+        row = {"ranks_bit_equal": all(np.array_equal(r0["model"][k], r1["model"][k]) for k in r0["model"]),
+               "loss": [m["loss"] for m in r0["metrics"]], "grad_norm": [m["grad_norm"] for m in r0["metrics"]],
+               "collectives_per_step": {k: v / DDP_STEPS for k, v in r0["collectives"].items()}}
+        if not row["ranks_bit_equal"]:
+            failures.append(f"{name}: the ranks' weights differ")
+        if "_replicated_" not in name:
+            one = train_steps(legs[name])  # one process on the card, no group
+            tol = DDP_TOL["float32_parts"] if name in ("e_adacos", "d_zero1_adais") else DDP_TOL["state"]
+            row["vs_one_process"] = {
+                "state_rel_l2": _rel_delta(r0["model"], one["model"], init),
+                "ema_rel_l2": _rel_delta(r0["ema"], one["ema"], init) if one["ema"] is not None else None,
+                "loss_rel": max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(r0["metrics"], one["metrics"])),
+                "grad_norm_rel": max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                                     for a, b in zip(r0["metrics"], one["metrics"])),
+                "loss_state": None if one["loss_state"] is None else {
+                    k: [float(r0["loss_state"][k]), float(v)] for k, v in one["loss_state"].items()},
+                "tolerance": tol,
+            }
+            v = row["vs_one_process"]
+            if not (v["state_rel_l2"] < tol and (v["ema_rel_l2"] is None or v["ema_rel_l2"] < tol)
+                    and v["loss_rel"] <= 2**-23 and v["grad_norm_rel"] < max(tol, 1e-10)):
+                failures.append(f"{name}: two ranks against one process {v}")
+            if one["loss_state"] is not None and not all(
+                    abs(a - b) <= 1e-6 * abs(b) for a, b in row["vs_one_process"]["loss_state"].values()):
+                failures.append(f"{name}: AdaCos's state {v['loss_state']}")
+        if name.startswith("d_zero1_"):
+            rep = ranks[0][names.index(name.replace("zero1", "replicated"))]
+            diff = max(float(np.abs(r0["model"][k] - rep["model"][k]).max()) for k in r0["model"])
+            row["zero1_vs_replicated"] = {"max_abs_diff": diff, "state_rel_l2": _rel_delta(r0["model"], rep["model"], init)}
+            limit = 0.0 if name != "d_zero1_adais" else None
+            if (limit is not None and diff != limit) or (
+                    limit is None and row["zero1_vs_replicated"]["state_rel_l2"] >= DDP_TOL["float32_parts"]):
+                failures.append(f"{name}: ZeRO-1 against the replicated run {row['zero1_vs_replicated']}")
+        out[name] = row
+    result = {"phase": "model_ddp", "legs": out, "two_rank_wall_s": ranks_s, "gpu": gpu}
+    print(f"[model_ddp] {json.dumps(result)}")
+    if failures:
+        raise AssertionError("model_ddp: " + "; ".join(failures))
+    return result
+
+
+def _digest(model) -> str:
+    """A hash of every parameter and buffer's bytes, in the state_dict's order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _all_reduce_ms(numel: int, reps: int = 5) -> float:
+    """The median ms of one sum all-reduce of ``numel`` float32 on the card, the gradient's size."""
+    import torch
+
+    from sota_imagenet_tpu_torch.parallel import mesh as par
+
+    buf = torch.ones(numel, device="cuda")
+    times = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        par.all_reduce_(buf, "timing")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[2:])
+
+
+def ddp_trainer_rank(config: str, overrides: list, log_dir: str, timed: bool, resume_eval: bool) -> dict:
+    """One rank of a data-parallel trainer on the card: cli.main with every
+    kernel counter at 0 just before it, the collectives counted (and timed
+    with ``timed``), then the gradient-sized all-reduce alone and, with
+    ``resume_eval``, a run.evaluate=true resume of the run's model_last.ckpt."""
+    import glob
+
+    import torch
+    import torch.distributed as dist
+
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch.parallel import mesh as par
+
+    probe = _probe_callback()
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0  # counts from here are this path's
+    par.STATS.reset()
+    par.STATS.timed = timed
+    t0 = time.perf_counter()
+    val = cli.main(["-c", config, *overrides, f"log.dir={log_dir}"], callbacks=[probe])
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    stats = par.STATS.as_dict()
+    par.STATS.timed = False
+    model = probe.runner.state.model
+    out = {
+        "rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.get_backend(), "val": val,
+        "launches": launches, "step_ms": probe.step_ms, "batch_size": probe.batch_size,
+        "train_loss": probe.train_metrics.get("loss"), "collectives": stats, "wall_s": wall,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "digest": _digest(model), "parameters": sum(p.numel() for p in model.parameters()),
+        "optimizer": type(probe.runner.state.optimizer).__name__,
+        "param_devices": sorted(probe.param_devices),
+    }
+    out["grad_all_reduce_alone_ms"] = _all_reduce_ms(out["parameters"])
+    ckpts = sorted(glob.glob(os.path.join(log_dir, "*", "*", "model_last.ckpt")))
+    out["model_last_ckpts"] = len(ckpts)
+    if resume_eval and ckpts:
+        out["resume_val"] = cli.main(["-c", config, *overrides, f"log.dir={log_dir}", "run.evaluate=true",
+                                      f"run.resume={ckpts[0]}"])
+    return out
+
+
+P_OVERRIDES = ("mesh.data=2", "mesh.zero1=true")
+P1_OVERRIDES = ("mesh.data=-1", "mesh.zero1=true")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ddp_summary(ranks: list) -> dict:
+    """The trainer's figures from its ranks' results (rank 0's clock)."""
+    r0 = ranks[0]
+    steps = len(r0["step_ms"])
+    ms = statistics.median(r0["step_ms"][3:10])
+    global_batch = r0["batch_size"] * r0["world"]
+    col = r0["collectives"]
+
+    def per_step(kinds):
+        calls = sum(col.get(k, {}).get("calls", 0) for k in kinds)
+        secs = [col.get(k, {}).get("seconds") for k in kinds if k in col]
+        return {"calls": calls / steps, "bytes": sum(col.get(k, {}).get("bytes", 0) for k in kinds) / steps,
+                "ms": (sum(secs) * 1e3 / steps) if secs and None not in secs else None}
+
+    return {
+        "backend": r0["backend"], "world": r0["world"], "global_batch": global_batch, "train_steps": steps,
+        "ms_per_step_median_4_10": ms, "img_per_s": global_batch / ms * 1e3, "step_ms": r0["step_ms"],
+        "grad_all_reduce": per_step(("grad",)), "bn_collectives": per_step(("bn", "bn_backward")),
+        "zero1_param_broadcasts": per_step(("params",)),
+        "grad_all_reduce_alone_ms": [r["grad_all_reduce_alone_ms"] for r in ranks],
+        "max_memory_allocated_gib_per_rank": [r["max_memory_allocated_gib"] for r in ranks],
+        "launches_per_rank": [r["launches"] for r in ranks], "parameters": r0["parameters"],
+        "optimizer": r0["optimizer"], "train_loss": r0["train_loss"], "val": r0["val"],
+        "wall_s": max(r["wall_s"] for r in ranks),
+    }
+
+
+def trainer_p_phase(gpu: str) -> dict:
+    """r50_baseline at full width through cli.main as two ranks sharing the
+    card (gloo over CUDA tensors; NCCL refuses them), mesh.data=2,
+    mesh.zero1=true: global batch 256 at 224 px, 128 a rank, bf16, synthetic,
+    debug, trainer A's stage. The collectives are timed, each between two
+    synchronisations (gloo stages them through the host and waits for them
+    anyway). Checks: every rank's parameters and BN buffers equal bit for bit
+    after step 10, fused_aug launched 10 times in 10 steps on each rank (no
+    conv1x1_stats or moments), model_last.ckpt written once, and a
+    run.evaluate=true resume on two ranks reproduces the run's val metrics
+    exactly."""
+    from sota_imagenet_tpu_torch.tools.ranks import run_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir = os.path.join(tmp, "logs")
+        ranks = run_ranks(ddp_trainer_rank, 2, (R50, [*TRAINER_OVERRIDES, *P_OVERRIDES], log_dir, True, True),
+                          tmp_dir=tmp, timeout=900)
+    result = {"phase": "trainer_p", "config": R50, "overrides": list(P_OVERRIDES), **_ddp_summary(ranks),
+              "digests_equal": len({r["digest"] for r in ranks}) == 1,
+              "model_last_ckpts": ranks[0]["model_last_ckpts"],
+              "resume_val_equal": all(r.get("resume_val") == r["val"] for r in ranks), "gpu": gpu}
+    print(f"[trainer_p] {json.dumps(result)}")
+    want = {"fused_aug": 10, "conv1x1_stats": 0, "moments": 0}
+    if result["train_steps"] != 10 or any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"trainer_p: launches per rank {result['launches_per_rank']}, want {want} each")
+    if not result["digests_equal"] or result["model_last_ckpts"] != 1 or not result["resume_val_equal"]:
+        raise AssertionError(f"trainer_p: replicas equal {result['digests_equal']}, model_last.ckpt "
+                             f"{result['model_last_ckpts']}, resumed eval {[r.get('resume_val') for r in ranks]} "
+                             f"against {ranks[0]['val']}")
+    if result["backend"] != "gloo" or result["optimizer"] != "Zero1" or ranks[0]["param_devices"] != ["cuda"]:
+        raise AssertionError(f"trainer_p: backend {result['backend']}, optimizer {result['optimizer']}")
+    if not math.isfinite(result["train_loss"]) or not all(math.isfinite(v) for v in result["val"].values()):
+        raise AssertionError(f"trainer_p: non-finite loss {result['train_loss']}, val {result['val']}")
+    return result
+
+
+def trainer_p1_phase(gpu: str) -> dict:
+    """The same config as one rank under NCCL, from torchrun's environment
+    (RANK=0, WORLD_SIZE=1, mesh.data=-1, mesh.zero1=true): the NCCL init and
+    every collective of the path run on the card, untimed (each would
+    synchronise), so its ms/step against trainer A's is their cost at one
+    rank."""
+    from sota_imagenet_tpu_torch.tools.ranks import run_ranks
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir = os.path.join(tmp, "logs")
+        ranks = run_ranks(ddp_trainer_rank, 1, (R50, [*TRAINER_OVERRIDES, *P1_OVERRIDES], log_dir, False, False),
+                          tmp_dir=tmp, timeout=600, backend=None, env=env)
+    result = {"phase": "trainer_p1", "config": R50, "overrides": list(P1_OVERRIDES), **_ddp_summary(ranks),
+              "model_last_ckpts": ranks[0]["model_last_ckpts"], "gpu": gpu}
+    print(f"[trainer_p1] {json.dumps(result)}")
+    want = {"fused_aug": 10, "conv1x1_stats": 0, "moments": 0}
+    if result["backend"] != "nccl" or ranks[0]["launches"] != want or result["model_last_ckpts"] != 1:
+        raise AssertionError(f"trainer_p1: backend {result['backend']}, launches {ranks[0]['launches']}")
+    if not math.isfinite(result["train_loss"]):
+        raise AssertionError(f"trainer_p1: non-finite loss {result['train_loss']}")
+    return result
+
+
 # kernel-name fragments -> the layer a device kernel belongs to (first match wins)
 KERNEL_GROUPS = (
     ("fused_aug", ("fused_aug",)),
@@ -2753,8 +3158,8 @@ def layer_breakdown(prof, window):
 
 
 PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "trainer_i",
-          "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n", "trainer_o", "data", "trainer_f", "trainer_g",
-          "packed", "trainer_h", "learn", "profile")
+          "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n", "trainer_o", "model_ddp", "trainer_p",
+          "trainer_p1", "data", "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
@@ -2855,6 +3260,16 @@ def main(argv=None) -> int:
         run("trainer_n", trainer_phase, "trainer_n", ADACOS, ADACOS_STAGE, gpu, aug_only, recipe="adacos")
     if "trainer_o" in phases:
         run("trainer_o", trainer_phase, "trainer_o", CONVMIXER, CONVMIXER_STAGE, gpu, aug_only, recipe="convmixer")
+    if "model_ddp" in phases:
+        run("ddp_probe", ddp_probe_phase, gpu)
+        run("model_ddp", model_ddp_phase, gpu)
+    if "trainer_p" in phases:
+        run("trainer_p", trainer_p_phase, gpu)
+    if "trainer_p1" in phases:
+        run("trainer_p1", trainer_p1_phase, gpu)
+    if "trainer_p1" in results and "trainer_a" in results:
+        a, p1 = results["trainer_a"]["ms_per_step_median_4_10"], results["trainer_p1"]["ms_per_step_median_4_10"]
+        print(f"[trainer_p1] {json.dumps({'ms_per_step_p1': p1, 'ms_per_step_a': a, 'collectives_cost_ms': p1 - a})}")
     cached = {"packed", "trainer_h"} & set(phases) or "profile" in phases
     with tempfile.TemporaryDirectory() as data_root:
         if {"data", "trainer_f", "trainer_g"} & set(phases) or cached:
@@ -2945,9 +3360,13 @@ def main(argv=None) -> int:
     kernels[0]["launches_sam"] = results["trainer_m"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_adacos"] = results["trainer_n"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_convmixer"] = results["trainer_o"]["kernel_launches"]["fused_aug"]
+    # the data-parallel trainers: one augment launch a step on each rank
+    kernels[0]["launches_ddp_two_ranks"] = [r["fused_aug"] for r in results["trainer_p"]["launches_per_rank"]]
+    kernels[0]["launches_ddp_nccl_one_rank"] = results["trainer_p1"]["launches_per_rank"][0]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
-    kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items() if k.startswith("trainer"))
+    kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items()
+                                 if k.startswith("trainer") and "kernel_launches" in r)
     for k in kernels:
         k["gpu"] = gpu
     print(json.dumps({"kernels": kernels}))

@@ -4,12 +4,18 @@ train.py).
 Usage:
     python -m sota_imagenet_tpu_torch.cli -c configs/exp/1.r50_baseline.yaml [key=value ...]
     python -m sota_imagenet_tpu_torch.cli -c <yaml> run.evaluate=true run.resume=<run_dir>/model_last.ckpt
+    torchrun --nproc_per_node=N -m sota_imagenet_tpu_torch.cli [--device cpu] -c <yaml> [mesh.zero1=true] ...
     python -m sota_imagenet_tpu_torch.cli records packed <data_dir> [--size 224] ...   (records_main)
 
 Mirrors the reference main() flow (reference train.py:22-185): config →
 run dir + git snapshot → model / criterion / optimizer → resume → callbacks
 → stage loop over the DataManager → final eval + save. It runs on one CUDA
-device unless the caller passes ``device="cpu"``. Options that would change
+device unless the caller passes ``device="cpu"``. Under torchrun (or with a
+``torch.distributed`` group the caller set up) each process is one rank of
+the ``data`` axis (``parallel/mesh.py``): NCCL when each rank has a card of
+its own, gloo on the CPU or when ranks share a card; the batch of the
+config is the global one, rank 0 logs and writes, and ``mesh.zero1`` shards
+the optimizer state (``optim/zero1.py``). Options that would change
 the numbers and are not ported yet raise NotImplementedError naming the
 ROADMAP item. The TensorBoard sinks write event files into the run dir;
 where the tensorboard package is missing they log one warning and the run
@@ -31,9 +37,12 @@ import torch
 from sota_imagenet_tpu_torch import config as C
 from sota_imagenet_tpu_torch.config import instantiate, parse_stages
 from sota_imagenet_tpu_torch.data.pipeline import DataManager
+from sota_imagenet_tpu_torch.models.norms import resolve_bn_stats, set_bn_stats_groups
 from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel, weight_standardization_fn
 from sota_imagenet_tpu_torch.optim import build_optimizer
 from sota_imagenet_tpu_torch.optim.factory import needs_layout
+from sota_imagenet_tpu_torch.optim.zero1 import Zero1
+from sota_imagenet_tpu_torch.parallel import mesh as par
 from sota_imagenet_tpu_torch.registry import NotPortedError
 from sota_imagenet_tpu_torch.train.callbacks import (
     Callback,
@@ -47,7 +56,14 @@ from sota_imagenet_tpu_torch.train.checkpoint import load_checkpoint, save_check
 from sota_imagenet_tpu_torch.train.loop import Runner
 from sota_imagenet_tpu_torch.train.schedule import phases_from_stages
 from sota_imagenet_tpu_torch.utils.logging import get_logger, setup_logger
-from sota_imagenet_tpu_torch.utils.misc import count_parameters, filter_from_weight_decay, resolve_device, set_random_seed
+from sota_imagenet_tpu_torch.utils.misc import (
+    count_parameters,
+    filter_from_weight_decay,
+    process_count,
+    process_index,
+    resolve_device,
+    set_random_seed,
+)
 from sota_imagenet_tpu_torch.utils.weights import apply_sigmoid_trick, flax_ranks, unit_dims
 
 
@@ -60,9 +76,8 @@ def find_auto_resume(log_dir: str, exp_name: str) -> Optional[str]:
 def reject_unported(cfg) -> None:
     """Raise for every option that changes the numbers and is not in this port yet."""
     checks = (
-        (cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1 or cfg.mesh.spatial != 1 or cfg.mesh.zero1,
-         "mesh.* beyond one device (data parallelism, ZeRO-1, spatial / head TP)", "Queue 1 items 8 and 14"),
-        (cfg.run.bn_stats not in (None, "global", 1), f"run.bn_stats={cfg.run.bn_stats!r}", "Queue 1 item 8"),
+        (cfg.mesh.model != 1 or cfg.mesh.spatial != 1, "mesh.spatial / mesh.model (spatial partitioning, head TP)",
+         "Queue 1 item 14"),
         (bool(cfg.run.skip_nonfinite), "run.skip_nonfinite", "Queue 1 item 9"),
         (bool(cfg.run.remat), "run.remat", "Queue 1 item 9"),
     )
@@ -113,26 +128,35 @@ def _git_snapshot(run_dir: str) -> None:
 def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
     """Train (or evaluate) as the config says; returns the final val metrics.
 
-    ``device``: None runs on ``cuda`` (raising if no GPU is present); tests
-    pass ``"cpu"``. ``callbacks`` are appended to the default host callbacks
+    ``device``: None runs on this rank's card (raising if no GPU is
+    present), or where ``--device`` says; tests pass ``"cpu"``. ``callbacks`` are appended to the default host callbacks
     (Timer, ConsoleLogger, CheckpointSaver), for tools that observe a run."""
     parser = argparse.ArgumentParser(description="sota_imagenet_tpu_torch trainer")
     parser.add_argument("--config", "-c", default=None, help="experiment YAML")
+    parser.add_argument("--device", default=None, help="cpu to run on the CPU (default: this rank's card)")
     parser.add_argument("overrides", nargs="*", help="dotted overrides key=value")
     args = parser.parse_args(argv)
+    device = args.device if device is None else device
+    # the process group first (cli.py:73-74 of the JAX package): the device and everything built depend on the rank
+    backend = par.init_distributed(device)
     device = resolve_device(device)
 
     start_time = time.time()
     cfg = C.load(args.config, overrides=args.overrides, strict_env=False)
     reject_unported(cfg)
+    data = par.data_axis(cfg.mesh.data, process_count())
+    is_master = process_index() == 0
 
-    # run dir: logs/<date>_<exp>/<time> (reference configs/base.yaml:13-15)
-    run_dir = os.path.join(cfg.log.dir, time.strftime("%Y-%m-%d") + "_" + cfg.log.exp_name, time.strftime("%H-%M-%S"))
-    os.makedirs(run_dir, exist_ok=True)
-    _git_snapshot(run_dir)
-    with open(os.path.join(run_dir, "config.yaml"), "w") as f:
-        f.write(C.to_yaml(cfg))
-    log = setup_logger(os.path.join(run_dir, "logs.txt"))
+    # run dir: logs/<date>_<exp>/<time> (reference configs/base.yaml:13-15), rank 0's on every rank
+    run_dir = par.broadcast_object(
+        os.path.join(cfg.log.dir, time.strftime("%Y-%m-%d") + "_" + cfg.log.exp_name, time.strftime("%H-%M-%S"))
+    )
+    if is_master:
+        os.makedirs(run_dir, exist_ok=True)
+        _git_snapshot(run_dir)
+        with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+            f.write(C.to_yaml(cfg))
+    log = setup_logger(os.path.join(run_dir, "logs.txt") if is_master else None, is_master)
     log.info(C.to_yaml(cfg))
     if device.type == "cuda":
         # float32 matmuls and convs in full float32 (the JAX reference's
@@ -144,6 +168,13 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
         log.info(f"PyTorch {torch.__version__} | device: {device} ({torch.cuda.get_device_name(device)})")
     else:
         log.info(f"PyTorch {torch.__version__} | device: {device}")
+    if backend is not None:
+        log.info(f"Data parallel: {data} ranks over {backend}")
+    # the BatchNorm statistics view (cli.py:148-153 of the JAX package), before the model is built
+    bn_groups = resolve_bn_stats(cfg.run.bn_stats, data)
+    set_bn_stats_groups(bn_groups)
+    if bn_groups > 1:
+        log.info(f"BatchNorm statistics: {bn_groups} groups (run.bn_stats={cfg.run.bn_stats})")
     if cfg.debug_nans:
         log.warning("debug_nans has no effect in sota_imagenet_tpu_torch yet")
     seed = cfg.random_seed if cfg.random_seed is not None else 0
@@ -171,7 +202,12 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
 
     def make_optimizer(m):
         units = {"unit_dim": unit_dims(m), "flax_rank": flax_ranks(m)} if layout else {}
-        return build_optimizer(dict(cfg.optim), m.named_parameters(), wd_mask=mask, **units)
+
+        def build(named):
+            return build_optimizer(dict(cfg.optim), named, wd_mask=mask, **units)
+
+        # ZeRO-1 (cli.py:285-290 of the JAX package): each rank keeps its share of the optimizer state
+        return Zero1(build, m.named_parameters()) if cfg.mesh.zero1 else build(m.named_parameters())
 
     # the TensorBoard sinks (cli.py:205-212 of the JAX package): scalars every 50 steps, and with
     # log.histogram the weights' histograms every epoch; the config's callbacks may add more
@@ -206,6 +242,8 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
             runner.state.ema.load_state_dict(runner.state.model.state_dict())
         log.info("sigmoid_trick: classifier bias initialized to -log(C-1)")
     log.info(f"Model params: {count_parameters(runner.state.model) / 1e6:.2f}M")
+    if cfg.mesh.zero1:
+        log.info(f"ZeRO-1: optimizer state sharded over {data} data-parallel ranks")
 
     start_epoch = cfg.run.start_epoch
     if cfg.run.auto_resume and not cfg.run.resume:

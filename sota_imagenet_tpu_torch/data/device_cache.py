@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from sota_imagenet_tpu_torch.utils.logging import get_logger
+from sota_imagenet_tpu_torch.parallel.mesh import rank_seed
 from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
 
 
@@ -69,7 +70,7 @@ class DeviceCacheFeed:
         self.augment = augment_fn
         self.device = torch.device(device)
         # the augment's draws, seeded as DeviceFeed's (threefry's fold_in per step cannot be matched)
-        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        self.generator = torch.Generator(device=self.device).manual_seed(rank_seed(seed))
         self.label_divisor = max(int(label_divisor), 1)
         self.is_train = is_train
         self.fill_chunk_mb = float(fill_chunk_mb)  # fractional MB allowed (tests)

@@ -17,10 +17,17 @@ Layering (replaces DALI, reference dali_dataloader.py):
          └─ batches {'image': (B,H,W,3) bf16 on the device, 'label': one-hot f32
                      [, 'mask': f32 (B,) for padded val batches]}
 
-Per-process sharding: each process reads files[rank::world_size]
-(utils/misc.process_index/process_count; one process unless a
-torch.distributed group is up). The tfrecord backend raises
-NotImplementedError naming the ROADMAP item.
+Per-rank sharding (utils/misc.process_index/process_count; one process
+unless a torch.distributed group is up): each of N ranks loads batches of
+B/N, and the synthetic and folder loaders give rank r rows [r*B/N,
+(r+1)*B/N) of the batch one process would load with the global B, so N
+ranks train on what one process trains on (the layout of the JAX
+package's make_array_from_process_local_data; its own folder loader reads
+files[rank::N] instead). The rectangular val loader, the packed loader and
+the device cache keep a shard per rank, as the JAX package's do; the val
+metrics are masked sums over the ranks, so they do not depend on it. The augment's draws are the rank's own (the rank folded
+into the feed's seed). The tfrecord backend raises NotImplementedError
+naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from sota_imagenet_tpu_torch.data import native
 from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
 from sota_imagenet_tpu_torch.data.packed import PackedLoader
 from sota_imagenet_tpu_torch.ops.augment import build_train_augment, build_val_augment
+from sota_imagenet_tpu_torch.parallel.mesh import rank_seed
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
 
@@ -51,7 +59,9 @@ IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
 class SyntheticLoader:
     """Deterministic fake-data loader for tests and benches; the same numpy
-    draws as the JAX package's SyntheticLoader, so both see the same pixels."""
+    draws as the JAX package's SyntheticLoader, so both see the same pixels.
+    ``batch_size`` is this rank's; the pool is drawn at the global batch and
+    the rank keeps its rows."""
 
     def __init__(self, batch_size: int, image_size: int, num_classes: int = 1000, length: int = 32, seed: int = 0):
         self.batch_size = batch_size
@@ -59,9 +69,11 @@ class SyntheticLoader:
         self.num_classes = num_classes
         self.length = length
         rng = np.random.default_rng(seed)
+        pc, rows = process_count(), slice(process_index() * batch_size, (process_index() + 1) * batch_size)
         # small pool of fake images reused across batches (keeps host cost ~0)
-        self._pool = rng.integers(0, 256, size=(4, batch_size, image_size, image_size, 3), dtype=np.uint8)
-        self._labels = rng.integers(0, num_classes, size=(4, batch_size), dtype=np.int32)
+        pool = rng.integers(0, 256, size=(4, batch_size * pc, image_size, image_size, 3), dtype=np.uint8)
+        labels = rng.integers(0, num_classes, size=(4, batch_size * pc), dtype=np.int32)
+        self._pool, self._labels = np.ascontiguousarray(pool[:, rows]), np.ascontiguousarray(labels[:, rows])
 
     def __len__(self):
         return self.length
@@ -132,14 +144,12 @@ class FolderLoader:
         self.seed = seed
         self.epoch = 0
         self.drop_last = drop_last
-        # per-process shard (replaces shard_id/num_shards, dali_dataloader.py:47)
-        pi, pc = process_index(), process_count()
-        self.shard_files = self.files[pi::pc]
-        self.shard_labels = self.labels[pi::pc]
+        # this rank's rows of each global batch (replaces shard_id/num_shards, dali_dataloader.py:47)
+        self.rank, self.global_batch = process_index(), batch_size * process_count()
 
     def __len__(self):
-        n = len(self.shard_files) // self.batch_size
-        if not self.drop_last and len(self.shard_files) % self.batch_size:
+        n = len(self.files) // self.global_batch
+        if not self.drop_last and len(self.files) % self.global_batch:
             n += 1
         return n
 
@@ -174,7 +184,7 @@ class FolderLoader:
         resize uses them directly in host-resample mode)."""
         datas, crops, filts = [], [], []
         for i, rng in zip(idxs, rngs):
-            with open(self.shard_files[i], "rb") as f:
+            with open(self.files[i], "rb") as f:
                 data = f.read()
             dims = native.jpeg_dims(data)
             if dims is None:
@@ -199,7 +209,7 @@ class FolderLoader:
             (imgs, failed), meta = self._exec.wait(ticket), None
         D.count_decoded("native", len(idxs) - len(failed))
         for fi in failed:
-            path = self.shard_files[idxs[fi]]
+            path = self.files[idxs[fi]]
             rng = np.random.default_rng((self.seed, self.epoch, int(idxs[fi]), 1))
             if self.device_resample:
                 img, sh, sw, filt = D.decode_train_scaled(path, rng, self.image_size, use_native=False, **self._train_kw())
@@ -209,14 +219,18 @@ class FolderLoader:
         return imgs, meta
 
     def __iter__(self) -> Iterator[tuple]:
-        order = np.arange(len(self.shard_files))
+        order = np.arange(len(self.files))
         if self.is_train:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
-        bs = self.batch_size
+        bs, gb = self.batch_size, self.global_batch
         n_batches = len(self)
 
         def batch_idxs(b):
-            idxs = order[b * bs : (b + 1) * bs]
+            # this rank's rows of global batch b; a val tail may leave it none, and then it pads with the
+            # global batch's last image, as the one process pads its tail
+            whole = order[b * gb : (b + 1) * gb]
+            idxs = whole[self.rank * bs : (self.rank + 1) * bs]
+            idxs = idxs if len(idxs) else whole[-1:]
             return idxs, [np.random.default_rng((self.seed, self.epoch, int(i))) for i in idxs]
 
         use_native = self._batch_executor() is not None
@@ -234,19 +248,20 @@ class FolderLoader:
                     stacked, meta = self._wait_batch_native(ticket, idxs, filts)
                 else:
                     idxs, rngs = batch_idxs(b)
-                    parts = list(pool.map(lambda a: self._decode_one(self.shard_files[a[0]], a[1]), zip(idxs, rngs)))
+                    parts = list(pool.map(lambda a: self._decode_one(self.files[a[0]], a[1]), zip(idxs, rngs)))
                     if self.device_resample:
                         stacked = np.stack([p[0] for p in parts])
                         meta = np.asarray([p[1:] for p in parts], np.int32)
                     else:
                         stacked, meta = np.stack(parts), None
-                n_real = stacked.shape[0]
-                if n_real < bs:  # pad the tail batch (only when drop_last=False)
-                    stacked = np.concatenate([stacked, np.repeat(stacked[-1:], bs - n_real, axis=0)])
+                n_real = max(min(len(self.files) - b * gb - self.rank * bs, bs), 0)
+                if stacked.shape[0] < bs:  # pad the tail batch (only when drop_last=False)
+                    pad = bs - stacked.shape[0]
+                    stacked = np.concatenate([stacked, np.repeat(stacked[-1:], pad, axis=0)])
                     if meta is not None:  # keep batch dims consistent for DeviceFeed
-                        meta = np.concatenate([meta, np.repeat(meta[-1:], bs - n_real, axis=0)])
+                        meta = np.concatenate([meta, np.repeat(meta[-1:], pad, axis=0)])
                 labels = np.full((bs,), -1, np.int32)
-                labels[:n_real] = [self.shard_labels[i] for i in idxs]
+                labels[:n_real] = [self.labels[i] for i in idxs[:n_real]]
                 if meta is not None:
                     yield stacked, labels, meta
                 elif not self.drop_last:
@@ -363,8 +378,8 @@ class DeviceFeed:
     batch on it, so the allocator does not recycle it early), and runs the
     augment on the current stream as it hands the batch out. The copies of
     the next ``prefetch`` batches are queued before the current batch is
-    consumed, so they overlap the device's work on it. ``seed`` seeds the
-    augment's generator on the device.
+    consumed, so they overlap the device's work on it. ``seed``, with the
+    rank folded in, seeds the augment's generator on the device.
 
     A host batch is (images, labels) or (images, labels, third): with the
     loader's ``meta_kind == "resample"`` the third is the per-sample (sh, sw,
@@ -375,7 +390,7 @@ class DeviceFeed:
         self.host = host_loader
         self.augment = augment_fn
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        self.generator = torch.Generator(device=self.device).manual_seed(rank_seed(seed))
         self.prefetch = max(prefetch, 1)
         # legacy `classes_divisor` (config.LoaderConfig): merge every
         # `label_divisor` consecutive labels; -1 pad labels stay -1

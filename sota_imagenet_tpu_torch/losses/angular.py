@@ -9,7 +9,10 @@ of float32 0-d device tensors that the train step threads through its
 microbatches (``TrainState.loss_state``), never updated in place.
 
 Every loss computes in float32 (float64 for float64 inputs), with the
-reference's clamps (angular_losses.py:81,328). The heads take their
+reference's clamps (angular_losses.py:81,328). Their reductions over the
+batch are over the global batch where ranks share it (``parallel/mesh.py``):
+the sphere head's BatchNorm, AdaCos's B and median, the masked means of the
+auxiliary losses. The heads take their
 cosines in float32 whatever the activation dtype, as the JAX heads'
 ``preferred_element_type=float32`` products: a float64 head computes its
 product in float64 and rounds it to float32, as XLA does.
@@ -28,7 +31,8 @@ from torch import nn
 from sota_imagenet_tpu_torch.losses.base import Loss, StatefulLoss
 from sota_imagenet_tpu_torch.losses.smooth import CrossEntropyLoss
 from sota_imagenet_tpu_torch.models.layers import Linear
-from sota_imagenet_tpu_torch.utils.misc import at_least_f32, sqrt
+from sota_imagenet_tpu_torch.parallel.mesh import all_reduce_, gather_rows, global_mean
+from sota_imagenet_tpu_torch.utils.misc import at_least_f32, process_count, sqrt
 
 EPS = 1e-7
 
@@ -121,8 +125,8 @@ class FlaxBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             xf = at_least_f32(x)
-            mean = xf.mean(dim=0)
-            var = ((xf * xf).mean(dim=0) - mean * mean).clamp(min=0.0)
+            mean = global_mean(xf, 0)
+            var = (global_mean(xf * xf, 0) - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean.detach())
@@ -271,8 +275,10 @@ class AdaCos(StatefulLoss):
         onehot, idx = _to_onehot_and_idx(y_true, cosine.shape[-1])
         neg_mask = onehot == 0
         with torch.no_grad():
-            b_batch = torch.where(neg_mask, torch.exp(cosine * state["prev_s"]), 0.0).sum() / cosine.shape[0]
-            med_cos = _median(_true(cosine, idx))
+            # over the global batch: the ranks' sums, and the median of every rank's target cosines
+            b_sum = all_reduce_(torch.where(neg_mask, torch.exp(cosine * state["prev_s"]), 0.0).sum(), "loss")
+            b_batch = b_sum / (cosine.shape[0] * process_count())
+            med_cos = _median(gather_rows(_true(cosine, idx), "loss"))
             running_b = state["running_B"] * self.momentum + b_batch * (1 - self.momentum)
             running_cos = state["running_cos"] * self.momentum + med_cos * (1 - self.momentum)
             prev_s = torch.log(running_b) / (torch.clamp(running_cos, min=0.7) - self.margin)
@@ -293,9 +299,12 @@ class AdaCos(StatefulLoss):
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The mean of ``values`` where ``mask``; 0 where the mask is empty."""
-    cnt = mask.sum()
-    mean = torch.where(mask, values, 0.0).sum() / torch.clamp(cnt, min=1)
+    """The mean of ``values`` where ``mask`` over the global batch; 0 where
+    the mask is empty. Over N ranks each returns N times its share of the
+    sum over the global count, so the mean of the ranks' losses, and of
+    their gradients, is the global one."""
+    cnt = all_reduce_(mask.sum(), "loss")
+    mean = torch.where(mask, values, 0.0).sum() * process_count() / torch.clamp(cnt, min=1)
     return torch.where(cnt > 0, mean, torch.zeros_like(mean))
 
 
@@ -324,8 +333,8 @@ class SphereCosMAELoss(Loss):
         _, idx = _to_onehot_and_idx(y_true, cosine.shape[-1])
         tc = _true(cosine, idx)
         mask = tc < self.threshold
-        cnt = mask.sum()
-        loss = 1.0 - torch.where(mask, tc, 0.0).sum() / torch.clamp(cnt, min=1)
+        cnt = all_reduce_(mask.sum(), "loss")  # over the global batch, as _masked_mean
+        loss = 1.0 - torch.where(mask, tc, 0.0).sum() * process_count() / torch.clamp(cnt, min=1)
         return torch.where(cnt > 0, loss, torch.zeros_like(loss))
 
 

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from sota_imagenet_tpu_torch.losses.base import Loss
-from sota_imagenet_tpu_torch.utils.misc import at_least_f32
+from sota_imagenet_tpu_torch.utils.misc import at_least_f32, process_count
 
 
 def _as_soft_targets(target: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -162,7 +162,8 @@ def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == "mean":
         return x.mean()
     if reduction == "sum":
-        return x.sum()
+        # the global batch's sum: N ranks average their losses and gradients, so each returns N times its share
+        return x.sum() * process_count()
     if reduction == "none":
         return x
     raise ValueError(f"unknown reduction {reduction!r}")

@@ -8,7 +8,8 @@ import torch.nn.functional as F
 
 from sota_imagenet_tpu_torch.losses.base import Loss
 from sota_imagenet_tpu_torch.losses.smooth import BinaryKLDivLoss
-from sota_imagenet_tpu_torch.utils.misc import at_least_f32
+from sota_imagenet_tpu_torch.registry import NotPortedError
+from sota_imagenet_tpu_torch.utils.misc import at_least_f32, process_count
 
 
 def _top_k_mean(raw: torch.Tensor, pct: float) -> torch.Tensor:
@@ -44,6 +45,9 @@ class FixMatchLoss(Loss):
         self.hard_pct = hard_pct
 
     def __call__(self, y_pred: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
+        if process_count() > 1:
+            # the halves of the GLOBAL batch pair rows that sit on different ranks
+            raise NotPortedError("FixMatchLoss over several ranks", "Queue 1 item 16")
         y_pred = at_least_f32(y_pred)
         half = y_pred.shape[0] // 2
         if y_true.dim() == 1:

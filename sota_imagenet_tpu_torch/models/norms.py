@@ -11,6 +11,17 @@ float32 (float64 for float64 inputs) and the output takes the input's dtype.
 Running statistics are buffers, updated in place by train-mode forwards, as
 the JAX modules update ``batch_stats``.
 
+Statistics over the batch axis are over the GLOBAL batch, as in the JAX
+package, whose step runs on a global array sharded over the mesh's
+``data`` axis (norms.py:1-24 there): with N > 1 ranks of a
+``torch.distributed`` group, each rank holds rows [r*B/N, (r+1)*B/N) and the
+statistics are summed over the ranks (``parallel/mesh.py``); one rank
+computes them as one process does. ``run.bn_stats`` chooses BatchNorm's and
+ABN's view (``resolve_bn_stats``, ``set_bn_stats_groups``): ``global``
+(one group, sync-BN), ``local`` (one group per rank) or an int g (g groups,
+each a contiguous run of B/g rows of the global batch, which may straddle
+ranks).
+
 BatchNorm's convention kept from the JAX package (flax ``nn.BatchNorm``): the running
 variance EMAs the BIASED batch variance, where ``nn.BatchNorm2d`` EMAs the
 unbiased one (factor n/(n-1), n = batch*H*W). Momentum is torch's
@@ -30,7 +41,59 @@ import torch.nn.functional as F
 from torch import nn
 
 from sota_imagenet_tpu_torch.models.layers import activation_from_name
-from sota_imagenet_tpu_torch.utils.misc import at_least_f32
+from sota_imagenet_tpu_torch.parallel.mesh import all_reduce_sum, global_mean
+from sota_imagenet_tpu_torch.utils.misc import at_least_f32, process_count, process_index, sqrt
+
+# Process-wide default of BatchNorm's and ABN's statistics groups, set once
+# from cfg.run.bn_stats before the model is built (norms.py:46-56 of the JAX
+# package; the same global-patch idiom as the reference's bn momentum).
+_BN_STATS_GROUPS: int = 1
+
+
+def set_bn_stats_groups(groups: int) -> None:
+    global _BN_STATS_GROUPS
+    _BN_STATS_GROUPS = max(int(groups), 1)
+
+
+def bn_stats_groups() -> int:
+    return _BN_STATS_GROUPS
+
+
+def resolve_bn_stats(spec, data_devices: int) -> int:
+    """Map config ``run.bn_stats`` (global | local | int) to a group count
+    (norms.py:58-67 of the JAX package): ``local`` is one group per rank."""
+    if spec in (None, "global", 1):
+        return 1
+    if spec == "local":
+        return max(int(data_devices), 1)
+    g = int(spec)
+    if g < 1:
+        raise ValueError(f"run.bn_stats must be 'global', 'local' or a positive int, got {spec!r}")
+    return g
+
+
+def group_moments(x: torch.Tensor, groups: int = 1):
+    """Mean and biased variance over (batch, H, W) of each of ``groups``
+    contiguous runs of rows of the global batch (the JAX ``_BNCore``'s
+    reshape to (g, B/g, ...), norms.py:70-130), from this rank's rows of an
+    NCHW ``x``: each row's sums go to its group's row of a (2, g, C) buffer,
+    one differentiable all-reduce sums the buffers of the ranks, and
+    var = max(E[x^2] - mean^2, 0) as in the JAX one-pass form. Returns the
+    (g, C) mean and var in at least float32, and each local row's group."""
+    b, world = x.shape[0], process_count()
+    if (b * world) % groups:
+        raise ValueError(f"bn_stats groups={groups} must divide the global batch ({b * world})")
+    per = b * world // groups
+    rows = (torch.arange(b, device=x.device) + process_index() * b) // per
+    # each row's and channel's sums of x and x^2 over (H, W), accumulated in at least float32 without a float32
+    # copy of x (a bf16 reduction to float32 reads x as it is); autograd keeps x and the norms only
+    acc = torch.promote_types(x.dtype, torch.float32)
+    sums = torch.stack([x.sum(dim=(2, 3), dtype=acc), torch.linalg.vector_norm(x, dim=(2, 3), dtype=acc).square()])
+    # each row's sums into its group's row, as a product with the one-hot (b, g) membership: deterministic on the
+    # card, where index_add's atomics sum in a varying order
+    part = torch.einsum("bg,sbc->sgc", F.one_hot(rows, groups).to(sums.dtype), sums)
+    tot = all_reduce_sum(part, "bn") / (per * x.shape[2] * x.shape[3])
+    return tot[0], (tot[1] - tot[0].square()).clamp(min=0.0), rows
 
 
 class BatchNorm(nn.Module):
@@ -46,14 +109,23 @@ class BatchNorm(nn.Module):
     (the JAX ``_BNCore``, norms.py:70-140): mean and E[x^2] in float32 in
     one pass, var = max(E[x^2] - mean^2, 0), and the normalize in the
     activation dtype, each factor cast to it first; the gradient reaches
-    the statistics through the subsampled positions only."""
+    the statistics through the subsampled positions only.
+
+    ``stats_groups`` (None: the process default, ``set_bn_stats_groups``)
+    g > 1, or more than one rank, takes the statistics of each of g
+    runs of the global batch (``group_moments``; g = 1 over the ranks is
+    sync-BN), normalizes each row by its group's as x * scale + shift
+    (scale = rsqrt(var + eps) * weight, shift = bias - mean * scale, cast
+    to the activation dtype), and moves the running buffers by the groups'
+    average, the same on every rank (the JAX note, norms.py:113-117)."""
 
     def __init__(
         self, num_features: int, momentum: float = 0.1, eps: float = 1e-5, dtype: Optional[torch.dtype] = None,
-        subsample: int = 1,
+        subsample: int = 1, stats_groups: Optional[int] = None,
     ):
         super().__init__()
         self.momentum, self.eps, self.dtype, self.subsample = momentum, eps, dtype, max(int(subsample), 1)
+        self.stats_groups = stats_groups
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -84,6 +156,16 @@ class BatchNorm(nn.Module):
             use_running_average = not self.training
         if use_running_average:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps).to(dt)
+        groups = self.stats_groups if self.stats_groups is not None else bn_stats_groups()
+        # one group over one rank is the one process's BatchNorm, whether or not a process group is up
+        if groups > 1 or process_count() > 1:
+            s = self.subsample
+            mean, var, rows = group_moments(x if s == 1 else x[:, :, ::s, ::s], groups)
+            self._update(mean.detach().mean(0), var.detach().mean(0))
+            scale = torch.rsqrt(var + self.eps) * self.weight
+            shift = self.bias - mean * scale
+            view = (x.shape[0], -1, 1, 1)
+            return x.to(dt) * scale[rows].to(dt).view(view) + shift[rows].to(dt).view(view)
         if self.subsample > 1:
             s = self.subsample
             xf = at_least_f32(x[:, :, ::s, ::s])
@@ -105,9 +187,9 @@ class ABN(BatchNorm):
 
     def __init__(
         self, num_features: int, activation: str = "leaky_relu", momentum: float = 0.1, eps: float = 1e-5,
-        frozen: bool = False, dtype: Optional[torch.dtype] = None,
+        frozen: bool = False, dtype: Optional[torch.dtype] = None, stats_groups: Optional[int] = None,
     ):
-        super().__init__(num_features, momentum, eps, dtype)
+        super().__init__(num_features, momentum, eps, dtype, stats_groups=stats_groups)
         self.frozen = frozen
         self.act = activation_from_name(activation)
 
@@ -176,8 +258,8 @@ class EstimatedABN(nn.Module):
         if self.training:
             with torch.no_grad():
                 xf = at_least_f32(x)
-                bmean = xf.mean(dim=(0, 2, 3))
-                bvar = xf.square().mean(dim=(0, 2, 3)) - bmean.square()
+                bmean = global_mean(xf, (0, 2, 3))
+                bvar = global_mean(xf.square(), (0, 2, 3)) - bmean.square()
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(bmean.float(), alpha=m)
                 self.running_var.mul_(1.0 - m).add_(bvar.float().clamp(min=0.0), alpha=m)
@@ -273,7 +355,7 @@ class FRNv1(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = at_least_f32(x)
         if self.training:
-            x2 = xf.square().mean(dim=(0, 2, 3))  # per-channel batch RMS^2
+            x2 = global_mean(xf.square(), (0, 2, 3))  # per-channel batch RMS^2
             y = xf * torch.rsqrt(x2 + self.eps).view(1, -1, 1, 1)
             _ema_(self.running_var, self.momentum, x2)
             y = y * _clamped_ratio(torch.sqrt(x2 + self.eps), torch.sqrt(self.running_var)).view(1, -1, 1, 1)
@@ -310,11 +392,11 @@ class FRNv2(nn.Module):
         if self.training:
             x2_ln = xf.square().mean(dim=(1, 2, 3), keepdim=True)  # per sample
             y = xf * torch.rsqrt(x2_ln + self.eps)
-            _ema_(self.single_running_var, self.momentum, x2_ln.mean())
+            _ema_(self.single_running_var, self.momentum, global_mean(x2_ln.detach()))
             y = y * _clamped_ratio(torch.sqrt(x2_ln + self.eps), torch.sqrt(self.single_running_var))
             x2_in = y.square().mean(dim=(2, 3), keepdim=True)  # per sample, per channel
             y = y * torch.rsqrt(x2_in + self.eps)
-            _ema_(self.running_var, self.momentum, x2_in.mean(dim=0).flatten())
+            _ema_(self.running_var, self.momentum, global_mean(x2_in.detach(), 0).flatten())
             y = y * _clamped_ratio(torch.sqrt(x2_in + self.eps), torch.sqrt(self.running_var).view(1, -1, 1, 1))
         else:
             y = xf * torch.rsqrt(self.single_running_var + self.eps)
@@ -350,7 +432,11 @@ class VarEMA(nn.Module):
         # a monitor's statistics need no graph
         with torch.set_grad_enabled(self.use and torch.is_grad_enabled()):
             xf = at_least_f32(x)
-            std, mean = torch.std_mean(xf, correction=0)
+            if process_count() > 1:  # over the global batch: two passes, as jnp.std
+                mean = global_mean(xf)
+                std = sqrt(global_mean((xf - mean).square()))
+            else:  # one fused pass
+                std, mean = torch.std_mean(xf, correction=0)
         _ema_(self.std_ema, self.decay, std)
         _ema_(self.mean_ema, self.decay, mean)
         if not self.use:

@@ -18,7 +18,8 @@ the dtype of each of its values:
 
 The parameter set is the JAX params tree's, one parameter for one leaf
 (the weights plan maps each); Adai's and AdaiS' means over all leaves are
-one device reduction over the stacked per-leaf values.
+one device reduction over the stacked per-leaf values, summed over the
+shards under ZeRO-1 (``optim/zero1.py``).
 
 AdamP and SGDP project the step of every parameter whose JAX leaf has more
 than one axis (``flax_rank``, from the weights plan) off the radial
@@ -81,6 +82,16 @@ class ZooOptimizer(torch.optim.Optimizer):
         super().__init__(params, defaults)
         self.unit_dim = dict(unit_dim or {})
         self.flax_rank = dict(flax_rank or {})
+        # set by the ZeRO-1 wrapper on the optimizer of one rank's share of the parameters
+        # (optim/zero1.CrossShard): a mean over every parameter sums over the shards
+        self.cross_shard = None
+
+    def _sum_over_shards(self, total: torch.Tensor, count: int, elements: bool = False):
+        """``total`` (a sum over this optimizer's parameters) and ``count`` (of
+        its parameters, or of their ``elements``), each over every shard."""
+        if self.cross_shard is None:
+            return total, count
+        return self.cross_shard.sum(total), self.cross_shard.elements if elements else self.cross_shard.params
 
     def _all_params(self) -> List[torch.Tensor]:
         return [p for g in self.param_groups for p in g["params"]]
@@ -310,10 +321,9 @@ class Adai(ZooOptimizer):
         old = [self.state[p]["exp_avg_sq"] for p in params]
         if self._count() == 0:
             v_mean = torch.full((), self.ema_norm_init, dtype=torch.float32, device=params[0].device)
-        elif self.per_layer:
-            v_mean = torch.stack(old).sum() / len(old)
         else:
-            v_mean = torch.stack([_mean(v) for v in old]).sum() / len(old)
+            total, n = self._sum_over_shards(torch.stack(old if self.per_layer else [_mean(v) for v in old]).sum(), len(old))
+            v_mean = total / n
         for group in self.param_groups:
             b0, b2 = group["betas"]
             lr, wd, eps = _f32(group["lr"]), group["weight_decay"], group["eps"]
@@ -367,8 +377,9 @@ class AdaiS(ZooOptimizer):
             new_v[p] = b2 * self.state[p]["exp_avg_sq"] + (1.0 - b2) * _grad(p).float().square()
         # the JAX transform takes one bc2, from the betas it was built with (every group's here)
         bc2 = _bias_correction(self.param_groups[0]["betas"][1], t)
-        total = torch.stack([(v / bc2).sum() for v in new_v.values()]).sum()
-        v_hat_mean = total / sum(v.numel() for v in new_v.values())
+        total, n = self._sum_over_shards(torch.stack([(v / bc2).sum() for v in new_v.values()]).sum(),
+                                         sum(v.numel() for v in new_v.values()), elements=True)
+        v_hat_mean = total / n
         for group in self.param_groups:
             b0 = group["betas"][0]
             lr, wd, eps = _f32(group["lr"]), group["weight_decay"], group["eps"]

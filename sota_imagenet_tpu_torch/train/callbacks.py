@@ -394,7 +394,8 @@ class Timer(Callback):
 
 class CheckpointSaver(Callback):
     """Save the state each epoch and keep the best by a monitored val metric
-    (pytorch_tools CheckpointSaver monitors loss; reference train.py:134)."""
+    (pytorch_tools CheckpointSaver monitors loss; reference train.py:134).
+    Every rank calls it, and rank 0 writes (``save_checkpoint``)."""
 
     def __init__(
         self,
@@ -415,7 +416,8 @@ class CheckpointSaver(Callback):
         from sota_imagenet_tpu_torch.train.checkpoint import save_checkpoint
 
         state = self.runner.state
-        os.makedirs(self.save_dir, exist_ok=True)
+        if process_index() == 0:
+            os.makedirs(self.save_dir, exist_ok=True)
         save_checkpoint(self.save_dir, state, epoch, name=self.save_name, include_optimizer=self.include_optimizer)
         val = (val_metrics or {}).get(self.monitor)
         if val is None:

@@ -14,6 +14,11 @@ epoch is carried by the epoch counter instead). The criterion's state is
 optional, as in the JAX restore (checkpoint.py:169): it is restored where
 the checkpoint holds it with the same keys, and a checkpoint without it
 leaves the run's fresh ``init_state()``.
+
+Over ranks (JAX checkpoint.py:50-51, 80, 86-90): every rank calls
+``save_checkpoint`` (a ZeRO-1 optimizer gathers its whole state in
+``state_dict``), rank 0 writes, and the others wait for it at a barrier; a
+resume loads the same file on every rank.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from typing import Tuple
 
 import torch
 
+from sota_imagenet_tpu_torch.parallel import mesh as par
 from sota_imagenet_tpu_torch.train.state import TrainState
 from sota_imagenet_tpu_torch.utils.logging import get_logger
+from sota_imagenet_tpu_torch.utils.misc import process_index
 
 
 def save_checkpoint(
@@ -41,9 +48,11 @@ def save_checkpoint(
         },
         "epoch": int(epoch),
     }
-    tmp = f"{path}.tmp-{os.getpid()}"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if process_index() == 0:
+        tmp = f"{path}.tmp-{os.getpid()}"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    par.barrier()
     return path
 
 

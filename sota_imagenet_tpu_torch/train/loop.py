@@ -3,7 +3,9 @@ pt.fit_wrapper.Runner equivalent, reference train.py:145-173).
 
 Per-step metrics stay on the device during the epoch and are reduced once
 at epoch end (loop.py:250-253): the loop itself never waits for the device,
-so the host runs ahead while the card works through the queued steps.
+so the host runs ahead while the card works through the queued steps. The
+train step's metrics are the global batch's already; the val pass's are
+summed over the ranks at its end (``reduce_metrics``).
 """
 
 from __future__ import annotations
@@ -17,34 +19,45 @@ import torch
 
 from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
 from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel
+from sota_imagenet_tpu_torch.parallel import mesh as par
 from sota_imagenet_tpu_torch.train import steps as steps_lib
 from sota_imagenet_tpu_torch.train.callbacks import Callback
 from sota_imagenet_tpu_torch.train.schedule import make_lr_schedule
 from sota_imagenet_tpu_torch.train.state import TrainState
 from sota_imagenet_tpu_torch.utils.logging import get_logger
-from sota_imagenet_tpu_torch.utils.misc import resolve_device
+from sota_imagenet_tpu_torch.utils.misc import process_count, resolve_device
 
 
-def reduce_metrics(dev_metrics: List[Dict[str, Any]]) -> Dict[str, float]:
+def reduce_metrics(dev_metrics: List[Dict[str, Any]], over_ranks: bool = False) -> Dict[str, float]:
     """Mean of each metric over a list of per-step dicts, with ONE device read
     for all tensor-valued metrics (host floats such as lr are averaged in f32).
 
     Masked val batches carry ``_weight``, their real sample count: then each
     metric is the mean weighted by it (loop.py:305-312 of the JAX package),
     so padded and all-padding batches count only their real samples, and
-    ``_weight`` itself is not returned."""
+    ``_weight`` itself is not returned.
+
+    ``over_ranks``: the steps' metrics are this rank's (the val pass's), and
+    the result is the global batches': the weighted sums and the weights are
+    summed over the ranks before the division, and unweighted means (equal
+    batches on every rank) averaged over them. Every rank must call it."""
     if not dev_metrics:
         return {}
     keys = list(dev_metrics[0])
     if "_weight" in keys:
         keys.remove("_weight")
         rows = torch.stack([torch.stack([m[k].float() for k in (*keys, "_weight")]) for m in dev_metrics]).tolist()
-        total = sum(row[-1] for row in rows)
-        return {k: sum(row[i] * row[-1] for row in rows) / max(total, 1.0) for i, k in enumerate(keys)}
+        sums = [sum(row[i] * row[-1] for row in rows) for i in range(len(keys))] + [sum(row[-1] for row in rows)]
+        if over_ranks:
+            device = dev_metrics[0]["_weight"].device
+            sums = par.all_reduce_(torch.tensor(sums, dtype=torch.float64, device=device), "metrics").tolist()
+        return {k: sums[i] / max(sums[-1], 1.0) for i, k in enumerate(keys)}
     tensor_keys = [k for k in keys if isinstance(dev_metrics[0][k], torch.Tensor)]
     out: Dict[str, float] = {}
     if tensor_keys:
         means = torch.stack([torch.stack([m[k].float() for m in dev_metrics]).mean() for k in tensor_keys])
+        if over_ranks:
+            means = par.all_reduce_(means, "metrics") / process_count()
         out.update(zip(tensor_keys, means.tolist()))
     for k in keys:
         if k not in out:
@@ -229,7 +242,7 @@ class Runner:
         finally:
             if hasattr(it, "close"):
                 it.close()
-        metrics = reduce_metrics(dev_metrics)
+        metrics = reduce_metrics(dev_metrics, over_ranks=True)
         if not _internal:
             self.val_metrics = metrics
         return metrics

@@ -35,6 +35,19 @@ logits are the clean pass's; grad_norm is the perturbed point's gradients'
 after the transform (JAX steps.py:339). The eval steps read the
 criterion's state and leave it as it is.
 
+Data parallelism (``parallel/mesh.py``): with a process group of N ranks,
+each step computes what the JAX step computes on the global batch, of which
+this rank holds rows [r*B/N, (r+1)*B/N). The mixup draws are every rank's
+(the generator is seeded from the run's seed and the step alone) and the
+partner of global row i is global row B-1-i (``mirror``); dropout and
+drop-path then draw from a stream of the rank's own (rank 0's is the one
+process's). With accumulation each rank takes its 1/N of each of the JAX
+step's microbatches, contiguous runs of the global batch
+(``microbatch_rows``). The gradients and the metrics are averaged over the
+ranks after each pass (once after the last microbatch; after each of SAM's
+two passes, so the perturbation reads the global gradient), before the
+gradient transform, grad_norm and the optimizer read them.
+
 The step feature of the JAX package that is not ported raises
 NotImplementedError naming the ROADMAP item: remat.
 """
@@ -49,9 +62,11 @@ import torch
 from sota_imagenet_tpu_torch.losses.base import StatefulLoss, call_criterion
 from sota_imagenet_tpu_torch.models.layers import bind_generator
 from sota_imagenet_tpu_torch.optim.factory import _unitwise_norm
+from sota_imagenet_tpu_torch.parallel import mesh as par
 from sota_imagenet_tpu_torch.registry import NotPortedError
 from sota_imagenet_tpu_torch.train.metrics import accuracy_topk, classification_metrics
 from sota_imagenet_tpu_torch.train.state import TrainState
+from sota_imagenet_tpu_torch.utils.misc import process_index
 from sota_imagenet_tpu_torch.utils.weights import flax_ranks, unit_dims
 
 Batch = Dict[str, torch.Tensor]
@@ -123,13 +138,15 @@ def apply_cutmix_mixup(
     mixes the labels by the clipped box's exact area. Both are computed and
     ``use_cutmix`` chooses; ``apply`` then chooses between that and the
     untouched batch (apply-then-choose, as the JAX package). The blend runs
-    in float32 (float64 for float64 images) and is cast back."""
+    in float32 (float64 for float64 images) and is cast back. Over ranks the
+    batch is this rank's rows of the global one, and the partner comes from
+    the rank that holds it (``parallel.mesh.mirror``)."""
     if resolve_choice_prob(float(cutmix_alpha), float(mixup_alpha), 0.5) is None:
         return images, labels
     _, h, w, _ = images.shape
     dev = images.device
     x = images.to(torch.promote_types(images.dtype, torch.float32))
-    perm_x, perm_labels = x.flip(0), labels.flip(0)
+    perm_x, perm_labels = par.mirror(images, "mixup").to(x.dtype), par.mirror(labels, "mixup")
 
     lam_m = draws["lam_m"]
     mix_img = lam_m * x + (1.0 - lam_m) * perm_x
@@ -304,9 +321,10 @@ def build_train_step(
     bn_from_perturbed = bool(sam.get("bn_from_perturbed", True)) if sam else True
 
     def batch_grads(model, opt, images, labels, loss_state):
-        """Mean loss and gradients over the batch, into the parameters'
-        ``.grad``, and the criterion's state after it: the same microbatch
-        loop for the clean and the SAM pass, so accumulation bounds the second
+        """The metrics of the batch (its mean loss among them) and the mean
+        gradients, into the parameters' ``.grad``, both averaged over the
+        ranks, and the criterion's state after it: the same microbatch loop
+        for the clean and the SAM pass, so accumulation bounds the second
         forward's memory too. The loader's batch is split, not several batches
         gathered; BN buffers and the criterion's state chain through the
         microbatches and the dropout stream runs on through them."""
@@ -327,7 +345,12 @@ def build_train_step(
         grads = [p.grad for p in params]
         if accumulate_steps > 1:
             torch._foreach_div_(grads, float(accumulate_steps))
-        return loss_sum / accumulate_steps, torch.cat(all_logits), params, grads, loss_state
+        loss = loss_sum / accumulate_steps
+        metrics = classification_metrics(torch.cat(all_logits), labels, loss)
+        # one all-reduce per dtype; the loss in its own dtype, then rounded as one process rounds it
+        par.average_([*grads, loss, metrics["Acc@1"], metrics["Acc@5"]], "grad")
+        metrics["loss"] = loss.to(torch.float32)
+        return metrics, params, grads, loss_state
 
     def train_step(state: TrainState, batch: Batch):
         model, opt = state.model, state.optimizer
@@ -339,12 +362,17 @@ def build_train_step(
             # on the whole batch, before the split: the partner of sample i is B-1-i of the whole batch
             with torch.no_grad():
                 images, labels = mixup_fn(state.generator, images, labels)
+        if state.generator is not None and process_index() > 0:
+            # dropout and drop-path draw from this rank's own stream; the mixup draws above are every rank's
+            state.generator.manual_seed(step_seed(par.rank_seed(state.seed), state.step))
+        images = par.microbatch_rows(images, accumulate_steps)
+        labels = par.microbatch_rows(labels, accumulate_steps)
         mb = images.shape[0] // accumulate_steps
         images, labels = images[: mb * accumulate_steps], labels[: mb * accumulate_steps]
         keep_buffers = perturb is not None and not bn_from_perturbed
         # the second pass starts from the step's buffers (the JAX state.batch_stats)
         before = _snapshot(list(model.buffers())) if keep_buffers else None
-        loss, logits, params, grads, loss_state = batch_grads(model, opt, images, labels, state.loss_state)
+        metrics, params, grads, loss_state = batch_grads(model, opt, images, labels, state.loss_state)
         if perturb is not None:
             # the second gradient, at p + epsilon (JAX steps.py:314-327); the update then applies to the
             # saved p, copied back, since p + eps - eps need not be p in floating point
@@ -355,7 +383,7 @@ def build_train_step(
                     after = _snapshot(list(model.buffers()))  # the clean pass's, which the step keeps
                     _restore(list(model.buffers()), before)
             second_state = loss_state if bn_from_perturbed else state.loss_state
-            _, _, params, grads, second_state = batch_grads(model, opt, images, labels, second_state)
+            _, params, grads, second_state = batch_grads(model, opt, images, labels, second_state)
             if bn_from_perturbed:
                 loss_state = second_state
             with torch.no_grad():
@@ -382,7 +410,6 @@ def build_train_step(
                 # (the reference ModelEma averages the full state_dict)
                 torch._foreach_mul_(ema_t, ema_decay)
                 torch._foreach_add_(ema_t, new_t, alpha=1.0 - ema_decay)
-        metrics = classification_metrics(logits, labels, loss)
         metrics["grad_norm"] = grad_norm
         metrics["lr"] = lr
         state.step += 1

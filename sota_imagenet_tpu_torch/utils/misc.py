@@ -3,6 +3,7 @@ pytorch_tools.utils.misc equivalents used by the reference at train.py:56,84,96)
 
 from __future__ import annotations
 
+import os
 import random
 from typing import Dict, Iterable, Sequence, Tuple
 
@@ -12,7 +13,10 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The port runs on the card unless the caller asks for the CPU: None
-    means ``cuda``, and a CUDA device without a GPU present raises."""
+    means this rank's card, ``cuda:{LOCAL_RANK % device_count}`` (ranks past
+    the cards share them), and a CUDA device without a GPU present raises."""
+    if device is None and torch.cuda.is_available():
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")

@@ -120,8 +120,7 @@ def test_main_defaults_to_cuda():
 
 @pytest.mark.parametrize(
     "override",
-    ["run.remat=true", "mesh.data=2", "run.bn_stats=local", "mesh.zero1=true",
-     "loader.backend=tfrecord", "run.skip_nonfinite=2"],
+    ["run.remat=true", "mesh.spatial=2", "mesh.model=2", "loader.backend=tfrecord", "run.skip_nonfinite=2"],
 )
 def test_unported_options_raise(override, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

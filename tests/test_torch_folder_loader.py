@@ -247,7 +247,7 @@ def test_folder_loader_takes_the_jax_arguments(tree):
                                                           "loader.interpolation=cubic", "loader.device_resample=true",
                                                           "loader.workers=2"], strict_env=False).loader, True)
     for attr in ("batch_size", "image_size", "min_area", "random_interpolation", "interpolation", "workers",
-                 "drop_last", "device_resample", "meta_kind", "seed", "shard_files"):
+                 "drop_last", "device_resample", "meta_kind", "seed", "files"):
         assert getattr(train, attr) == getattr(ref, attr), attr
     assert P._build_host_loader(cfg.val_loader, False).full_crop
 
