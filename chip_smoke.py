@@ -54,8 +54,15 @@ without a build; any failure exits non-zero and prints no result):
              steps with each new criterion, two with sigmoid_trick's bias,
              AdaCos three with its state (losses_model_phase). The CPU
              steps of the phases built on _card_vs_cpu_step(s) (bresnet,
-             bnet, zoo, sam and these two) run PyTorch's own convs, not
-             oneDNN's (cpu_reference).
+             bnet, zoo, sam, these two and model_legacy) run PyTorch's own
+             convs, not oneDNN's (cpu_reference).
+3b. model_legacy — one f32 step on the card against the CPU of each legacy
+             architecture with its config's optimizer, SiLU activations,
+             64 px, batch 8: exp48's BNet trunk at full width (one block a
+             stage), exp57's with weight standardisation and AdamP (the
+             projected sets equal), exp26's csp_simpl_dark, a depth-cut
+             densenet121 and the whole tresnetm (legacy_model_phase;
+             tolerances as the model phases').
 4. trainer A — ``cli.main`` on configs/exp/1.r50_baseline.yaml (ResNet-50 at
              full width, batch 256 at 224 px, bf16, synthetic data, debug
              mode: 10 train steps and 20 val steps). Checks: finite loss, the
@@ -180,6 +187,19 @@ without a build; any failure exits non-zero and prints no result):
              stage of its warmup: ConvMixer-768/30 (patch 7, kernel 7),
              batch 48 at 224 px, bf16, SGD. Checks as trainer A, and: 30
              ConvMixerBlocks, 19-21M parameters; reports the forward GMAC.
+19b. trainer Q — ``cli.main`` on configs/old_exp/exp85-114/exp48.GEnet_no_dim_red_ctmx.yaml
+             as the file says but for synthetic data, debug mode and one
+             1-epoch stage of its warmup: BNet (Pre_XX, Pre_XX, Pre_IR,
+             Pre_IR with 9x9 strided depthwise convs; s2d stem; widths
+             128/192/640/1024, head 2560), batch 256 at 224 px, bf16, SGD,
+             EMA 0.9993, cutmix, colour twist 0.4. Checks as trainer A, and:
+             the EMA moved, the JAX model's parameter count, 14 BNetBlocks,
+             every parameter decayed; reports the forward GMAC.
+19c. trainer R — the same on configs/old_exp/first_attempts/effnetb0_tf.yaml
+             with one 1-epoch stage of its poly decay: EfficientNet-B0
+             (swish, drop 0.2, drop-connect 0.2), batch 384 at 224 px, val
+             at 256, RMSprop, EMA 0.9999, cutmix, colour twist 0.4; the
+             JAX model's parameter count and 16 MBConv blocks.
 20. model_ddp — first a probe (ddp_probe_phase): two ranks on the card
              under gloo try each collective on CUDA tensors, and two under
              NCCL must be refused (one device). Then three float64 steps of
@@ -204,18 +224,21 @@ without a build; any failure exits non-zero and prints no result):
 22. trainer P1 — the same config as one rank under NCCL, from torchrun's
              environment (WORLD_SIZE=1, mesh.data=-1): its ms/step against
              trainer A's is the cost of the port's collectives at one rank.
-23. profile — trainers A, C, D, H, I, J, K, L, M and O once more with
+23. profile — trainers A, C, D, H, I, J, K, L, M, O, Q and R once more with
              torch.profiler over steps 4-7: device time per step by layer
              and the top kernels, and the device's busy share (separate
              runs, so the trainers' times stay clean). D's, I's, J's, K's,
-             L's and M's device time is attributed to the port's layers by
+             L's, M's, O's, Q's and R's device time is attributed to the port's layers by
              the op that launched each kernel (layer_breakdown; UFO, XCA,
              GEM, AGC, the parametrization, BlurPool, drop-path, SAM's
              perturbation and copies and the parameter histogram each a
              group of its own, the depthwise convs apart from the grouped
              ones, the optimizer's step by its own scope, each layer's top
              kernels); I's must show the auxiliary loss's forward and
-             backward in every profiled step.
+             backward in every profiled step. Q's and R's shares of their
+             device step by depthwise convs, BatchNorm/ABN, BNet's partial
+             residual (a scope of its own) and fused_aug are printed apart
+             (legacy_layer_shares).
 
 Every kernel counter is set to 0 just before each trainer's ``cli.main`` and
 read just after. The line before the last is the card's name and power
@@ -360,18 +383,21 @@ def kernel_phase() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     # the shapes and types the trainers give it: (256, 224, 224) bf16 (r50_baseline with the stages
-    # off, the folder trainers), (512, 224, 224) bf16 (the NFNet recipe's loader batch, 2 x 256
-    # under accumulate_steps 2, stages on), (64, 32, 32) f32 with the stages off (tiny_synthetic,
-    # run.bf16 false: the kernel's float instantiation); and a toy shape with odd sides
-    for b, h, w, out_dtype in (
-        (256, 224, 224, torch.bfloat16),
-        (3, 37, 53, torch.bfloat16),
-        (64, 32, 32, torch.float32),
-        (512, 224, 224, torch.bfloat16),
+    # off, the folder trainers; exp48's colour twist 0.4 alone, trainer Q), (512, 224, 224) bf16 (the
+    # NFNet recipe's loader batch, 2 x 256 under accumulate_steps 2, stages on), (64, 32, 32) f32 with
+    # the stages off (tiny_synthetic, run.bf16 false: the kernel's float instantiation), (384, 224,
+    # 224) bf16 with effnetb0_tf's colour twist 0.4 (trainer R); and a toy shape with odd sides
+    stage_probs = {"off": (0.0, 0.0, 0.0), "on": (0.4, 0.2, 0.3), "color_twist_0.4": (0.4, 0.0, 0.0)}
+    for b, h, w, out_dtype, stage_sets in (
+        (256, 224, 224, torch.bfloat16, ("off", "on", "color_twist_0.4")),
+        (3, 37, 53, torch.bfloat16, ("off", "on")),
+        (64, 32, 32, torch.float32, ("off", "on")),
+        (512, 224, 224, torch.bfloat16, ("off", "on")),
+        (384, 224, 224, torch.bfloat16, ("off", "color_twist_0.4")),
     ):
         imgs = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8, device="cuda", generator=gen)
-        for stages in ("off", "on"):
-            probs = (0.4, 0.2, 0.3) if stages == "on" else (0.0, 0.0, 0.0)
+        for stages in stage_sets:
+            probs = stage_probs[stages]
             kw = dict(color_twist_prob=probs[0], gray_prob=probs[1], re_prob=probs[2], re_count=3)
             scalars = draw_augment_scalars(gen, b, device="cuda", **kw)
             out = fused_augment(imgs, scalars, out_dtype=out_dtype, **kw)
@@ -413,7 +439,7 @@ def kernel_phase() -> dict:
         "max_abs_diff": max(c["max_abs_err"] for c in cases),
         "ms": main["kernel_ms"],  # device time of the kernel alone
         "wrapper_ms": main["wrapper_ms"],
-        "host_us_toy": cases[2]["host_us"],  # (3, 37, 53, 3), stages off
+        "host_us_toy": next(c["host_us"] for c in cases if "host_us" in c),  # (3, 37, 53, 3), stages off
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
@@ -2171,6 +2197,109 @@ def losses_model_phase() -> dict:
     return result
 
 
+def _silu_activations(model):
+    """Every module activation (an ``act`` attribute: the blocks', ABN's, the
+    stems') made SiLU: a float32 rounding that moves a pre-activation across
+    a ReLU's or leaky_relu's kink moves the gradient (bresnet_model_phase)."""
+    import torch
+    import torch.nn.functional as F
+
+    for m in model.modules():
+        if callable(getattr(m, "act", None)) and not isinstance(m.act, torch.nn.Module):
+            m.act = F.silu
+    return model
+
+
+def _legacy_model(path: str, **cut):
+    """The ``model:`` block of the old_exp config at ``path`` with ``cut`` over it, 1000 classes."""
+    from sota_imagenet_tpu_torch import config as C
+
+    return C.instantiate({**C.to_dict(C.load(path, strict_env=False).model), "num_classes": 1000, **cut})
+
+
+def legacy_model_phase() -> dict:
+    """One f32 train step (TF32 off, 64 px, batch 8) on the card against the
+    CPU of each legacy architecture, from the same seeded weights, each with
+    its config's optimizer and SiLU for its activations (_silu_activations;
+    BNet through ``norm_act``): exp48's trunk at full width, one block per
+    stage (s2d stem, Pre_XX/Pre_IR with 9x9 strided depthwise convs, partial
+    residuals; SGD); exp57's, with weight standardisation (gamma 1.72)
+    through ParametrizedModel and AdamP, whose projected sets on the card
+    and on the CPU must be equal; exp26's csp_simpl_dark (s2d stem, CSP
+    ratio 0.75, no x2 transition) with two blocks a stage; densenet121 with
+    two layers a block; and tresnetm whole (it has no depth field).
+    Tolerances as the model phases' (_within)."""
+    import torch
+
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel, weight_standardization_fn
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.utils.weights import flax_ranks, unit_dims
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images, labels = _seeded_batch(64)
+    one_block = {"layers": [1, 1, 1, 1], "norm_act": "silu"}
+    cases = {  # name -> (config, model, lr, WS gamma)
+        "exp48_trunk": (EXP48, lambda: _legacy_model(EXP48, **one_block), 0.2, None),
+        "exp57_trunk_ws_adamp": (EXP57, lambda: _legacy_model(EXP57, **one_block), 0.002, 1.72),
+        "csp_simpl_dark": (EXP26, lambda: _legacy_model(EXP26, layers=[1, 2, 2, 2, 2], norm_act="silu"), 0.1, None),
+        "densenet121": (DENSENET, lambda: _silu_activations(_legacy_model(DENSENET, blocks=[2, 2, 2, 2])), 0.1, None),
+        "tresnetm": (TRESNET, lambda: _silu_activations(_legacy_model(TRESNET)), 0.1, None),
+    }
+    out, bad = {}, []
+    for name, (config, build, lr, gamma) in cases.items():
+        optim = dict(C.load(config, strict_env=False).optim)
+
+        def make_state(dev, dt, build=build, gamma=gamma, optim=optim):
+            model = build()
+            if gamma is not None:
+                model = ParametrizedModel(model, weight_standardization_fn(gamma))
+            units = {"unit_dim": unit_dims(model), "flax_rank": flax_ranks(model)}
+            state = steps.init_state(model, lambda m: build_optimizer(optim, m.named_parameters(), **units),
+                                     device=dev, seed=0)
+            model.to(dt)
+            return state
+
+        runs = _card_vs_cpu_step(make_state, images, labels, {"lr_schedule": lambda i, lr=lr: lr})
+        model = runs["cuda", torch.float32]["state"].model
+        extra = {"config": config, "optimizer": optim["_target_"],
+                 "parameters_m": sum(p.numel() for p in model.parameters()) / 1e6,
+                 "module_kinds": sorted({type(m).__name__ for m in model.modules()} & {
+                     "BNetBlock", "_NormActLayer", "_CBA", "BasicBlock", "Bottleneck", "SE", "BlurPool", "BatchNorm",
+                     "ABN", "SpaceToDepth", "ParametrizedModel"})}
+        ok = True
+        if gamma is not None:
+            card, cpu = (runs[dev, torch.float32]["state"].optimizer.projected.cpu() for dev in ("cuda", "cpu"))
+            extra.update({"standardised_kernels": len(model.selected[0]), "projected": int(card.sum()),
+                          "projected_cpu": int(cpu.sum()), "projected_sets_equal": bool(torch.equal(card, cpu))})
+            ok = extra["projected_sets_equal"] and extra["projected"] >= extra["standardised_kernels"] > 0
+        res = _step_agreement(f"model_legacy {name}", runs, extra)
+        out[name] = res
+        if not (ok and _within(res)):
+            bad.append(name)
+    result = {"phase": "model_legacy", "models": out}
+    print(f"[model_legacy] {json.dumps(result)}")
+    if bad:
+        raise AssertionError(f"model_legacy: the card disagrees with the CPU for {bad}")
+    return result
+
+
+def legacy_layer_shares(name: str, result: dict) -> dict:
+    """A profiled legacy trainer's device time by the port's layer groups (the
+    depthwise convs, BatchNorm/ABN, BNet's partial residual, fused_aug...),
+    each as ms a step and as a share of its profiled device step; printed."""
+    prof = result["profile"]
+    device_step = prof["device_ms"] / prof["steps"]
+    by_layer = prof["by_layer_ms_per_step"]
+    shares = {g: {"ms_per_step": by_layer.get(g, 0.0), "share_of_step": by_layer.get(g, 0.0) / device_step}
+              for g in ("depthwise convs", "dense convs", "grouped convs", "BatchNorm", "partial residual",
+                        "fused_aug", "elementwise/activations", "SGD", "RMSprop", "EMA", "copies")}
+    print(f"[{name}] {json.dumps({'device_ms_per_step': device_step, 'layers': shares})}")
+    return shares
+
+
 def forward_gmac(config: str, image_size: int = 224) -> dict:
     """The model of ``config``'s forward MACs per image at ``image_size``,
     counted by torch.utils.flop_counter on the meta device (no memory, no
@@ -2321,7 +2450,10 @@ def trainer_phase(
     weight decay, 14 NonDeepBlocks of which 4 hold a UFO, and AGC's record
     of the last step (on the card, every unit of the model, at least one
     clipped, none over its bound after the clip); it also reports the
-    model's forward MACs (forward_gmac). With any recipe, a profile is
+    model's forward MACs (forward_gmac); with "bnet" or "effnet" (the
+    legacy recipes, LEGACY), an EMA that moved, every parameter decayed, the
+    JAX model's parameter count, its blocks and its optimizer, and the
+    forward MACs. With any recipe, a profile is
     attributed to the port's layers (layer_breakdown); nf_lamb's must find
     the auxiliary loss's forward and backward in every profiled step. With ``tree`` it reads
     that JPEG ImageFolder (train and val) instead of synthetic data, for two
@@ -2453,6 +2585,15 @@ def trainer_phase(
         result["loss_state_after_val"] = probe.loss_state_after_val
         result["resume_eval"] = resumed
         result["parameters_m"] = sum(p.numel() for p in probe.runner.state.model.parameters()) / 1e6
+    if recipe in LEGACY:
+        model = probe.runner.state.model
+        kind = LEGACY[recipe][1]
+        result["parameters"] = sum(p.numel() for p in model.parameters())
+        result["blocks"] = sum(1 for m in model.modules() if type(m).__name__ == kind)
+        result["forward"] = forward_gmac(config)
+        # fwd + bwd = 3x the forward's MACs, 2 FLOP each, over the batch
+        result["tflop_per_step"] = 6 * result["forward"]["gmac_per_image"] * probe.batch_size / 1e3
+        result["optimizer"] = type(getattr(probe.runner.state.optimizer, "inner", probe.runner.state.optimizer)).__name__
     if recipe == "convmixer":
         model = probe.runner.state.model
         result["parameters_m"] = sum(p.numel() for p in model.parameters()) / 1e6
@@ -2495,14 +2636,16 @@ def trainer_phase(
         raise AssertionError(f"{name}: val batches of shapes {probe.val_shapes}, want {val_shapes} shapes")
     if recipe:
         groups = result["weight_decay_groups"]
-        if recipe in ("nfnet", "bresnet", "adamp") and not probe.ema_differs:
+        if recipe in ("nfnet", "bresnet", "adamp", *LEGACY) and not probe.ema_differs:
             raise AssertionError(f"{name}: the EMA equals the weights after {steps} steps")
         gains = any("gain" in k for k in probe.weight_decay_of)
         if recipe in ("nfnet", "nf_lamb", "nondeep", "sam") and (
                 groups["gains_decayed"] or not groups["decayed"] or not gains):
             raise AssertionError(f"{name}: weight decay groups {groups}")
-        # resnet50 and bresnet50 have no gain
-        if recipe in ("bresnet", "adamp") and (not groups["decayed"] or gains):
+        # resnet50, bresnet50, BNet and EfficientNet have no gain; the legacy recipes decay every parameter
+        if recipe in ("bresnet", "adamp", *LEGACY) and (not groups["decayed"] or gains):
+            raise AssertionError(f"{name}: weight decay groups {groups}")
+        if recipe in LEGACY and groups["not_decayed"]:
             raise AssertionError(f"{name}: weight decay groups {groups}")
     if recipe == "adamp":
         hists = result["param_log_histograms"]
@@ -2535,6 +2678,11 @@ def trainer_phase(
             raise AssertionError(f"{name}: the val pass moved the state: {states[-1]} -> {result['loss_state_after_val']}")
         if r is None or not (r["saved"] == states[-1] == r["restored"] == r["after_eval"]):
             raise AssertionError(f"{name}: the state saved, restored and after the resumed eval: {r}, last {states[-1]}")
+    if recipe in LEGACY:
+        params, kind, blocks, optimizer = LEGACY[recipe]
+        if (result["parameters"], result["blocks"], result["optimizer"]) != (params, blocks, optimizer):
+            raise AssertionError(f"{name}: {result['parameters']} parameters, {result['blocks']} {kind}s, "
+                                 f"{result['optimizer']}; want {params}, {blocks}, {optimizer}")
     if recipe == "convmixer":
         if result["blocks"] != 30 or not 19.0 < result["parameters_m"] < 21.0:
             raise AssertionError(f"{name}: {result['blocks']} ConvMixerBlocks, {result['parameters_m']}M parameters")
@@ -3008,7 +3156,7 @@ def _layer_scopes():
     and a ParametrizedModel's effective weights), the ECA gate, VarEMA, the
     auxiliary losses, cutmix_mixup, UFO, XCA, the GEM pools, AGC, BlurPool,
     drop-path, SAM's perturbation and its copies of the weights and buffers,
-    and GradDistributionTB's histogram in torch.profiler.record_function
+    GradDistributionTB's histogram and BNet's partial residual in torch.profiler.record_function
     scopes (SCOPE_LAYERS), so
     layer_breakdown can tell their kernels from the other ones (UFO's and
     XCA's 1x1 convs count as theirs). The originals are
@@ -3018,6 +3166,7 @@ def _layer_scopes():
 
     import torch
 
+    from sota_imagenet_tpu_torch.models import bnet
     from sota_imagenet_tpu_torch.models.attention import ECA, UFO, XCA
     from sota_imagenet_tpu_torch.models.layers import BlurPool, DropPath, GEMPool, ScaledStdConv
     from sota_imagenet_tpu_torch.models.norms import VarEMA
@@ -3041,6 +3190,7 @@ def _layer_scopes():
         (ParametrizedModel, "effective_parameters", "param"), (BlurPool, "forward", "blur"),
         (DropPath, "forward", "droppath"), (steps.SamPerturbation, "__call__", "sam_perturb"),
         (steps, "_restore", "sam_restore"), (callbacks, "log_histogram", "histogram"),
+        (bnet, "partial_residual", "partial_res"),
     )
     originals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
     try:
@@ -3055,7 +3205,7 @@ def _layer_scopes():
 SCOPE_LAYERS = {"ws": "weight standardisation", "eca": "ECA", "varema": "VarEMA", "aux": "aux loss", "mixup": "mixup",
                 "ufo": "UFO", "xca": "XCA", "gem": "GEM", "agc": "AGC", "param": "parametrization (WS)",
                 "blur": "BlurPool", "droppath": "drop-path", "sam_perturb": "SAM perturb",
-                "sam_restore": "SAM save/restore", "histogram": "param histogram"}
+                "sam_restore": "SAM save/restore", "histogram": "param histogram", "partial_res": "partial residual"}
 CONV_OPS = {"aten::cudnn_convolution": (0, 1), "aten::convolution": (0, 1), "aten::_convolution": (0, 1),
             "aten::conv2d": (0, 1), "aten::convolution_backward": (1, 2)}  # op -> positions of (input, weight)
 
@@ -3157,9 +3307,10 @@ def layer_breakdown(prof, window):
     return by_layer, {k: len(v) for k, v in aux.items()}, top
 
 
-PHASES = ("build", "kernels", "model", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e", "trainer_i",
-          "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n", "trainer_o", "model_ddp", "trainer_p",
-          "trainer_p1", "data", "trainer_f", "trainer_g", "packed", "trainer_h", "learn", "profile")
+PHASES = ("build", "kernels", "model", "model_legacy", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e",
+          "trainer_i", "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n", "trainer_o", "trainer_q",
+          "trainer_r", "model_ddp", "trainer_p", "trainer_p1", "data", "trainer_f", "trainer_g", "packed", "trainer_h",
+          "learn", "profile")
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
@@ -3176,6 +3327,17 @@ ADAMP_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0, 0.001]}]",)  # the recipe
 SAM_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.005, 0], lr_mode: cos}]",)  # the recipe's cosine in one epoch
 CONVMIXER = "configs/exp/66.conv-mix_original.yaml"
 CONVMIXER_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.001, 0.1]}]",)  # the recipe's warmup, cut to the one debug epoch
+EXP48 = "configs/old_exp/exp85-114/exp48.GEnet_no_dim_red_ctmx.yaml"
+EXP48_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.0, 0.2]}]",)  # the recipe's warmup, cut to the one debug epoch
+EXP57 = "configs/old_exp/exp1-85/exp57.GENet_no_dim_red_ctmx_ws_adamp.yaml"
+EXP26 = "configs/old_exp/exp1-85/exp26.csp_simpl_Dark_less_cls.yaml"
+DENSENET = "configs/old_exp/first_attempts/densenet121_baseline.yaml"
+TRESNET = "configs/old_exp/first_attempts/tresnetm.yaml"
+EFFNET = "configs/old_exp/first_attempts/effnetb0_tf.yaml"
+EFFNET_STAGE = ("run.stages=[{start: 0, end: 1, lr: [0.096, 0.001], lr_mode: poly}]",)  # the recipe's poly decay in one epoch
+# recipe -> the model's parameter count (the JAX model's: tests/test_torch_bnet_family.py and
+# tests/test_torch_extras.py hold them equal), its block class, how many, and the optimizer class
+LEGACY = {"bnet": (21_577_576, "BNetBlock", 14, "SGD"), "effnet": (5_290_476, "_MBConv", 16, "RMSprop")}
 
 
 def main(argv=None) -> int:
@@ -3234,6 +3396,8 @@ def main(argv=None) -> int:
         run("model_sam", sam_model_phase)
         run("model_cmodel_tables", cmodel_tables_model_phase)
         run("model_losses", losses_model_phase)
+    if "model_legacy" in phases:
+        run("model_legacy", legacy_model_phase)
     aug_only = {"fused_aug": 1}
     if "trainer_a" in phases:
         run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only)
@@ -3260,6 +3424,10 @@ def main(argv=None) -> int:
         run("trainer_n", trainer_phase, "trainer_n", ADACOS, ADACOS_STAGE, gpu, aug_only, recipe="adacos")
     if "trainer_o" in phases:
         run("trainer_o", trainer_phase, "trainer_o", CONVMIXER, CONVMIXER_STAGE, gpu, aug_only, recipe="convmixer")
+    if "trainer_q" in phases:
+        run("trainer_q", trainer_phase, "trainer_q", EXP48, EXP48_STAGE, gpu, aug_only, recipe="bnet")
+    if "trainer_r" in phases:
+        run("trainer_r", trainer_phase, "trainer_r", EFFNET, EFFNET_STAGE, gpu, aug_only, recipe="effnet")
     if "model_ddp" in phases:
         run("ddp_probe", ddp_probe_phase, gpu)
         run("model_ddp", model_ddp_phase, gpu)
@@ -3313,6 +3481,13 @@ def main(argv=None) -> int:
             recipe="sam")
         run("profile_o", trainer_phase, "profile_o", CONVMIXER, CONVMIXER_STAGE, gpu, aug_only,
             profile_window=(2, 6), recipe="convmixer")
+        run("profile_q", trainer_phase, "profile_q", EXP48, EXP48_STAGE, gpu, aug_only, profile_window=(2, 6),
+            recipe="bnet")
+        run("profile_r", trainer_phase, "profile_r", EFFNET, EFFNET_STAGE, gpu, aug_only, profile_window=(2, 6),
+            recipe="effnet")
+    for profile in ("profile_q", "profile_r"):
+        if profile in results:
+            results[profile]["layer_shares"] = legacy_layer_shares(profile, results[profile])
     if "profile_h" in results:
         # the cache's input stage inside H's step: the gather and the augment kernel, as shares of its device time
         by_group = results["profile_h"]["profile"]["by_group_ms_per_step"]
@@ -3326,7 +3501,7 @@ def main(argv=None) -> int:
         print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median_4_10'], 'ms_per_step_a': a['ms_per_step_median_4_10'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
     for trainer, profile in (("trainer_d", "profile_d"), ("trainer_i", "profile_i"), ("trainer_j", "profile_j"),
                              ("trainer_k", "profile_k"), ("trainer_l", "profile_l"), ("trainer_m", "profile_m"),
-                             ("trainer_o", "profile_o")):
+                             ("trainer_o", "profile_o"), ("trainer_q", "profile_q"), ("trainer_r", "profile_r")):
         if trainer not in results or profile not in results:
             continue
         # the profiler (shapes recorded, thousands of ops a step) slows these hosts far more than A's or C's:
@@ -3360,6 +3535,8 @@ def main(argv=None) -> int:
     kernels[0]["launches_sam"] = results["trainer_m"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_adacos"] = results["trainer_n"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_convmixer"] = results["trainer_o"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_bnet_exp48"] = results["trainer_q"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_effnet_b0"] = results["trainer_r"]["kernel_launches"]["fused_aug"]
     # the data-parallel trainers: one augment launch a step on each rank
     kernels[0]["launches_ddp_two_ranks"] = [r["fused_aug"] for r in results["trainer_p"]["launches_per_rank"]]
     kernels[0]["launches_ddp_nccl_one_rank"] = results["trainer_p1"]["launches_per_rank"][0]["fused_aug"]

@@ -121,19 +121,21 @@ class BatchNorm(nn.Module):
 
     def __init__(
         self, num_features: int, momentum: float = 0.1, eps: float = 1e-5, dtype: Optional[torch.dtype] = None,
-        subsample: int = 1, stats_groups: Optional[int] = None,
+        subsample: int = 1, stats_groups: Optional[int] = None, use_scale: bool = True,
     ):
         super().__init__()
         self.momentum, self.eps, self.dtype, self.subsample = momentum, eps, dtype, max(int(subsample), 1)
         self.stats_groups = stats_groups
-        self.weight = nn.Parameter(torch.ones(num_features))
+        # use_scale=False (the JAX BatchNorm's option): no ``weight``, the normalized x is only shifted
+        self.weight = nn.Parameter(torch.ones(num_features)) if use_scale else None
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         del generator  # deterministic init (ones / zeros)
-        nn.init.ones_(self.weight)
+        if self.weight is not None:
+            nn.init.ones_(self.weight)
         nn.init.zeros_(self.bias)
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
@@ -148,7 +150,9 @@ class BatchNorm(nn.Module):
         """(x - mean) * rsqrt(var + eps) * weight + bias, every factor in ``dt`` (the _BNCore order)."""
         view = (1, -1, 1, 1)
         y = (x.to(dt) - mean.to(dt).view(view)) * torch.rsqrt(var + self.eps).to(dt).view(view)
-        return y * self.weight.to(dt).view(view) + self.bias.to(dt).view(view)
+        if self.weight is not None:
+            y = y * self.weight.to(dt).view(view)
+        return y + self.bias.to(dt).view(view)
 
     def forward(self, x: torch.Tensor, use_running_average: Optional[bool] = None) -> torch.Tensor:
         dt = self.dtype or x.dtype
@@ -162,7 +166,9 @@ class BatchNorm(nn.Module):
             s = self.subsample
             mean, var, rows = group_moments(x if s == 1 else x[:, :, ::s, ::s], groups)
             self._update(mean.detach().mean(0), var.detach().mean(0))
-            scale = torch.rsqrt(var + self.eps) * self.weight
+            scale = torch.rsqrt(var + self.eps)
+            if self.weight is not None:
+                scale = scale * self.weight
             shift = self.bias - mean * scale
             view = (x.shape[0], -1, 1, 1)
             return x.to(dt) * scale[rows].to(dt).view(view) + shift[rows].to(dt).view(view)

@@ -7,9 +7,11 @@ train.py:64,81,92,143), resolved through this explicit registry — no
 
 Registered names are case-sensitive. Aliases let configs written against the
 reference keep working (e.g. ``pytorch_tools.models.resnet50`` → ``resnet50``).
-A name this port does not have raises ``NotPortedError`` (a
-NotImplementedError) that points at the ROADMAP queue items that port the
-rest of the JAX package's names.
+Every name of the JAX package's registry resolves here; an unknown name
+raises ``KeyError``, as there (registry.py:73 of the JAX package).
+``NotPortedError`` (a NotImplementedError) is what the port raises for an
+option of the JAX package it does not have yet; its message names the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -28,11 +30,6 @@ class NotPortedError(NotImplementedError):
     def __init__(self, what: str, item: str, more: str = ""):
         msg = f"{what} is not ported to sota_imagenet_tpu_torch yet (ROADMAP.md {item})"
         super().__init__(f"{msg}; {more}" if more else msg)
-
-
-# the names of the JAX registry that the port lacks are all models
-NOT_PORTED_ITEMS = ("Queue 1: the BNet family (models/bnet.py) is item 10d, the other legacy architectures "
-                    "(models/extras.py, the SE and ResNeXt variants of models/__init__.py) item 10f")
 
 
 def register(name: Optional[str] = None, *, aliases: tuple = ()):
@@ -60,7 +57,7 @@ def resolve(target: str) -> Callable:
 
     Unlike the JAX package's registry there is no import of a
     fully-qualified path: such a path may name a module of the JAX package,
-    which the port never imports.
+    which the port never imports. Any other name raises ``KeyError``.
     """
     _populate()
     if target in _REGISTRY:
@@ -72,7 +69,7 @@ def resolve(target: str) -> Callable:
         return _REGISTRY[tail]
     if tail in _ALIASES:
         return _REGISTRY[_ALIASES[tail]]
-    raise NotPortedError(f"target {target!r}", NOT_PORTED_ITEMS, f"known: {sorted(_REGISTRY)}")
+    raise KeyError(f"unknown target {target!r}; known: {sorted(_REGISTRY)[:20]}...")
 
 
 _POPULATED = False

@@ -9,7 +9,8 @@ weight/bias/running_mean/running_var. With it, tests run both packages from
 the same weights.
 
 ``flax_to_torch_model`` does the same for any model of the port (ResNet with
-every option, ``fused_stats`` included, NFNet, CModel, and any module built
+every option, ``fused_stats`` included, NFNet, CModel, BNet, the legacy
+architectures of ``models/extras.py``, and any module built
 from the layers, norms and blocks they use, a ``ParametrizedModel``'s
 spectral state too), running statistics included (VarEMA's ``std_ema``/``mean_ema``, FRN's
 ``running_var``/``single_running_var``). It walks the torch module and
@@ -30,7 +31,9 @@ import numpy as np
 import torch
 
 from sota_imagenet_tpu_torch.losses import angular
-from sota_imagenet_tpu_torch.models import attention, blocks, cmodel, layers, nfnet, norms, parametrize, resnet
+from sota_imagenet_tpu_torch.models import (
+    attention, blocks, bnet, cmodel, extras, layers, nfnet, norms, parametrize, resnet,
+)
 
 
 def _get(tree: Mapping, path: str, used: set) -> np.ndarray:
@@ -106,6 +109,10 @@ def _fan_in_vector(shape) -> Callable[[np.ndarray], torch.Tensor]:
     _, i, kh, kw = shape
     return lambda a: torch.from_numpy(np.array(np.reshape(a, (kh, kw, i)).transpose(2, 0, 1).reshape(-1)))
 
+
+# models whose children each carry the name of their flax counterpart (a Linear child is flax's own Dense)
+_NAMED_CHILDREN = (nfnet.NFNet, bnet.BNet, extras.Darknet53, extras.DenseNet121, extras._MBConv,
+                   extras.EfficientNetB0, extras.TResNetM)
 
 # one entry of a plan: state_dict key -> (JAX collection, flax path, converter)
 Plan = Dict[str, Tuple[str, str, Callable[[np.ndarray], torch.Tensor]]]
@@ -189,6 +196,26 @@ def _plan(model: torch.nn.Module) -> Plan:
             if m.downsample is not None:
                 walk(m.downsample[0], f"{src}/down_conv", dst + "downsample.0.")
                 walk(m.downsample[1], f"{src}/down_bn", dst + "downsample.1.")
+        elif isinstance(m, _NAMED_CHILDREN):
+            for name, sub in m.named_children():
+                if isinstance(sub, layers.Linear):  # flax's own Dense, named
+                    dense(f"{src}/{name}", f"{dst}{name}.", sub.bias is not None)
+                else:
+                    walk(sub, f"{src}/{name}", f"{dst}{name}.")
+        elif isinstance(m, bnet.BNetBlock):
+            # the pre-activation norms are unnamed (flax numbers them by class); conv{i}, norm{i} and gamma are named
+            numbered(m, src, dst, [f"pre{i}" for i in range(m.n_convs)])
+            for i in range(m.n_convs):
+                for name in (f"conv{i}", f"norm{i}"):
+                    if hasattr(m, name):
+                        walk(getattr(m, name), f"{src}/{name}", f"{dst}{name}.")
+            if m.gamma is not None:
+                param(dst + "gamma", src + "/gamma")
+            child(m.attn, src, dst + "attn.")
+        elif isinstance(m, bnet._NormActLayer):
+            child(m.norm, src, dst + "norm.")
+        elif isinstance(m, extras._DarkResidual):
+            numbered(m, src, dst, ("cba1", "cba2"))
         elif isinstance(m, resnet.Conv1x1BNStats):
             param(dst + "weight", src + "/kernel", _oihw)
             for leaf in ("scale", "bias"):
@@ -216,7 +243,8 @@ def _plan(model: torch.nn.Module) -> Plan:
             dense(src + "/Dense_0", dst, m.bias is not None)
         elif isinstance(m, norms.BatchNorm):
             for leaf, name in (("scale", "weight"), ("bias", "bias")):
-                param(dst + name, f"{src}/BatchNorm_0/{leaf}")
+                if getattr(m, name) is not None:
+                    param(dst + name, f"{src}/BatchNorm_0/{leaf}")
             for leaf in ("mean", "var"):
                 stat(f"{dst}running_{leaf}", f"{src}/BatchNorm_0/{leaf}")
         elif isinstance(m, norms.GroupNorm):  # the JAX module wraps flax's nn.GroupNorm
@@ -279,7 +307,7 @@ def _plan(model: torch.nn.Module) -> Plan:
                 walk(m.attn, src + "/XCA_0", dst + "attn.")
             if m.sse is not None:
                 walk(m.sse, src + "/SEVar3_0", dst + "sse.")
-        elif isinstance(m, blocks.ConvBnAct):
+        elif isinstance(m, (blocks.ConvBnAct, extras._CBA)):
             walk(m.conv, src + "/Conv_0", dst + "conv.")
             walk(m.bn, src + "/BatchNorm_0", dst + "bn.")
         elif isinstance(m, (blocks.VGGBlock, blocks.ConvMixBlock)):
@@ -331,12 +359,6 @@ def _plan(model: torch.nn.Module) -> Plan:
             child(m.attn, src, dst + "attn.")
             if m.skipinit_gain is not None:
                 param(dst + "skipinit_gain", src + "/skipinit_gain", _scalar)
-        elif isinstance(m, nfnet.NFNet):
-            for name, sub in m.named_children():
-                if name == "fc":
-                    dense("fc", "fc.", True)
-                else:
-                    walk(sub, name, name + ".")
         elif isinstance(m, cmodel.CModel):
             seen: Dict[str, int] = {}
             for idx, mods in enumerate(m.layers):
