@@ -7,7 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py --phases build,kernels   # a subset, for iterating
 
 Phases (each runs even if an earlier one failed, except that nothing runs
-without a build; any failure exits non-zero and prints no result):
+without a build; any failure exits non-zero and prints no result). They run
+in the order of PHASES: build, kernels, then learn in a process of its own
+beside the model phases and model_ddp, then the trainers, serve beside the
+soak, bench_models, the data phases and A's profile.
 
 1. build   — compile every CUDA library of the port from ``csrc/`` with nvcc,
              one nvcc per source, all started together; print the build
@@ -69,7 +72,7 @@ without a build; any failure exits non-zero and prints no result):
              launches of every kernel (one augment launch per train step),
              parameters and batches on cuda, model_last.ckpt written. Prints
              ms/step (median of steps 4-10, CUDA events), img/s and peak
-             device memory.
+             device memory. Its steps are never profiled (23).
 5. trainer B — the same on configs/exp/3.r50_hard-aug_rand-interp.yaml with
              loader.re_prob=0.3: the kernel's colour, gray and erase stages
              and the blur run inside the trainer.
@@ -112,9 +115,14 @@ without a build; any failure exits non-zero and prints no result):
              and val_loader.rectangular=true: 560 px canvases resampled on the
              card, then the augment kernel; val in three aspect shapes,
              weighted by ``_weight``.
-12. packed, trainer H, learn — packed records of that tree, r50 through
-             the device cache (r50_hbm_cache.yaml), and the accuracy proof
-             (packed_phase, trainer_phase with ``cache``, learn_phase).
+12. packed, trainer H — packed records of that tree and r50 through the
+             device cache (r50_hbm_cache.yaml; packed_phase, trainer_phase
+             with ``cache``).
+12b. learn — the accuracy proof with its serving closure (learn_phase), in
+             a process of its own (LearnProcess) started after the kernels
+             phase: it trains beside the model phases and model_ddp, which
+             check values, time nothing and give the card little work, and
+             ends before trainer A.
 13. trainer I — ``cli.main`` on configs/exp/41.nf_conv-act_lamb.yaml as the
              file says but for synthetic data, debug mode and one 1-epoch
              stage of its cosine: the norm-free CModel of 24.nf_conv-act at
@@ -224,10 +232,32 @@ without a build; any failure exits non-zero and prints no result):
 22. trainer P1 — the same config as one rank under NCCL, from torchrun's
              environment (WORLD_SIZE=1, mesh.data=-1): its ms/step against
              trainer A's is the cost of the port's collectives at one rank.
-23. profile — trainers A, C, D, H, I, J, K, L, M, O, Q and R once more with
-             torch.profiler over steps 4-7: device time per step by layer
-             and the top kernels, and the device's busy share (separate
-             runs, so the trainers' times stay clean). D's, I's, J's, K's,
+22b. serve — the serving path (serve_phase): trainer A's r50_baseline
+             checkpoint, exported by ``cli export`` on the CPU in bf16
+             (symbolic batch), float32 and int8, served on the card against
+             the live module (bf16 top-1 equal on 250 rows, batch 1 served;
+             float32 |dlogit| <= 1e-4; int8 under 0.35x of float32's bytes
+             and equal to a float artifact of its dequantized weights);
+             bresnet50's weight standardisation and the spectral BNet trunk
+             inside their programs (within 1e-4 of the wrapped live
+             modules); no custom op in any program (fused_stats too); no
+             kernel of the port launched.
+22c. soak — tools/soak.py with debug=true: configs/tpu_soak.yaml killed
+             with SIGKILL once its checkpoint holds epoch 1, resumed with
+             run.auto_resume=true at that epoch to the end across the
+             160 -> 224 px boundary. Its two processes run beside serve,
+             whose exports trace on one host core and whose checks on the
+             card are of values, not of times.
+22d. bench_models — tools/bench_models.py, alone on the card: the
+             eval leg of its five families (batch 250, bf16, 224 px) and
+             r50's train leg; serve's r50 artifact timed at batch 250 beside
+             the live module.
+23. profile — trainers C, D, H, I, J, K, L, M, O, Q and R run torch.profiler
+             over their steps 2 and 3 (PROFILE), and their ms/step is the
+             median of steps 5-10, which the profiler does not touch; trainer
+             A's steps stay unprofiled, and its profile is a run of its own
+             (the phase ``profile``). Each reports device time per step by
+             group and the top kernels, and the device's busy share. D's, I's, J's, K's,
              L's, M's, O's, Q's and R's device time is attributed to the port's layers by
              the op that launched each kernel (layer_breakdown; UFO, XCA,
              GEM, AGC, the parametrization, BlurPool, drop-path, SAM's
@@ -255,26 +285,18 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
-
-
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True,
-        text=True,
-        timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "nvidia-smi unavailable"
 
 
 def median_ms(fn, reps: int, per_rep: int, warmup: int = 5) -> float:
@@ -962,8 +984,10 @@ def packed_phase(packed_root: str, packing: dict, gpu: str) -> dict:
 def learn_phase(gpu: str) -> dict:
     """tools/accuracy_proof.main, 30 epochs on the hue corpus with
     configs/tpu_accuracy.yaml as it stands: best val Acc@1 >= 90, the
-    script's own criterion, and one augment launch per train step (2,000
-    images at batch 64 with drop-last: 31 steps an epoch)."""
+    script's own criterion; its serving closure (the EMA weights exported on
+    the CPU, served on the card over the val folder) within 2.0 points of the
+    final val Acc@1; and one augment launch per train step (2,000 images at
+    batch 64 with drop-last: 31 steps an epoch), none in the closure."""
     from sota_imagenet_tpu_torch.tools import accuracy_proof
 
     counters = kernel_counters()
@@ -976,7 +1000,9 @@ def learn_phase(gpu: str) -> dict:
     result = {"phase": "learn", **proof, "wall_s": wall, "kernel_launches": launches, "gpu": gpu}
     print(f"[learn] {json.dumps(result)}")
     if not proof["ok"]:
-        raise AssertionError(f"learn: best val Acc@1 {proof['best_acc1']} below 90 in {LEARN_EPOCHS} epochs")
+        raise AssertionError(f"learn: best val Acc@1 {proof['best_acc1']} below 90 in {LEARN_EPOCHS} epochs, or the "
+                             f"exported artifact's {proof['artifact_acc1']} more than 2.0 from the final "
+                             f"{proof['final_acc1']}")
     steps = LEARN_EPOCHS * (accuracy_proof.N_CLASSES * accuracy_proof.TRAIN_PER_CLASS // 64)
     if launches != {"fused_aug": steps, "conv1x1_stats": 0, "moments": 0}:
         raise AssertionError(f"learn: kernel launches {launches}, want {steps} augment launches")
@@ -2438,7 +2464,7 @@ def _resume_eval(config: str, overrides: list, ckpt: str, val: dict) -> dict:
 
 def trainer_phase(
     name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None, recipe: str = None,
-    tree: str = None, val_shapes: int = 1, cache: bool = False,
+    tree: str = None, val_shapes: int = 1, cache: bool = False, keep_ckpt: str = None,
 ) -> dict:
     """cli.main on ``config`` (a full-width model, bs 256 @ 224, bf16);
     ``per_step`` is each kernel's expected launches per train step. With
@@ -2496,11 +2522,18 @@ def trainer_phase(
         launches = {k: fn.launches for k, fn in counters.items()}
         by_path = dict(by_path)
         ckpts = glob.glob(os.path.join(logdir, "*", "*", "model_last.ckpt"))
+        if keep_ckpt and ckpts:
+            shutil.copyfile(ckpts[0], keep_ckpt)
         resumed = _resume_eval(config, overrides, ckpts[0], val) if recipe == "adacos" and ckpts else None
     steps = len(probe.step_ms)
     loss = probe.train_metrics.get("loss", float("nan"))
-    steady = probe.step_ms[3:10]  # steps 4-10
-    ms_step = statistics.median(steady) if steady else float("nan")
+    # steps 4-10 (1-based) of the last epoch, less those the profiler ran in and the one after it stopped
+    # (its sync, then the profiler's own stop, leave the card idle inside that step's time); a run of two
+    # epochs (``tree``) is profiled in its first
+    epochs = 1 if tree is None else 2
+    skip = range(profile_window[0] + 1, profile_window[1] + 2) if profile_window and epochs == 1 else ()
+    steady = [i for i in range(3, min(len(probe.step_ms), 10)) if i not in skip]
+    ms_step = statistics.median(probe.step_ms[i] for i in steady) if steady else float("nan")
     result = {
         "phase": name,
         "config": config,
@@ -2510,7 +2543,8 @@ def trainer_phase(
         "conv1x1_stats_launches_by_path": by_path,
         "train_loss": loss,
         "val": val,
-        "ms_per_step_median_4_10": ms_step,
+        "ms_per_step_median": ms_step,
+        "steady_steps": [i + 1 for i in steady],
         "step_ms": probe.step_ms,
         "img_per_s": probe.batch_size / ms_step * 1e3,
         "input_utilization": probe.train_metrics.get("input_utilization"),
@@ -2618,7 +2652,6 @@ def trainer_phase(
     print(f"[{name}] {json.dumps(result)}")
     if not math.isfinite(loss) or not all(math.isfinite(v) for v in val.values()):
         raise AssertionError(f"{name}: non-finite loss (train {loss}, val {val})")
-    epochs = 1 if tree is None else 2
     want = {k: per_step.get(k, 0) * steps * epochs for k in counters}
     if steps != 10 or launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} in {epochs} x {steps} train steps, want {want}")
@@ -3015,7 +3048,8 @@ def _ddp_summary(ranks: list) -> dict:
 
     return {
         "backend": r0["backend"], "world": r0["world"], "global_batch": global_batch, "train_steps": steps,
-        "ms_per_step_median_4_10": ms, "img_per_s": global_batch / ms * 1e3, "step_ms": r0["step_ms"],
+        "ms_per_step_median": ms, "steady_steps": list(range(4, 11)), "img_per_s": global_batch / ms * 1e3,
+        "step_ms": r0["step_ms"],
         "grad_all_reduce": per_step(("grad",)), "bn_collectives": per_step(("bn", "bn_backward")),
         "zero1_param_broadcasts": per_step(("params",)),
         "grad_all_reduce_alone_ms": [r["grad_all_reduce_alone_ms"] for r in ranks],
@@ -3160,8 +3194,8 @@ def _layer_scopes():
     scopes (SCOPE_LAYERS), so
     layer_breakdown can tell their kernels from the other ones (UFO's and
     XCA's 1x1 convs count as theirs). The originals are
-    put back on exit; the scopes cost the host a few microseconds each, which
-    is why the timed trainer runs without them."""
+    put back on exit. A scope opens only while the profiler records: the
+    trainer's other steps, which it times, pay one check a call."""
     import functools
 
     import torch
@@ -3177,6 +3211,8 @@ def _layer_scopes():
     def scoped(label, fn):
         @functools.wraps(fn)
         def wrapper(*a, **kw):
+            if not torch.autograd._profiler_enabled():
+                return fn(*a, **kw)
             with torch.profiler.record_function(label):
                 return fn(*a, **kw)
 
@@ -3307,10 +3343,309 @@ def layer_breakdown(prof, window):
     return by_layer, {k: len(v) for k, v in aux.items()}, top
 
 
-PHASES = ("build", "kernels", "model", "model_legacy", "trainer_a", "trainer_b", "trainer_c", "trainer_d", "trainer_e",
-          "trainer_i", "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n", "trainer_o", "trainer_q",
-          "trainer_r", "model_ddp", "trainer_p", "trainer_p1", "data", "trainer_f", "trainer_g", "packed", "trainer_h",
-          "learn", "profile")
+SERVE_SIZE = 224
+SERVE_BATCH = 250  # the reference val batch
+F32 = ("run.bf16=false",)
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _serve_images():
+    """SERVE_BATCH seeded uint8 NHWC images on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, 256, (SERVE_BATCH, SERVE_SIZE, SERVE_SIZE, 3), np.uint8)).cuda()
+
+
+def _live_logits(model, images_u8, dtype):
+    """The eval forward of ``model`` on uint8 NHWC images, normalized as the
+    val pipeline and the artifact do, float32 logits."""
+    import torch
+
+    from sota_imagenet_tpu_torch.constants import DATA_MEAN, DATA_STD
+
+    with torch.no_grad():
+        return model.eval()(((images_u8.float() - DATA_MEAN) / DATA_STD).to(dtype)).float()
+
+
+def _export_and_compare(name: str, model, size: int, dtype, images, work: str) -> dict:
+    """``model`` (on the card) exported (the trace runs on a copy on the
+    CPU), loaded back on the card and served on ``images``, against the live
+    module's eval forward."""
+    import torch
+
+    from sota_imagenet_tpu_torch.utils import export as E
+
+    out = os.path.join(work, name)
+    t0 = time.perf_counter()
+    E.export_inference(model, out, image_size=size, input_dtype=dtype)
+    export_s = time.perf_counter() - t0
+    serve, meta = E.load_exported(out)
+    got, want = serve(images), _live_logits(model, images, dtype)
+    program = torch.export.load(os.path.join(out, "model.pt2"))
+    return {"export_s": export_s, "traced_on": meta["traced_on"], "max_abs_diff": float((got - want).abs().max()),
+            "bit_equal": bool(torch.equal(got, want)), "custom_ops": E.custom_ops(program), "bytes": _dir_bytes(out)}
+
+
+def serve_phase(gpu: str, work: str, ckpt: str) -> dict:
+    """The serving path at full width: trainer A's r50_baseline
+    model_last.ckpt (``ckpt``, its BatchNorm statistics trained over 10
+    steps); ``cli export`` traces it on the CPU (as the JAX accuracy proof exports), in bf16 with a symbolic batch,
+    in float32, and in float32 with int8 kernels; the artifacts are loaded
+    on the card. bf16: batches 1 and 250 of seeded uint8 images against the
+    live module's eval forward on the card (max |dlogit| printed, the same
+    top-1 on every row); float32 with TF32 off: |dlogit| <= 1e-4. int8: the
+    artifact under 0.35x the float32 one's bytes, and its logits equal to
+    those of a float artifact built from the same dequantized weights (the
+    float32 artifact's program with the int8 artifact's weights, stored
+    unquantized). Then bresnet50 (weight standardisation over 53 convs) and
+    the spectral BNet trunk of model_bnet_spectral, each with seeded weights
+    on the card, exported and served in float32: the artifact's logits
+    within 1e-4 of the wrapped live module's (the parametrizations run
+    inside the program).
+    No program holds a custom op, resnet50(fused_stats=True)'s included,
+    and the serving path launches none of the port's kernels. The
+    artifacts stay in ``work`` (bench_models times the bf16 one)."""
+    import torch
+    import yaml
+
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.models import bresnet50
+    from sota_imagenet_tpu_torch.models.cmodel import CModel
+    from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel, weight_standardization_fn
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.train.callbacks import ForwardSpectralNorm
+    from sota_imagenet_tpu_torch.utils import export as E
+
+    counters = kernel_counters()
+    result = {"phase": "serve", "gpu": gpu}
+    images = _serve_images()
+    for fn in counters.values():
+        fn.launches = 0  # counts from here are the serving path's
+    try:
+        def export(name, *extra):
+            t = time.perf_counter()
+            cli.export_main(["-c", R50, "--ckpt", ckpt, "--out", os.path.join(work, name), "--device", "cpu",
+                             *extra])
+            result[f"export_s_{name}"] = time.perf_counter() - t
+            return os.path.join(work, name)
+
+        bf16_dir, f32_dir, q8_dir = export("bf16"), export("f32", *F32), export("int8", "--quantize", "int8", *F32)
+        live = cli.build_model(C.load(R50, strict_env=False))
+        live.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True)["state"]["model"])
+        live = live.to(device="cuda", memory_format=torch.channels_last)
+
+        serve, meta = E.load_exported(bf16_dir)
+        got, want = serve(images), _live_logits(live, images, torch.bfloat16)
+        one = serve(images[:1])
+        result["bf16"] = {
+            "meta": meta, "bytes": _dir_bytes(bf16_dir), "max_abs_diff": float((got - want).abs().max()),
+            "top1_equal_rows": int((got.argmax(-1) == want.argmax(-1)).sum()),
+            "batch1_max_abs_diff": float((one - _live_logits(live, images[:1], torch.bfloat16)).abs().max()),
+            "batch1_shape": list(one.shape), "finite": bool(torch.isfinite(got).all()),
+        }
+        serve32, _ = E.load_exported(f32_dir)
+        got32 = serve32(images)
+        result["f32"] = {"bytes": _dir_bytes(f32_dir), "max_abs_logit": float(got32.abs().max()),
+                         "max_abs_diff": float((got32 - _live_logits(live, images, torch.float32)).abs().max())}
+        serve8, _ = E.load_exported(q8_dir)
+        # the same dequantized weights as a float artifact: int8 changes the stored weights, nothing else
+        deq_dir = os.path.join(work, "dequantized")
+        shutil.copytree(f32_dir, deq_dir)
+        E.save_params(os.path.join(deq_dir, "params.npz"), E.load_params(os.path.join(q8_dir, "params.npz")))
+        serve_deq, _ = E.load_exported(deq_dir)
+        got8, got_deq = serve8(images), serve_deq(images)
+        result["int8"] = {"bytes": _dir_bytes(q8_dir), "bytes_over_f32": _dir_bytes(q8_dir) / _dir_bytes(f32_dir),
+                          "equal_to_dequantized_float": bool(torch.equal(got8, got_deq)),
+                          "max_abs_diff_to_f32": float((got8 - got32).abs().max()),
+                          "top1_equal_to_f32_rows": int((got8.argmax(-1) == got32.argmax(-1)).sum())}
+        result["custom_ops"] = {name: E.custom_ops(torch.export.load(os.path.join(d, "model.pt2")))
+                                for name, d in (("bf16", bf16_dir), ("int8", q8_dir))}
+        fused = E.export_inference(cli.build_model(C.load(R50, overrides=list(FUSED), strict_env=False)),
+                                   os.path.join(work, "fused"), image_size=SERVE_SIZE)
+        result["custom_ops"]["fused_stats"] = E.custom_ops(torch.export.load(os.path.join(fused, "model.pt2")))
+        result["artifact_bf16"], result["checkpoint"] = bf16_dir, ckpt
+        del live, serve, serve32, serve8, serve_deq
+
+        # the forward parametrizations inside the program, float32 on the card, 8 images
+        small = images[:8]
+        sgd = {"_target_": "sgd", "momentum": 0.9}
+        ws = ParametrizedModel(bresnet50(), weight_standardization_fn(BRESNET_GAMMA))
+        steps.init_state(ws, lambda m: build_optimizer(sgd, m.named_parameters()), device=torch.device("cuda"), seed=0)
+        result["bresnet50_ws"] = {**_export_and_compare("bresnet50_ws", ws, SERVE_SIZE, torch.float32, small, work),
+                                  "standardised_kernels": len(ws.selected[0])}
+        extra = C.to_dict(C.load(BNET, strict_env=False).model)["extra_kwargs"]
+        spectral = ParametrizedModel(CModel(layer_config=yaml.safe_load(BNET_TRUNK), extra_kwargs=extra),
+                                     ForwardSpectralNorm().step_options()["parametrization"])
+        steps.init_state(spectral, lambda m: build_optimizer(sgd, m.named_parameters()), device=torch.device("cuda"),
+                         seed=0)
+        result["bnet_spectral"] = {**_export_and_compare("bnet_spectral", spectral, SERVE_SIZE, torch.float32, small,
+                                                         work), "spectral_kernels": len(spectral.stateful_names())}
+        result["kernel_launches"] = {k: fn.launches for k, fn in counters.items()}
+    finally:  # the line also when a step raised: what was measured up to it
+        print(f"[serve] {json.dumps(result)}", flush=True)
+    problems = []
+    if result["bf16"]["top1_equal_rows"] != SERVE_BATCH or not result["bf16"]["finite"]:
+        problems.append("bf16 top-1 differs from the live module's (or is not finite)")
+    if result["bf16"]["batch1_shape"] != [1, 1000] or result["bf16"]["meta"]["batch_size"] is not None:
+        problems.append("the symbolic-batch artifact did not serve batch 1")
+    if result["f32"]["max_abs_diff"] > 1e-4:
+        problems.append("float32 logits more than 1e-4 from the live module's")
+    if result["int8"]["bytes_over_f32"] >= 0.35 or not result["int8"]["equal_to_dequantized_float"]:
+        problems.append("int8 artifact too large or not the dequantized float artifact's logits")
+    for name in ("bresnet50_ws", "bnet_spectral"):
+        if result[name]["max_abs_diff"] > 1e-4 or result[name]["custom_ops"]:
+            problems.append(f"{name} artifact disagrees with its wrapped live module")
+    if result["bresnet50_ws"]["standardised_kernels"] != 53:
+        problems.append("bresnet50 standardises other than 53 kernels")
+    if any(result["custom_ops"].values()):
+        problems.append(f"custom ops in an exported program: {result['custom_ops']}")
+    if any(result["kernel_launches"].values()):
+        problems.append(f"the serving path launched a kernel of the port: {result['kernel_launches']}")
+    if problems:
+        raise AssertionError(f"serve: {problems}")
+    return result
+
+
+def bench_models_phase(gpu: str, served: dict = None) -> dict:
+    """tools/bench_models.py on the card: the --eval leg (batch 250, bf16,
+    224 px) of its five families, and r50's train leg (batch 128). With
+    ``served`` (serve's result), r50's bf16 artifact at batch 250 beside the
+    live module of the same checkpoint (CUDA events; no other process on
+    the card)."""
+    import torch
+
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.tools import bench_models
+    from sota_imagenet_tpu_torch.utils import export as E
+
+    lines = bench_models.main(["--eval"]) + bench_models.main(["resnet50"])
+    torch.cuda.empty_cache()
+    result = {"phase": "bench_models", "lines": lines, "gpu": gpu}
+    if served is not None:
+        images = _serve_images()
+        serve, _ = E.load_exported(served["artifact_bf16"])
+        live = cli.build_model(C.load(R50, strict_env=False))
+        live.load_state_dict(torch.load(served["checkpoint"], map_location="cpu", weights_only=True)["state"]["model"])
+        live = live.to(device="cuda", memory_format=torch.channels_last)
+        result["serve_ms_b250"] = {"artifact": median_ms(lambda: serve(images), reps=5, per_rep=4, warmup=3),
+                                   "live": median_ms(lambda: _live_logits(live, images, torch.bfloat16), reps=5,
+                                                     per_rep=4, warmup=3)}
+        result["serve_img_per_s_b250"] = {k: SERVE_BATCH / v * 1e3 for k, v in result["serve_ms_b250"].items()}
+        del serve, live
+        torch.cuda.empty_cache()
+    rates = {l["model"] + "_" + l["mode"]: l["img_per_sec"] for l in lines}
+    rates.update({f"resnet50_{k}_serve": v for k, v in result.get("serve_img_per_s_b250", {}).items()})
+    print(f"[bench_models] {json.dumps(rates)} | {gpu}", flush=True)
+    if len(lines) != 6 or not all(math.isfinite(l["img_per_sec"]) and l["img_per_sec"] > 0 for l in lines):
+        raise AssertionError(f"bench_models: {lines}")
+    return result
+
+
+def soak_phase(gpu: str) -> dict:
+    """``python -m sota_imagenet_tpu_torch.tools.soak debug=true`` on
+    configs/tpu_soak.yaml (10 steps an epoch): phase 1 killed with SIGKILL
+    once the checkpoint to resume from holds epoch 1, phase 2 resumed with
+    run.auto_resume=true; fails unless phase 2 loaded that checkpoint,
+    resumed at its epoch and finished every epoch to the sixth across the
+    160 -> 224 px boundary (soak.verdict). The tool runs as a process of its
+    own, so its watch for the checkpoint never waits on this process's
+    interpreter while serve traces beside it."""
+    import torch
+
+    torch.cuda.empty_cache()  # the tool's two phases are processes of their own on this card
+    with tempfile.TemporaryDirectory() as tmp:  # the tool's log dir is made in here
+        out = subprocess.run([sys.executable, "-m", "sota_imagenet_tpu_torch.tools.soak", "debug=true"],
+                             capture_output=True, text=True, timeout=1200, env=dict(os.environ, TMPDIR=tmp))
+        lines = out.stdout.strip().splitlines()
+        try:
+            result = {"phase": "soak", **json.loads(lines[-1]), "rc": out.returncode, "gpu": gpu}
+        except (IndexError, json.JSONDecodeError):
+            raise AssertionError(f"soak: rc {out.returncode}, no verdict line; stderr:\n{out.stderr[-3000:]}")
+        if not result["ok"]:
+            for name in ("phase1.log", "phase2.log"):
+                with open(os.path.join(result["log_dir"], name)) as f:
+                    print(f"[soak] {name} tail:\n{f.read()[-3000:]}", flush=True)
+    print(f"[soak] {json.dumps(result)}", flush=True)
+    if not result["ok"] or out.returncode != 0:
+        raise AssertionError(f"soak: rc {out.returncode}, {[k for k, v in result['checks'].items() if not v]}")
+    return result
+
+
+class LearnProcess:
+    """learn_phase run by this script in a process of its own on the same
+    card (``learn_process``), started at once; ``join`` waits for it,
+    prints its output and returns its result line, and raises unless it
+    passed. Its kernel counters are its own process's, set to 0 before it
+    drives its path, as in this one. ``stop`` kills it if it is still
+    running."""
+
+    def __init__(self, timeout: float = 900):
+        self.timeout, self.t0, self.seconds = timeout, time.perf_counter(), math.nan
+        self.out = tempfile.TemporaryFile("w+")
+        self.proc = subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.learn_process())"],
+                                     cwd=os.path.dirname(os.path.abspath(__file__)), stdout=self.out,
+                                     stderr=subprocess.STDOUT, text=True)
+
+    def join(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=max(self.timeout - (time.perf_counter() - self.t0), 1))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(f"learn: still running after {self.timeout} s")
+        finally:
+            self.seconds = time.perf_counter() - self.t0
+        self.out.seek(0)
+        result = None
+        for line in self.out.read().splitlines():
+            if line.startswith("[learn] {"):
+                result = json.loads(line[len("[learn] "):])
+            else:
+                print(f"[learn:process] {line}")
+        if rc != 0 or result is None:
+            raise AssertionError(f"learn: its process exited {rc}" + ("" if result else " with no result line"))
+        print(f"[learn] {json.dumps(result)}", flush=True)
+        return result
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+
+
+def learn_process() -> int:
+    """The entry of a LearnProcess: learn_phase on the card, its result
+    line printed by the phase; 0 iff it passed."""
+    import torch
+
+    from sota_imagenet_tpu_torch.tools.bench_models import gpu_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        learn_phase(gpu_line())
+    except Exception:  # noqa: BLE001 - the traceback is the parent's report
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+PHASES = ("build", "kernels", "learn", "model", "model_legacy", "model_ddp", "trainer_a", "trainer_b", "trainer_c",
+          "trainer_d", "trainer_e", "trainer_i", "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n",
+          "trainer_o", "trainer_q", "trainer_r", "trainer_p", "trainer_p1", "serve", "soak", "bench_models", "data",
+          "trainer_f", "trainer_g", "packed", "trainer_h", "profile")
+# the profiler runs inside these trainers from the end of step 1 to the end of step 3 (1-based): steps 2
+# and 3; their ms/step is the median of steps 5-10, the others' of steps 4-10 (trainer_phase; H, of two
+# epochs, is profiled in its first and timed in its second)
+PROFILE = (0, 2)
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
@@ -3347,6 +3682,8 @@ def main(argv=None) -> int:
     phases = [p for p in args.phases.split(",") if p]
     if set(phases) - set(PHASES):
         parser.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    if "serve" in phases and "trainer_a" not in phases:
+        parser.error("serve exports trainer_a's checkpoint: add trainer_a")
 
     import torch
 
@@ -3359,20 +3696,29 @@ def main(argv=None) -> int:
         print(f"chip_smoke: run it from the root of a checkout ({e})", file=sys.stderr)
         return 1
 
+    import numpy
+    import PIL
+
+    from sota_imagenet_tpu_torch.tools.bench_models import gpu_line
+
     gpu = gpu_line()
-    print(f"[env] {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} | {gpu}")
+    print(f"[env] {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} numpy "
+          f"{numpy.__version__} Pillow {PIL.__version__} | {gpu}")
     # plain versions and the model phase compare f32 products: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    failed, results = [], {}
+    failed, results, seconds = [], {}, {}
 
     def run(name, fn, *a, **kw):
+        t0 = time.perf_counter()
         try:
             results[name] = fn(*a, **kw)
         except Exception:  # noqa: BLE001 - report every phase, fail at the end
             traceback.print_exc()
             print(f"[{name}] FAILED", flush=True)
             failed.append(name)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[{name}] seconds {seconds[name]:.1f}", flush=True)
 
     run("build", build_phase)
     if "build" in failed:
@@ -3381,64 +3727,81 @@ def main(argv=None) -> int:
         run("fused_aug", kernel_phase)
         run("conv1x1_stats", conv_stats_phase)
         run("moments", moments_phase)
-    if "model" in phases:
-        run("model", model_phase)
-        run("model_fused_silu", model_phase, fused_stats=True, norm_act="silu")
-        run("model_fused_relu", model_phase, fused_stats=True, check=False)
-        run("model_nfnet", nfnet_model_phase)
-        run("model_nf_lamb", nf_lamb_model_phase)
-        run("model_nondeep", nondeep_model_phase)
-        run("model_bresnet", bresnet_model_phase)
-        run("model_bresnet_leaky_relu", bresnet_model_phase, norm_act="leaky_relu", check=False)
-        run("model_bnet", bnet_model_phase)
-        run("model_bnet_spectral", bnet_model_phase, spectral=True)
-        run("model_zoo", zoo_model_phase)
-        run("model_sam", sam_model_phase)
-        run("model_cmodel_tables", cmodel_tables_model_phase)
-        run("model_losses", losses_model_phase)
-    if "model_legacy" in phases:
-        run("model_legacy", legacy_model_phase)
+    # learn trains in a process of its own beside the phases that check values, time nothing and give
+    # the card little work (the model phases and the rank drives); it ends before anything is timed again
+    learn = LearnProcess() if "learn" in phases else None
+    try:
+        if "model" in phases:
+            run("model", model_phase)
+            run("model_fused_silu", model_phase, fused_stats=True, norm_act="silu")
+            run("model_fused_relu", model_phase, fused_stats=True, check=False)
+            run("model_nfnet", nfnet_model_phase)
+            run("model_nf_lamb", nf_lamb_model_phase)
+            run("model_nondeep", nondeep_model_phase)
+            run("model_bresnet", bresnet_model_phase)
+            run("model_bresnet_leaky_relu", bresnet_model_phase, norm_act="leaky_relu", check=False)
+            run("model_bnet", bnet_model_phase)
+            run("model_bnet_spectral", bnet_model_phase, spectral=True)
+            run("model_zoo", zoo_model_phase)
+            run("model_sam", sam_model_phase)
+            run("model_cmodel_tables", cmodel_tables_model_phase)
+            run("model_losses", losses_model_phase)
+        if "model_legacy" in phases:
+            run("model_legacy", legacy_model_phase)
+        if "model_ddp" in phases:
+            run("ddp_probe", ddp_probe_phase, gpu)
+            run("model_ddp", model_ddp_phase, gpu)
+        if learn is not None:
+            run("learn", learn.join)
+            seconds["learn"] = learn.seconds
+    finally:
+        if learn is not None:
+            learn.stop()
     aug_only = {"fused_aug": 1}
+    serve_dir = tempfile.TemporaryDirectory()  # trainer A's checkpoint and serve's artifacts, until bench_models
+    trainer_a_ckpt = os.path.join(serve_dir.name, "trainer_a.ckpt")
     if "trainer_a" in phases:
-        run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only)
+        run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only, keep_ckpt=trainer_a_ckpt)
     if "trainer_b" in phases:
         hard = "configs/exp/3.r50_hard-aug_rand-interp.yaml"
         run("trainer_b", trainer_phase, "trainer_b", hard, ("loader.re_prob=0.3",), gpu, aug_only)
     if "trainer_c" in phases:
-        run("trainer_c", trainer_phase, "trainer_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36})
+        run("trainer_c", trainer_phase, "trainer_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36},
+            profile_window=PROFILE)
     if "trainer_d" in phases:
-        run("trainer_d", trainer_phase, "trainer_d", NFNET, NFNET_STAGE, gpu, aug_only, recipe="nfnet")
+        run("trainer_d", trainer_phase, "trainer_d", NFNET, NFNET_STAGE, gpu, aug_only, recipe="nfnet",
+            profile_window=PROFILE)
     if "trainer_e" in phases:
         run("trainer_e", tiny_phase, gpu)
-    if "trainer_i" in phases:
-        run("trainer_i", trainer_phase, "trainer_i", NF_LAMB, NF_LAMB_STAGE, gpu, aug_only, recipe="nf_lamb")
-    if "trainer_j" in phases:
-        run("trainer_j", trainer_phase, "trainer_j", NONDEEP, NONDEEP_STAGE, gpu, aug_only, recipe="nondeep")
-    if "trainer_k" in phases:
-        run("trainer_k", trainer_phase, "trainer_k", BRESNET, BRESNET_STAGE, gpu, aug_only, recipe="bresnet")
-    if "trainer_l" in phases:
-        run("trainer_l", trainer_phase, "trainer_l", ADAMP, ADAMP_STAGE, gpu, aug_only, recipe="adamp")
-    if "trainer_m" in phases:
-        run("trainer_m", trainer_phase, "trainer_m", SAM, SAM_STAGE, gpu, aug_only, recipe="sam")
-    if "trainer_n" in phases:
-        run("trainer_n", trainer_phase, "trainer_n", ADACOS, ADACOS_STAGE, gpu, aug_only, recipe="adacos")
-    if "trainer_o" in phases:
-        run("trainer_o", trainer_phase, "trainer_o", CONVMIXER, CONVMIXER_STAGE, gpu, aug_only, recipe="convmixer")
-    if "trainer_q" in phases:
-        run("trainer_q", trainer_phase, "trainer_q", EXP48, EXP48_STAGE, gpu, aug_only, recipe="bnet")
-    if "trainer_r" in phases:
-        run("trainer_r", trainer_phase, "trainer_r", EFFNET, EFFNET_STAGE, gpu, aug_only, recipe="effnet")
-    if "model_ddp" in phases:
-        run("ddp_probe", ddp_probe_phase, gpu)
-        run("model_ddp", model_ddp_phase, gpu)
+    recipes = (("trainer_i", NF_LAMB, NF_LAMB_STAGE, "nf_lamb"), ("trainer_j", NONDEEP, NONDEEP_STAGE, "nondeep"),
+               ("trainer_k", BRESNET, BRESNET_STAGE, "bresnet"), ("trainer_l", ADAMP, ADAMP_STAGE, "adamp"),
+               ("trainer_m", SAM, SAM_STAGE, "sam"), ("trainer_n", ADACOS, ADACOS_STAGE, "adacos"),
+               ("trainer_o", CONVMIXER, CONVMIXER_STAGE, "convmixer"), ("trainer_q", EXP48, EXP48_STAGE, "bnet"),
+               ("trainer_r", EFFNET, EFFNET_STAGE, "effnet"))
+    for name, config, stage, recipe in recipes:
+        if name in phases:
+            window = None if recipe == "adacos" else PROFILE
+            run(name, trainer_phase, name, config, stage, gpu, aug_only, recipe=recipe, profile_window=window)
     if "trainer_p" in phases:
         run("trainer_p", trainer_p_phase, gpu)
     if "trainer_p1" in phases:
         run("trainer_p1", trainer_p1_phase, gpu)
+    # the soak's two processes run beside serve, whose exports trace on one host core, and whose checks
+    # on the card hold values, not times; both end before anything is timed again
+    soak = threading.Thread(target=run, args=("soak", soak_phase, gpu)) if "soak" in phases else None
+    if soak is not None:
+        soak.start()
+    if "serve" in phases:
+        run("serve", serve_phase, gpu, serve_dir.name, trainer_a_ckpt)
+    if soak is not None:
+        soak.join()
+    if "bench_models" in phases:
+        run("bench_models", bench_models_phase, gpu, results.get("serve"))
+    serve_dir.cleanup()
     if "trainer_p1" in results and "trainer_a" in results:
-        a, p1 = results["trainer_a"]["ms_per_step_median_4_10"], results["trainer_p1"]["ms_per_step_median_4_10"]
+        a, p1 = results["trainer_a"]["ms_per_step_median"], results["trainer_p1"]["ms_per_step_median"]
         print(f"[trainer_p1] {json.dumps({'ms_per_step_p1': p1, 'ms_per_step_a': a, 'collectives_cost_ms': p1 - a})}")
-    cached = {"packed", "trainer_h"} & set(phases) or "profile" in phases
+    cached = {"packed", "trainer_h"} & set(phases)
     with tempfile.TemporaryDirectory() as data_root:
         if {"data", "trainer_f", "trainer_g"} & set(phases) or cached:
             run("imagefolder", write_imagefolder, data_root)
@@ -3457,59 +3820,34 @@ def main(argv=None) -> int:
         if "packed" in phases:
             run("packed", packed_phase, packed_root, results.get("packing"), gpu)
         if "trainer_h" in phases:
-            run("trainer_h", trainer_phase, "trainer_h", HBM_CACHE, (), gpu, aug_only, tree=packed_root, cache=True)
-        if "learn" in phases:
-            run("learn", learn_phase, gpu)
-        if "profile" in phases:
-            run("profile", trainer_phase, "profile", R50, (), gpu, aug_only, profile_window=(2, 6))
-            run("profile_c", trainer_phase, "profile_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36},
-                profile_window=(2, 6))
-            run("profile_d", trainer_phase, "profile_d", NFNET, NFNET_STAGE, gpu, aug_only, profile_window=(2, 6),
-                recipe="nfnet")
-            run("profile_h", trainer_phase, "profile_h", HBM_CACHE, (), gpu, aug_only, profile_window=(2, 6),
-                tree=packed_root, cache=True)
+            run("trainer_h", trainer_phase, "trainer_h", HBM_CACHE, (), gpu, aug_only, tree=packed_root, cache=True,
+                profile_window=PROFILE)
     if "profile" in phases:
-        run("profile_i", trainer_phase, "profile_i", NF_LAMB, NF_LAMB_STAGE, gpu, aug_only, profile_window=(2, 6),
-            recipe="nf_lamb")
-        run("profile_j", trainer_phase, "profile_j", NONDEEP, NONDEEP_STAGE, gpu, aug_only, profile_window=(2, 6),
-            recipe="nondeep")
-        run("profile_k", trainer_phase, "profile_k", BRESNET, BRESNET_STAGE, gpu, aug_only, profile_window=(2, 6),
-            recipe="bresnet")
-        run("profile_l", trainer_phase, "profile_l", ADAMP, ADAMP_STAGE, gpu, aug_only, profile_window=(2, 6),
-            recipe="adamp")
-        run("profile_m", trainer_phase, "profile_m", SAM, SAM_STAGE, gpu, aug_only, profile_window=(2, 6),
-            recipe="sam")
-        run("profile_o", trainer_phase, "profile_o", CONVMIXER, CONVMIXER_STAGE, gpu, aug_only,
-            profile_window=(2, 6), recipe="convmixer")
-        run("profile_q", trainer_phase, "profile_q", EXP48, EXP48_STAGE, gpu, aug_only, profile_window=(2, 6),
-            recipe="bnet")
-        run("profile_r", trainer_phase, "profile_r", EFFNET, EFFNET_STAGE, gpu, aug_only, profile_window=(2, 6),
-            recipe="effnet")
-    for profile in ("profile_q", "profile_r"):
-        if profile in results:
-            results[profile]["layer_shares"] = legacy_layer_shares(profile, results[profile])
-    if "profile_h" in results:
+        # trainer A's own steps stay unprofiled (the main path's ms/step): its profile is a run of its own
+        run("profile", trainer_phase, "profile", R50, (), gpu, aug_only, profile_window=PROFILE)
+    for trainer in ("trainer_q", "trainer_r"):
+        if trainer in results:
+            results[trainer]["layer_shares"] = legacy_layer_shares(trainer, results[trainer])
+    if "trainer_h" in results:
         # the cache's input stage inside H's step: the gather and the augment kernel, as shares of its device time
-        by_group = results["profile_h"]["profile"]["by_group_ms_per_step"]
-        device_step = results["profile_h"]["profile"]["device_ms"] / results["profile_h"]["profile"]["steps"]
+        prof = results["trainer_h"]["profile"]
+        by_group, device_step = prof["by_group_ms_per_step"], prof["device_ms"] / prof["steps"]
         shares = {g: {"ms_per_step": by_group.get(g, 0.0), "share_of_step": by_group.get(g, 0.0) / device_step}
                   for g in ("gather", "fused_aug", "memcpy")}
-        print(f"[profile_h] {json.dumps({'device_ms_per_step': device_step, 'input_stage': shares})}")
-        results["profile_h"]["input_stage"] = shares
+        print(f"[trainer_h] {json.dumps({'device_ms_per_step': device_step, 'input_stage': shares})}")
+        results["trainer_h"]["input_stage"] = shares
     if "trainer_a" in results and "trainer_h" in results:
         a, h = results["trainer_a"], results["trainer_h"]
-        print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median_4_10'], 'ms_per_step_a': a['ms_per_step_median_4_10'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
-    for trainer, profile in (("trainer_d", "profile_d"), ("trainer_i", "profile_i"), ("trainer_j", "profile_j"),
-                             ("trainer_k", "profile_k"), ("trainer_l", "profile_l"), ("trainer_m", "profile_m"),
-                             ("trainer_o", "profile_o"), ("trainer_q", "profile_q"), ("trainer_r", "profile_r")):
-        if trainer not in results or profile not in results:
+        print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median'], 'ms_per_step_a': a['ms_per_step_median'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
+    for trainer, result in results.items():
+        if not isinstance(result, dict) or "profile" not in result:
             continue
-        # the profiler (shapes recorded, thousands of ops a step) slows these hosts far more than A's or C's:
-        # the device time per step over the unprofiled step time is the busy share of record
-        prof = results[profile]["profile"]
-        device_ms_step = prof["device_ms"] / prof["steps"]
-        step_ms = results[trainer]["ms_per_step_median_4_10"]
-        print(f"[{profile}] {json.dumps({'device_ms_per_step': device_ms_step, f'{trainer}_ms_per_step': step_ms, 'busy_share_unprofiled': device_ms_step / step_ms})}")
+        # the profiler (shapes recorded, thousands of ops a step) slows a launch-bound host: the device
+        # time per profiled step over the unprofiled steps' median is the busy share of record
+        device_ms_step = result["profile"]["device_ms"] / result["profile"]["steps"]
+        step_ms = results.get("trainer_a" if trainer == "profile" else trainer, {}).get("ms_per_step_median", math.nan)
+        print(f"[{trainer}] {json.dumps({'device_ms_per_step': device_ms_step, 'ms_per_step': step_ms, 'busy_share_unprofiled': device_ms_step / step_ms})}")
+    print(f"[seconds] {json.dumps(seconds)}", flush=True)
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1

@@ -1,4 +1,4 @@
-"""Train CLI of the port (port of ``sota_imagenet_tpu/cli.py``:27-333; reference
+"""Train, export and dataset-prep CLI of the port (port of ``sota_imagenet_tpu/cli.py``:27-460; reference
 train.py).
 
 Usage:
@@ -6,6 +6,9 @@ Usage:
     python -m sota_imagenet_tpu_torch.cli -c <yaml> run.evaluate=true run.resume=<run_dir>/model_last.ckpt
     torchrun --nproc_per_node=N -m sota_imagenet_tpu_torch.cli [--device cpu] -c <yaml> [mesh.zero1=true] ...
     python -m sota_imagenet_tpu_torch.cli records packed <data_dir> [--size 224] ...   (records_main)
+    python -m sota_imagenet_tpu_torch.cli records resize <data_dir> [--size 512] [--workers N]
+    python -m sota_imagenet_tpu_torch.cli export -c <yaml> --ckpt <ckpt> --out <dir> [--ema]
+        [--batch poly|N] [--image-size S] [--quantize int8] [--device cpu|cuda] [key=value ...]   (export_main)
 
 Mirrors the reference main() flow (reference train.py:22-185): config →
 run dir + git snapshot → model / criterion / optimizer → resume → callbacks
@@ -114,6 +117,42 @@ def build_model(cfg):
             del derived[key]
 
 
+def optimizer_factory(cfg, model):
+    """The trainer's optimizer factory (the Runner's ``optimizer_factory``,
+    called on the model it trains): the config's optimizer over a model's
+    parameters. Weight decay applies to EVERY parameter unless
+    ``filter_from_wd`` is set (cli.py:199-202 of the JAX package; the mask
+    read off ``model``); the unit-wise optimizers, AdamP and SGDP take each
+    parameter's units and rank from the weights plan; ``mesh.zero1`` keeps
+    each rank's share of the state (cli.py:285-290 of the JAX package)."""
+    mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd) if cfg.filter_from_wd is not None else None
+    layout = needs_layout(cfg.optim)
+
+    def make_optimizer(m):
+        units = {"unit_dim": unit_dims(m), "flax_rank": flax_ranks(m)} if layout else {}
+
+        def build(named):
+            return build_optimizer(dict(cfg.optim), named, wd_mask=mask, **units)
+
+        return Zero1(build, m.named_parameters()) if cfg.mesh.zero1 else build(m.named_parameters())
+
+    return make_optimizer
+
+
+def parametrized_model(cfg, model):
+    """``model`` wrapped in every forward parametrization the trainer runs it
+    through: ``weight_standardization`` (conv_to_ws_conv, reference
+    train.py:66-67), then each callback's ``parametrization`` (the Runner's
+    wrap, loop.py:141-149 of the JAX package), in the config's order."""
+    if cfg.weight_standardization:
+        model = ParametrizedModel(model, weight_standardization_fn(cfg.init_gamma))
+    for clb_cfg in cfg.run.extra_callbacks or []:
+        fn = instantiate(clb_cfg).step_options().get("parametrization")
+        if fn is not None:
+            model = ParametrizedModel(model, fn)
+    return model
+
+
 def _git_snapshot(run_dir: str) -> None:
     """Reproducibility artifacts (reference train.py:32-36); best effort."""
     for fname, cmd in (("commit_hash.txt", ["git", "rev-parse", "--short", "HEAD"]), ("diff.txt", ["git", "diff"])):
@@ -193,22 +232,7 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
     criterion = instantiate(cfg.criterion)
     lr_phases = phases_from_stages(parse_stages(cfg.run.stages))
     log.info(f"Learning rate stages: {lr_phases}")
-    # weight decay applies to EVERY parameter unless filter_from_wd is set
-    # (cli.py:199-202 of the JAX package)
-    mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd) if cfg.filter_from_wd is not None else None
-
-    # the unitwise optimizers, AdamP and SGDP take each parameter's units and rank from the weights plan
-    layout = needs_layout(cfg.optim)
-
-    def make_optimizer(m):
-        units = {"unit_dim": unit_dims(m), "flax_rank": flax_ranks(m)} if layout else {}
-
-        def build(named):
-            return build_optimizer(dict(cfg.optim), named, wd_mask=mask, **units)
-
-        # ZeRO-1 (cli.py:285-290 of the JAX package): each rank keeps its share of the optimizer state
-        return Zero1(build, m.named_parameters()) if cfg.mesh.zero1 else build(m.named_parameters())
-
+    make_optimizer = optimizer_factory(cfg, model)
     # the TensorBoard sinks (cli.py:205-212 of the JAX package): scalars every 50 steps, and with
     # log.histogram the weights' histograms every epoch; the config's callbacks may add more
     sinks = [TensorBoard(run_dir, log_every=50)] if cfg.log.tensorboard else []
@@ -291,14 +315,70 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
     return vm
 
 
+def export_main(argv=None):
+    """Trained checkpoint -> serving artifact (port of ``sota_imagenet_tpu/cli.py``
+    :337-408; see ``utils/export.py`` for the artifact). The model is built
+    as the trainer builds it (``build_model``: ``loader.classes_divisor``'s
+    head too) and wrapped in every forward parametrization the trainer uses,
+    since the checkpoint holds the raw kernels: a WS or spectral run exported
+    without them would serve un-normalized kernels. ``--ema`` exports the
+    EMA's weights and buffers where the checkpoint holds them. The image size
+    is the final stage's; the input dtype follows ``run.bf16``. It loads the
+    checkpoint on the card unless ``--device cpu``; the trace itself runs on
+    the CPU (``export_inference``). The config is the run's: its YAML and
+    the dotted overrides it was trained with, or the run dir's
+    ``config.yaml``."""
+    parser = argparse.ArgumentParser(description="sota_imagenet_tpu_torch exporter")
+    parser.add_argument("-c", "--config", required=True)
+    parser.add_argument("--ckpt", required=True)
+    parser.add_argument("--out", required=True)
+    parser.add_argument("--ema", action="store_true", help="export the EMA weights")
+    parser.add_argument("--batch", default="poly", help="fixed batch size or 'poly' (symbolic)")
+    parser.add_argument("--image-size", type=int, default=None)
+    parser.add_argument(
+        "--quantize",
+        choices=["int8"],
+        default=None,
+        help="per-output-channel int8 weight quantization (~3-4x smaller artifact vs fp32)",
+    )
+    parser.add_argument("--device", default=None, help="cpu to load the checkpoint on the CPU (default: the card)")
+    parser.add_argument("overrides", nargs="*", help="the run's dotted overrides key=value")
+    args = parser.parse_args(argv)
+
+    from sota_imagenet_tpu_torch.train import steps as steps_lib
+    from sota_imagenet_tpu_torch.utils.export import export_inference, resolve_final_image_size
+
+    device = resolve_device(args.device)
+    cfg = C.load(args.config, overrides=args.overrides, strict_env=False)
+    model = build_model(cfg)
+    make_optimizer = optimizer_factory(cfg, model)
+    model = parametrized_model(cfg, model)
+    size = args.image_size or resolve_final_image_size(cfg)
+    input_dtype = torch.bfloat16 if cfg.run.bf16 else torch.float32
+    state = steps_lib.init_state(
+        model, make_optimizer, device=device, ema_decay=cfg.run.ema_decay, criterion=instantiate(cfg.criterion)
+    )
+    state, epoch = load_checkpoint(args.ckpt, state)
+    served = state.ema if (args.ema and state.ema is not None) else state.model
+    bs = None if args.batch == "poly" else int(args.batch)
+    out = export_inference(served, args.out, image_size=size, batch_size=bs, input_dtype=input_dtype,
+                           quantize=args.quantize)
+    print(
+        f"exported epoch-{epoch} weights -> {out} (batch={'symbolic' if bs is None else bs}, size={size}"
+        + (f", quantize={args.quantize}" if args.quantize else "")
+        + ")"
+    )
+    return out
+
+
 def records_main(argv=None):
     """Dataset prep (port of ``sota_imagenet_tpu/cli.py:411-460``, the JAX
     package's ``sota-records``). Subcommands:
 
       records packed   <data_dir> [--out DIR] [--size 224] [--workers N]
                        [--crops-per-image K] [--val-full-crop]
+      records resize   <data_dir> [--size 512] [--workers N]
       records tfrecord <data_dir> [--out DIR] [--workers N]    (not ported: item 12)
-      records resize   <data_dir> [--size 512] [--workers N]   (not ported: item 13)
     """
     parser = argparse.ArgumentParser(description="sota_imagenet_tpu_torch dataset prep")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -325,7 +405,9 @@ def records_main(argv=None):
     if args.cmd == "tfrecord":
         raise NotPortedError("records tfrecord (create_records)", "Queue 1 item 12")
     if args.cmd == "resize":
-        raise NotPortedError("records resize (resize_tool)", "Queue 1 item 13")
+        from sota_imagenet_tpu_torch.data.resize_tool import main as resize_tool_main
+
+        return resize_tool_main([args.data_dir, "--size", str(args.size), "--workers", str(args.workers)])
     from sota_imagenet_tpu_torch.data.packed import create_packed_records
 
     create_packed_records(
@@ -341,5 +423,7 @@ def records_main(argv=None):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["records"]:
         records_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["export"]:
+        export_main(sys.argv[2:])
     else:
         main()

@@ -220,15 +220,31 @@ class ParametrizedModel(nn.Module):
             self.model.reset_parameters(generator)
         self.reset_state()
 
-    def effective_parameters(self) -> Dict[str, torch.Tensor]:
-        """{name: effective kernel} for every transformed parameter; a training
-        forward also moves the stateful transform's state."""
-        params = dict(self.model.named_parameters())
+    def _effective(self, params: Dict[str, torch.Tensor], state, update: bool) -> Dict[str, torch.Tensor]:
         eff: Dict[str, torch.Tensor] = {}
         for i, (fn, names) in enumerate(zip(self.fns, self.selected)):
             sub = {n: eff.get(n, params[n]) for n in names}
-            eff.update(fn(sub, self._state(), self.training) if i == self._stateful else fn(sub))
+            eff.update(fn(sub, state, update) if i == self._stateful else fn(sub))
         return eff
+
+    def effective_parameters(self) -> Dict[str, torch.Tensor]:
+        """{name: effective kernel} for every transformed parameter; a training
+        forward also moves the stateful transform's state."""
+        state = self._state() if self._stateful is not None else {}
+        return self._effective(dict(self.model.named_parameters()), state, self.training)
+
+    def functional_state(self, state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The inner model's {name: tensor} for ``torch.func.functional_call``
+        from an explicit ``state_dict`` of this wrapper (raw kernels, buffers,
+        the spectral state), with the effective kernels computed from it as an
+        eval forward does: the stateful transform reads its u/v from the dict
+        and moves nothing. A serving program traced through it runs the
+        parametrizations inside its graph."""
+        key = SPECTRAL_STATE_KEY + "."
+        inner = {k: v for k, v in state_dict.items() if not k.startswith(key)}
+        state = {n: (state_dict[f"{key}{n}.u"], state_dict[f"{key}{n}.v"]) for n in self.stateful_names()}
+        inner.update(self._effective(inner, state, False))
+        return inner
 
     def forward(self, *args, **kwargs):
         return torch.func.functional_call(self.model, self.effective_parameters(), args, kwargs)

@@ -1,6 +1,6 @@
-"""The port learns, on the card, through the real data path (port of
-``scripts/tpu_accuracy_proof.py``:1-136; the export closure, :138-200, waits
-for ROADMAP.md Queue 1 item 13).
+"""The port learns, on the card, through the real data path, and the
+artifact it exports serves what it learned (port of
+``scripts/tpu_accuracy_proof.py``).
 
 Writes a 20-class JPEG corpus from a seed (class = hue, or texture x hue:
 factors that survive RandomResizedCrop, mirror and the colour twist), then
@@ -13,8 +13,16 @@ few finite steps cannot. Val Acc@1 is read each epoch from a callback (the
 EMA weights, as the run validates); the raw weights are scored once at the
 end too.
 
+The serving closure (the JAX script's :138-200): the run's
+``model_last.ckpt`` is exported with ``--ema`` on the CPU (``cli
+export_main``, the run's own config.yaml), the artifact is loaded on the
+card (``utils/export.load_exported``) and scores the val folder through
+``decode_val`` in chunks of 100; ``ok`` also needs its Acc@1 within 2.0
+points of the run's final val Acc@1 (same weights, same preprocessing: a
+drift means the artifact serves something other than what was trained).
+
 Usage: python -m sota_imagenet_tpu_torch.tools.accuracy_proof [--epochs 30] [--corpus hue|texture] [--keep]
-Prints one JSON line: {"final_acc1", "best_acc1", "curve", "ok", ...}; exits 0 iff ok.
+Prints one JSON line: {"final_acc1", "best_acc1", "artifact_acc1", "curve", "ok", ...}; exits 0 iff ok.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import argparse
 import colorsys
 import contextlib
+import glob
 import json
 import os
 import shutil
@@ -152,6 +161,34 @@ def run_cli(config: str, data: str, overrides: Iterable[str], device=None, callb
         return cli.main(["-c", config, *overrides], device=device, callbacks=list(callbacks))
 
 
+def artifact_acc1(work: str, data: str, device=None) -> dict:
+    """Export the run's last checkpoint (EMA weights) on the CPU, serve the
+    val folder through the artifact on ``device`` and return its Acc@1 with
+    the export's and the scoring's seconds."""
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch.data.decode import decode_val
+    from sota_imagenet_tpu_torch.data.pipeline import scan_image_folder
+    from sota_imagenet_tpu_torch.utils.export import load_exported
+
+    ckpt = sorted(glob.glob(os.path.join(work, "logs", "*", "*", "model_last.ckpt")))[-1]
+    serve_dir = os.path.join(work, "serve")
+    t0 = time.perf_counter()
+    # the artifact serves the weights the run validated: the EMA's
+    cli.export_main(["-c", os.path.join(os.path.dirname(ckpt), "config.yaml"), "--ckpt", ckpt, "--out", serve_dir,
+                     "--ema", "--device", "cpu"])
+    export_s = time.perf_counter() - t0
+    serve, meta = load_exported(serve_dir, device=device)
+    files, labels, _ = scan_image_folder(os.path.join(data, "val"))
+    correct = 0
+    t1 = time.perf_counter()
+    for i in range(0, len(files), 100):
+        images = np.stack([decode_val(f, meta["image_size"]) for f in files[i : i + 100]])
+        pred = serve(images).argmax(-1).cpu().numpy()
+        correct += int((pred == np.asarray(labels[i : i + 100])).sum())
+    return {"artifact_acc1": 100.0 * correct / len(files), "export_s": export_s,
+            "artifact_score_s": time.perf_counter() - t1}
+
+
 def main(argv=None, *, device=None, overrides: Iterable[str] = ()) -> dict:
     """Generate the corpus, train, print and return the verdict. ``device``
     and ``overrides`` (appended to the run's own) are for callers such as
@@ -181,9 +218,14 @@ def main(argv=None, *, device=None, overrides: Iterable[str] = ()) -> dict:
     train_s = time.perf_counter() - t1
     accs = curve.curve
     best = max(accs, default=float("nan"))
+    final = accs[-1] if accs else float("nan")
+    ok = len(accs) == args.epochs and best >= args.threshold
+    served = artifact_acc1(work, data, device) if ok else {"artifact_acc1": float("nan")}
+    ok = ok and abs(served["artifact_acc1"] - final) <= 2.0
     result = {
-        "final_acc1": accs[-1] if accs else float("nan"),
+        "final_acc1": final,
         "best_acc1": best,
+        **served,
         "final_acc1_raw_weights": curve.raw_acc1,
         "curve": accs,
         "epochs": args.epochs,
@@ -191,7 +233,7 @@ def main(argv=None, *, device=None, overrides: Iterable[str] = ()) -> dict:
         "config": args.config,
         "corpus_s": corpus_s,
         "train_s": train_s,
-        "ok": len(accs) == args.epochs and best >= args.threshold,
+        "ok": ok,
     }
     print(json.dumps(result), flush=True)
     if not result["ok"]:

@@ -122,6 +122,8 @@ def test_accuracy_proof_drives_the_cli_and_reports_each_epoch(capsys):
     assert len(result["curve"]) == 3 and all(0 <= a <= 100 for a in result["curve"])
     assert result["final_acc1"] == result["curve"][-1] and result["best_acc1"] == max(result["curve"])
     assert 0 <= result["final_acc1_raw_weights"] <= 100  # the raw weights, scored after the EMA's val pass
+    # the serving closure: the EMA weights exported on the CPU serve the val folder as the run scored it
+    assert abs(result["artifact_acc1"] - result["final_acc1"]) <= 2.0 and result["export_s"] > 0
     assert result["ok"] and result["corpus"] == "hue" and result["config"] == "tpu_accuracy.yaml"
 
 
@@ -143,3 +145,69 @@ def test_recipe_rehearsal_packs_its_corpus_for_the_cached_run(tmp_path, monkeypa
     assert result["train_size"] == result["val_size"] == 32 and result["pack_s"] > 0
     assert len(result["val_curve"]) == 2 and result["epochs"] == 2
     assert "corpus_s" not in result  # the corpus was reused, not written
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_bench_models_prints_one_json_line_per_model(capsys, mode):
+    """tools/bench_models.py, the port of scripts/bench_models.py: the same
+    five families at the same batches; here one family on the CPU at a toy
+    size, 2 timed calls (the rates are the card's to measure)."""
+    from sota_imagenet_tpu_torch.tools import bench_models as BM
+
+    assert list(BM.FAMILIES) == ["resnet50", "bresnet50", "eca_nfnet_l0", "vgg16_bn", "vgg_cmodel"]
+    assert BM.EVAL_BATCH == 250 and [BM.FAMILIES[n]()[2] for n in ("resnet50", "vgg16_bn")] == [128, 64]
+    argv = ["resnet50", "--device", "cpu", "--batch", "2", "--size", "32", "--iters", "2"]
+    results = BM.main(argv + (["--eval"] if mode == "eval" else []))
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert lines == json.loads(json.dumps(results)) and len(lines) == 1
+    line = lines[0]
+    assert line["model"] == "resnet50" and line["mode"] == mode and line["device"] == "cpu"
+    assert (line["batch"], line["size"], line["iters"]) == (2, 32, 2) and line["img_per_sec"] > 0
+    assert ("ms_per_step" if mode == "train" else "ms_per_batch") in line and "gpu" in line
+
+
+SOAK_PLAN = {"boundary": 3, "last_epoch": 5, "final_size": 224}
+
+
+def _soak_log(epochs=range(1, 6), loaded="logs/x/model.ckpt", finished=True):
+    lines = ["Loader changed. New data config: image_size=160 batch_size=192"]
+    if loaded:
+        lines.append(f"Loaded checkpoint from {loaded}")
+    for e in epochs:
+        if e == 3:
+            lines.append("Loader changed. New data config: image_size=224 batch_size=128")
+        lines += [f"Epoch {e:3d} | Train loss: 6.9", f"Epoch {e:3d} | Val   loss: 6.9"]
+    if finished:
+        lines.append("Total time: 0h 1.0m")
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("case", ["passes", "no_checkpoint_loaded", "not_finished", "not_killed", "rc",
+                                  "resumed_past_the_boundary", "stopped_early", "restarted_at_epoch_0",
+                                  "killed_with_epoch_0_saved", "loaded_another_checkpoint"])
+def test_soak_verdict(case):
+    """tools/soak.py's verdict: phase 2 must load the checkpoint phase 1
+    left and finish (the JAX script's two greps, the first made exact),
+    exit 0, resume at the epoch that checkpoint holds, above 0 (so a resume
+    that restarts from scratch is told apart), and train every epoch from
+    there, before the resize boundary, to the last, after phase 1 was
+    killed with a checkpoint written."""
+    from sota_imagenet_tpu_torch.tools import soak
+
+    assert soak.stage_plan() == SOAK_PLAN  # configs/tpu_soak.yaml as it stands
+    killed, ckpt, ckpt_epoch, rc2 = True, "logs/x/model.ckpt", 1, 0
+    log = {"no_checkpoint_loaded": _soak_log(loaded=None), "not_finished": _soak_log(finished=False),
+           "resumed_past_the_boundary": _soak_log(epochs=range(4, 6)),
+           "stopped_early": _soak_log(epochs=range(1, 5)), "restarted_at_epoch_0": _soak_log(epochs=range(6)),
+           "killed_with_epoch_0_saved": _soak_log(epochs=range(6)),
+           "loaded_another_checkpoint": _soak_log(loaded="logs/y/model.ckpt")}.get(case, _soak_log())
+    if case == "not_killed":
+        killed = False
+    if case == "rc":
+        rc2 = 1
+    if case == "killed_with_epoch_0_saved":
+        ckpt_epoch = 0
+    result = soak.verdict(SOAK_PLAN, killed, ckpt, ckpt_epoch, rc2, log)
+    assert result["ok"] == (case == "passes"), result
+    if case == "passes":
+        assert result["resumed_at"] == 1 and result["phase2_epochs"] == [1, 2, 3, 4, 5]
