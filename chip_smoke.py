@@ -66,6 +66,17 @@ soak, bench_models, the data phases and A's profile.
              projected sets equal), exp26's csp_simpl_dark, a depth-cut
              densenet121 and the whole tresnetm (legacy_model_phase;
              tolerances as the model phases').
+3c. model_remat, model_skip, model_debug_nans — the last trainer options
+             on the card (f32, cuDNN deterministic where bits are compared):
+             one step of a depth-cut bresnet50 with drop-path, the spectral
+             config-8 BNet trunk and the adacos_sphere trunk under run.remat
+             'full' and 'convs' against the same step without it (loss,
+             gradients, buffers, AdaCos's state within 1e-6; bit-identity
+             reported; remat_model_phase); run.skip_nonfinite's four cases
+             and its lr lag on the tiny CModel, each held to the same steps
+             on the CPU (skip_model_phase); debug_nans raising on a poisoned
+             batch, and a clean run equal with and without it
+             (debug_nans_model_phase).
 4. trainer A — ``cli.main`` on configs/exp/1.r50_baseline.yaml (ResNet-50 at
              full width, batch 256 at 224 px, bf16, synthetic data, debug
              mode: 10 train steps and 20 val steps). Checks: finite loss, the
@@ -80,6 +91,13 @@ soak, bench_models, the data phases and A's profile.
              every 1x1 conv + BatchNorm of a train step goes through the
              conv1x1_stats kernel, 36 launches per step, all on its sm90
              path.
+6b. trainer S, trainer C-remat — trainer A with run.remat=convs, whose
+             steps 2-3 the config's own Profiler callback traces (the device
+             breakdown read from its trace file, which must name fused_aug
+             and cuDNN's convolutions; ms/step over steps 5-10); trainer C
+             with run.remat=full: 72 conv1x1_stats launches a step, the
+             forward's 36 and their recompute. Each beside A's or C's
+             ms/step and peak memory.
 7. trainer D — ``cli.main`` on configs/exp/15.eca_nfnet_l0.yaml as the file
              says but for synthetic data, debug mode and one 1-epoch warmup
              stage: full-width eca_nfnet_l0 (24.14M parameters), batch 256 at
@@ -111,6 +129,11 @@ soak, bench_models, the data phases and A's profile.
              to 600). Prints ms/step, img/s, input_utilization, data_time_s,
              the decoder's counts, the val pass's wall and the H2D MB per
              batch.
+10b. trainer T — ``records tfrecord`` writes that tree as the reference's
+             128 + 16 TFRecord shards (timed), and trainer F's config trains
+             from them through the tfrecord backend: two epochs, 20 augment
+             launches, all 600 val images scored once; its epoch img/s beside
+             F's.
 11. trainer G — the same tree on r50_baseline with loader.device_resample=true
              and val_loader.rectangular=true: 560 px canvases resampled on the
              card, then the augment kernel; val in three aspect shapes,
@@ -218,7 +241,10 @@ soak, bench_models, the data phases and A's profile.
              and 4; accumulation 2 with unit-wise SAM; ZeRO-1 under AdamW,
              AdaiS and Lookahead(SGD) against the replicated run (bit for
              bit; AdaiS within DDP_TOL); a depth-cut adacos_sphere trunk with
-             AdaCos's state. Both ranks' weights bit for bit equal.
+             AdaCos's state; FixMatchLoss, whose pairs straddle the ranks;
+             run.remat 'convs'; ZeRO-1 with skip_nonfinite and a poisoned
+             batch on rank 0 only, which both ranks skip. Both ranks'
+             weights bit for bit equal.
 21. trainer P — configs/exp/1.r50_baseline.yaml at full width through
              cli.main as two gloo ranks on the card (mesh.data=2,
              mesh.zero1=true; 128 of the 256 rows each, bf16, synthetic,
@@ -2462,9 +2488,60 @@ def _resume_eval(config: str, overrides: list, ckpt: str, val: dict) -> dict:
             "val_equal": again == val, "val_max_abs_diff": max(abs(again[k] - val[k]) for k in val)}
 
 
+def tfrecord_overrides(root: str) -> tuple:
+    """The TFRecords under ``root`` (``records tfrecord``'s layout) for train
+    and val, debug mode and two epochs, as folder_overrides."""
+    return ("loader.backend=tfrecord", "val_loader.backend=tfrecord", *folder_overrides(root)[2:])
+
+
+def write_records(tree: str, out: str) -> dict:
+    """``records tfrecord`` on the ImageFolder at ``tree``: the reference's
+    128 train and 16 val shards of JPEG records with their indexes, written
+    by 8 processes; its seconds and bytes."""
+    import glob
+
+    from sota_imagenet_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    cli.records_main(["tfrecord", tree, "--out", out, "--workers", "8"])
+    seconds = time.perf_counter() - t0
+    files = glob.glob(os.path.join(out, "*_records", "*"))
+    return {"seconds": seconds, "shards": len(files), "mbytes": sum(os.path.getsize(f) for f in files) / 1e6,
+            "img_per_s": (FOLDER_TRAIN + FOLDER_VAL) / seconds}
+
+
+def _trace_breakdown(path: str, steps: int) -> dict:
+    """Device time a step by KERNEL_GROUPS from a Chrome trace file (the
+    Profiler callback's): its kernel, copy and fill events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    rows: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            name = e.get("name", "")
+            ms, n = rows.get(name, (0.0, 0))
+            rows[name] = (ms + e.get("dur", 0.0) / 1e3, n + 1)
+    groups: dict = {}
+    for name, (ms, _) in rows.items():
+        low = name.lower()
+        group = next((g for g, frags in KERNEL_GROUPS if any(f in low for f in frags)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])
+    convs = [n for n in rows if any(f in n.lower() for f in ("conv", "fprop", "dgrad", "wgrad", "cudnn"))]
+    return {
+        "trace": os.path.basename(path), "steps": steps, "device_ms": sum(ms for ms, _ in rows.values()),
+        "launches_per_step": sum(n for _, n in rows.values()) / steps,
+        "by_group_ms_per_step": {g: ms / steps for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [{"ms_per_step": ms / steps, "calls": n, "name": k[:120]} for k, (ms, n) in top[:12]],
+        "fused_aug_kernels": sorted(n for n in rows if "fused_aug" in n.lower()),
+        "conv_kernels": len(convs), "conv_kernel_example": convs[0][:120] if convs else None,
+    }
+
+
 def trainer_phase(
     name: str, config: str, extra: tuple, gpu: str, per_step: dict, profile_window=None, recipe: str = None,
-    tree: str = None, val_shapes: int = 1, cache: bool = False, keep_ckpt: str = None,
+    tree: str = None, val_shapes: int = 1, cache: bool = False, keep_ckpt: str = None, profiler_clb=None,
+    tfrecord: bool = False,
 ) -> dict:
     """cli.main on ``config`` (a full-width model, bs 256 @ 224, bf16);
     ``per_step`` is each kernel's expected launches per train step. With
@@ -2491,7 +2568,14 @@ def trainer_phase(
     With ``cache`` the tree is a packed one, read through IMAGENET_DIR by a
     config that caches it on the card (cache_overrides), and the run also
     reports the cache's fill (the first epoch's ``cache_fill_s`` and
-    ``cache_mb``) and the bytes it copies to the card per train step."""
+    ``cache_mb``) and the bytes it copies to the card per train step.
+    With ``tfrecord`` the tree holds ``records tfrecord``'s shards, read
+    through the tfrecord backend (tfrecord_overrides). With
+    ``profiler_clb=(a, b)`` the config's own ``Profiler`` callback
+    (``run.extra_callbacks``) traces the end of step a to the end of step b
+    into the run's log dir, and the device breakdown is read from its trace
+    file (_trace_breakdown), which must name the fused_aug kernel and
+    cuDNN's convolutions."""
     import glob
 
     import torch
@@ -2505,10 +2589,15 @@ def trainer_phase(
         probe.writer = RecordingWriter()
     counters = kernel_counters()
     scopes = _layer_scopes() if (recipe and profile_window) else contextlib.nullcontext()
-    data = TRAINER_OVERRIDES if tree is None else CACHE_OVERRIDES if cache else folder_overrides(tree)
+    data = (TRAINER_OVERRIDES if tree is None else CACHE_OVERRIDES if cache else tfrecord_overrides(tree) if tfrecord
+            else folder_overrides(tree))
     env = imagenet_dir(tree) if cache else contextlib.nullcontext()
     with tempfile.TemporaryDirectory() as logdir, scopes, _count_h2d({}) as h2d, env:
         overrides = [*data, *extra, f"log.dir={logdir}"]
+        if profiler_clb:
+            profile_dir = os.path.join(logdir, "profile")
+            overrides.append(f"run.extra_callbacks=[{{_target_: Profiler, log_dir: {profile_dir}, "
+                             f"start_step: {profiler_clb[0]}, num_steps: {profiler_clb[1] - profiler_clb[0]}}}]")
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0  # counts from here are this path's
@@ -2525,13 +2614,16 @@ def trainer_phase(
         if keep_ckpt and ckpts:
             shutil.copyfile(ckpts[0], keep_ckpt)
         resumed = _resume_eval(config, overrides, ckpts[0], val) if recipe == "adacos" and ckpts else None
+        traces = glob.glob(os.path.join(logdir, "profile", "*.pt.trace.json")) if profiler_clb else []
+        clb_profile = _trace_breakdown(traces[0], profiler_clb[1] - profiler_clb[0]) if len(traces) == 1 else None
     steps = len(probe.step_ms)
     loss = probe.train_metrics.get("loss", float("nan"))
     # steps 4-10 (1-based) of the last epoch, less those the profiler ran in and the one after it stopped
     # (its sync, then the profiler's own stop, leave the card idle inside that step's time); a run of two
     # epochs (``tree``) is profiled in its first
     epochs = 1 if tree is None else 2
-    skip = range(profile_window[0] + 1, profile_window[1] + 2) if profile_window and epochs == 1 else ()
+    window = profile_window or profiler_clb
+    skip = range(window[0] + 1, window[1] + 2) if window and epochs == 1 else ()
     steady = [i for i in range(3, min(len(probe.step_ms), 10)) if i not in skip]
     ms_step = statistics.median(probe.step_ms[i] for i in steady) if steady else float("nan")
     result = {
@@ -2577,6 +2669,9 @@ def trainer_phase(
             "h2d_mb_per_train_step": h2d.get("cache_train_bytes", 0) / (2 * steps) / 1e6,
             "h2d_mb_val_per_epoch": h2d.get("cache_val_bytes", 0) / 2 / 1e6,
         })
+    if profiler_clb:
+        result["profile_callback"] = clb_profile
+        result["profile_traces"] = len(traces)
     if probe.prof is not None:
         result["profile"] = _device_time_breakdown(probe.prof, probe.prof_wall_ms, profile_window)
         if recipe:
@@ -2661,6 +2756,8 @@ def trainer_phase(
         raise AssertionError(f"{name}: params on {probe.param_devices}, batches/metrics on {probe.metric_devices}")
     if not ckpts:
         raise AssertionError(f"{name}: model_last.ckpt was not written")
+    if profiler_clb and (clb_profile is None or not clb_profile["fused_aug_kernels"] or not clb_profile["conv_kernels"]):
+        raise AssertionError(f"{name}: the Profiler callback's traces {len(traces)}, breakdown {clb_profile}")
     if cache and (result["cache_mb"] != FOLDER_TRAIN * 224 * 224 * 3 / 1e6 or sum(result["decoded"].values())):
         raise AssertionError(f"{name}: cache of {result['cache_mb']} MB, images decoded {result['decoded']}")
     if tree is not None and (None in probe.val_weights or sum(probe.val_weights) != FOLDER_VAL):
@@ -2736,6 +2833,250 @@ def trainer_phase(
             "forward": profile_window[1] - profile_window[0], "backward": profile_window[1] - profile_window[0]
         }:
             raise AssertionError(f"{name}: the auxiliary loss in the profiled steps: {result['profile']['aux_loss_steps']}")
+    return result
+
+
+# --------------------------------------------------------------------------- #
+# The last trainer options: remat, the non-finite skip, debug_nans
+# --------------------------------------------------------------------------- #
+
+REMAT_POLICIES = (False, "full", "convs")
+REMAT_TOL = 1e-6  # relative L2 of each remat run's step against the same step without it, on the card
+# the tiny CModel of the skip and debug_nans phases (JAX tests/test_train.py's), at 16 px
+TINY_LAYERS = [
+    {"module": "conv3x3", "args": [3, 8], "kwargs": {"stride": 2}},
+    {"module": "BatchNorm2d", "args": [8]},
+    {"module": "ReLU"},
+    {"module": "FastGlobalAvgPool2d", "kwargs": {"flatten": True}},
+    {"module": "Linear", "args": [8, 10]},
+]
+SKIP_FLAT = [{"start": 0, "end": 2, "lr": [0.1, 0.1]}]
+SKIP_MOVING = [{"start": 0, "end": 2, "lr": [0.2, 0.01]}]  # linear over 8 steps: a new lr every step
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms: two runs of one step give the same bits."""
+    import torch
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def _remat_case(name, make_state, images, labels, criterion, lr: float) -> dict:
+    """One f32 step on the card under each policy from the same seeded state:
+    the loss, the gradients, the buffers after it and the criterion's state,
+    each policy against no remat (relative L2, and whether bit-identical)."""
+    import torch
+
+    from sota_imagenet_tpu_torch.train import steps
+
+    flat = lambda ts: torch.cat([t.detach().double().flatten().cpu() for t in ts]) if ts else None
+    runs = {}
+    for remat in REMAT_POLICIES:
+        state = make_state()
+        step = steps.build_train_step(criterion, lambda i: lr, remat=remat, input_dtype=torch.float32)
+        state, m = step(state, {"image": images.cuda(), "label": labels.cuda()})
+        runs[remat] = {
+            "loss": flat([m["loss"]]), "grads": flat([p.grad for p in state.model.parameters()]),
+            "buffers": flat(list(state.model.buffers())),
+            "loss_state": flat(list(state.loss_state.values())) if state.loss_state else None,
+        }
+    base, out = runs[False], {}
+    for remat in REMAT_POLICIES[1:]:
+        r = runs[remat]
+        keys = [k for k in base if base[k] is not None]
+        out[remat] = {"rel": {k: float((r[k] - base[k]).norm() / base[k].norm()) for k in keys},
+                      "bit_identical": {k: bool(torch.equal(r[k], base[k])) for k in keys}}
+    return {"case": name, "buffers": int(base["buffers"].numel()), **out}
+
+
+def remat_model_phase() -> dict:
+    """``run.remat`` on the card (f32, 64 px, batch 8, cuDNN deterministic):
+    a depth-cut full-width bresnet50 with drop-path 0.2 and dropout 0.2 (the
+    masks come from the bound generator, which the recompute must replay),
+    the config-8 BNet trunk under ForwardSpectralNorm (u/v advance once) and
+    the adacos_sphere trunk with AdaCos's state. Under 'full' and 'convs',
+    loss, gradients, buffers and the criterion's state within REMAT_TOL of
+    the step without remat; whether they are bit-identical is reported."""
+    import copy
+
+    import torch
+    import yaml
+
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.config import instantiate
+    from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
+    from sota_imagenet_tpu_torch.models.cmodel import CModel
+    from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel
+    from sota_imagenet_tpu_torch.models.resnet import bresnet50
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.train.callbacks import ForwardSpectralNorm
+
+    images, labels = _seeded_batch(64)
+    sgd = lambda m: build_optimizer({"_target_": "sgd", "momentum": 0.9, "weight_decay": 1e-4}, m.named_parameters())
+
+    def state_of(model, optimizer=sgd, criterion=None):
+        return lambda: steps.init_state(model(), optimizer, device="cuda", seed=0, criterion=criterion)
+
+    bnet = C.load(BNET, strict_env=False)
+    extra = C.to_dict(bnet.model)["extra_kwargs"]
+    spectral = ForwardSpectralNorm().step_options()["parametrization"]
+    adacos_model = {"_target_": "CModel", "layer_config": yaml.safe_load(ADACOS_TRUNK),
+                    "extra_kwargs": {"ConvActBlock": {"activation": "swish_hard"}}}
+    adacos = instantiate({"_target_": "adacos", "margin": 0.0, "max_s": 20})
+    cases = [
+        ("bresnet_drop_path", state_of(lambda: bresnet50(layers=(1, 1, 1, 1), drop_connect_rate=0.2)),
+         CrossEntropyLoss(smoothing=0.1), 0.1),
+        ("bnet_spectral", state_of(
+            lambda: ParametrizedModel(CModel(layer_config=yaml.safe_load(BNET_TRUNK), extra_kwargs=extra), spectral),
+            lambda m: build_optimizer(dict(bnet.optim), m.named_parameters())), CrossEntropyLoss(smoothing=0.1), 0.05),
+        ("adacos_trunk", state_of(lambda: instantiate(copy.deepcopy(adacos_model)), criterion=adacos), adacos, 0.1),
+    ]
+    with _deterministic_cudnn():
+        rows = [_remat_case(name, make, images, labels, crit, lr) for name, make, crit, lr in cases]
+    result = {"phase": "model_remat", "cases": rows, "tolerance": REMAT_TOL}
+    print(f"[model_remat] {json.dumps(result)}")
+    bad = [(r["case"], p, k, v) for r in rows for p in REMAT_POLICIES[1:] for k, v in r[p]["rel"].items()
+           if not v <= REMAT_TOL]
+    if bad:
+        raise AssertionError(f"model_remat: a remat step differs from the plain one: {bad}")
+    return result
+
+
+def _tiny_runner(device: str, make_optimizer, stages, debug_nans: bool = False):
+    import copy
+
+    import torch
+
+    from sota_imagenet_tpu_torch.config import parse_stages
+    from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
+    from sota_imagenet_tpu_torch.models.cmodel import CModel
+    from sota_imagenet_tpu_torch.train.loop import Runner
+    from sota_imagenet_tpu_torch.train.schedule import phases_from_stages
+
+    runner = Runner(CModel(layer_config=copy.deepcopy(TINY_LAYERS)), CrossEntropyLoss(smoothing=0.1), make_optimizer,
+                    lr_phases=phases_from_stages(parse_stages(stages)), input_dtype=torch.float32, device=device,
+                    debug_nans=debug_nans)
+    runner.init_state(seed=0)
+    runner._build_steps(steps_per_epoch=4, base_epoch=0)
+    return runner
+
+
+def _tiny_batch(step: int, poison: bool, device: str) -> dict:
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(step)
+    img = rng.normal(size=(8, 16, 16, 3)).astype(np.float32)
+    if poison:
+        img[0, 0, 0, 0] = np.inf  # BatchNorm turns it into NaN: the loss, every gradient
+    return {"image": torch.from_numpy(img).to(device),
+            "label": torch.from_numpy(np.eye(10, dtype=np.float32)[np.arange(8) % 10]).to(device)}
+
+
+def _skip_run(device: str, skip_n: int, pattern, stages) -> list:
+    """The tiny CModel's steps over ``pattern`` (True: a poisoned batch) under
+    ``run.skip_nonfinite=skip_n``: after each, the weights, the counters and
+    the loss."""
+    import torch
+
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.optim.skip_nonfinite import ApplyIfFinite
+
+    def make_optimizer(m):
+        opt = build_optimizer({"_target_": "sgd", "momentum": 0.9}, m.named_parameters())
+        return ApplyIfFinite(opt, skip_n) if skip_n else opt
+
+    runner = _tiny_runner(device, make_optimizer, stages)
+    init = torch.cat([p.detach().double().flatten().cpu() for p in runner.state.model.parameters()])
+    out = []
+    for i, poison in enumerate(pattern):
+        runner.state, m = runner._train_step(runner.state, _tiny_batch(i, poison, device))
+        opt = runner.state.optimizer
+        out.append({"params": torch.cat([p.detach().double().flatten().cpu() for p in runner.state.model.parameters()]),
+                    "counters": opt.counters() if skip_n else None, "loss": float(m["loss"]), "lr": m["lr"]})
+    return [{"init": init}, *out]
+
+
+def skip_model_phase() -> dict:
+    """``run.skip_nonfinite`` on the card, each case held to the same steps on
+    the CPU (float32, TF32 off): a poisoned step skipped then recovery (N=3),
+    NaN weights without the guard, the guard giving up after N=2, the
+    schema's default, and the lr lag (a schedule that moves every step: a
+    skip, then three clean steps at the schedule of the applied count)."""
+    import torch
+
+    from sota_imagenet_tpu_torch.config import RunnerConfig
+
+    cases = {"skipped_then_recovers": (3, [True, False], SKIP_FLAT), "without_guard": (0, [True], SKIP_FLAT),
+             "gives_up": (2, [True] * 4, SKIP_FLAT), "lr_lag": (3, [True, False, False, False], SKIP_MOVING)}
+    rows, failures = {}, []
+    for name, (n, pattern, stages) in cases.items():
+        card, cpu = _skip_run("cuda", n, pattern, stages), _skip_run("cpu", n, pattern, stages)
+        finite = [bool(torch.isfinite(s["params"]).all()) for s in card[1:]]
+        rel = [float((a["params"] - b["params"]).norm() / b["params"].norm()) if f else None
+               for a, b, f in zip(card[1:], cpu[1:], finite)]
+        rows[name] = {"counters": [s["counters"] for s in card[1:]], "finite_params": finite, "rel_to_cpu": rel,
+                      "losses": [s["loss"] for s in card[1:]], "lr": [s["lr"] for s in card[1:]],
+                      "counters_equal_cpu": [a["counters"] for a in card[1:]] == [b["counters"] for b in cpu[1:]],
+                      "finite_equal_cpu": finite == [bool(torch.isfinite(s["params"]).all()) for s in cpu[1:]]}
+        r = rows[name]
+        if not (r["counters_equal_cpu"] and r["finite_equal_cpu"] and all(v is None or v < 1e-5 for v in rel)):
+            failures.append(f"{name}: the card against the CPU {r}")
+    r = rows["skipped_then_recovers"]
+    init = _skip_run("cuda", 3, [], SKIP_FLAT)[0]["init"]
+    rows["skipped_step_left_the_weights"] = bool(torch.equal(
+        _skip_run("cuda", 3, [True], SKIP_FLAT)[1]["params"], init))
+    if not (rows["skipped_step_left_the_weights"] and r["finite_params"] == [True, True]
+            and r["counters"][1]["total_notfinite"] == 1 and r["counters"][1]["notfinite_count"] == 0):
+        failures.append(f"skipped_then_recovers: {r}")
+    if rows["without_guard"]["finite_params"] != [False]:
+        failures.append(f"without_guard: {rows['without_guard']}")
+    if rows["gives_up"]["finite_params"] != [True, True, False, False]:
+        failures.append(f"gives_up: {rows['gives_up']}")
+    if rows["lr_lag"]["counters"][-1]["update_count"] != 3:
+        failures.append(f"lr_lag: {rows['lr_lag']}")
+    rows["schema_default"] = RunnerConfig().skip_nonfinite
+    result = {"phase": "model_skip", "cases": rows}
+    print(f"[model_skip] {json.dumps(result)}")
+    if failures or rows["schema_default"] != 0:
+        raise AssertionError("model_skip: " + "; ".join(failures))
+    return result
+
+
+def debug_nans_model_phase() -> dict:
+    """``debug_nans`` on the card: a poisoned batch raises FloatingPointError
+    naming the BatchNorm where its inf becomes NaN; three clean steps with it
+    on equal three without it bit for bit (cuDNN deterministic)."""
+    import torch
+
+    from sota_imagenet_tpu_torch.optim import build_optimizer
+
+    sgd = lambda m: build_optimizer({"_target_": "sgd", "momentum": 0.9}, m.named_parameters())
+    runner = _tiny_runner("cuda", sgd, SKIP_FLAT, debug_nans=True)
+    try:
+        runner._train_step(runner.state, _tiny_batch(0, True, "cuda"))
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    states = []
+    with _deterministic_cudnn():
+        for debug in (False, True):
+            r = _tiny_runner("cuda", sgd, SKIP_FLAT, debug_nans=debug)
+            for i in range(3):
+                r.state, _ = r._train_step(r.state, _tiny_batch(i, False, "cuda"))
+            states.append(r.state.model.state_dict())
+    equal = all(torch.equal(v, states[1][k]) for k, v in states[0].items())
+    result = {"phase": "model_debug_nans", "raised": raised, "clean_run_bit_equal": equal}
+    print(f"[model_debug_nans] {json.dumps(result)}")
+    if not (raised and "BatchNorm" in raised and equal):
+        raise AssertionError(f"model_debug_nans: {result}")
     return result
 
 
@@ -2829,6 +3170,12 @@ ADACOS_TRUNK = """
 - [-1, 1, "pt.modules.FastGlobalAvgPool2d", [], {flatten: True}]
 - [-1, 1, SphereLinearLayer, [128, 1000]]
 """
+FIXMATCH_TRUNK = """
+- [-1, 1, conv3x3, [3, 16], {stride: 2}]
+- [-1, 1, BatchNorm2d, 16]
+- [-1, 1, "pt.modules.FastGlobalAvgPool2d", [], {flatten: True}]
+- [-1, 1, "nn.Linear", [16, 100]]
+"""
 DDP_STEPS = 3
 # two ranks against one process on the card, relative L2 of the state's change (float64): the BN statistics
 # are summed in another order over ranks; AdaCos's head rounds its cosines to float32 and AdaiS keeps float32
@@ -2867,12 +3214,38 @@ def _ddp_legs() -> dict:
         "e_adacos": {**base, "model": adacos_model, "init": {k: v.numpy().copy() for k, v in m.state_dict().items()},
                      "criterion": {"_target_": "adacos", "margin": 0.0, "max_s": 20}, "batches": adacos_batches},
     }
+    # FixMatch pairs global row i with row i + 8, on the other rank; a CModel, whose logits stay float64
+    # (the ResNet's head returns float32 ones, and the criterion's sums would then round in float32)
+    fixmatch_model = {"_target_": "CModel", "layer_config": yaml.safe_load(FIXMATCH_TRUNK)}
+    m = instantiate(copy.deepcopy(fixmatch_model))
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    legs["f_fixmatch"] = {**base, "model": fixmatch_model, "init": {k: v.numpy().copy() for k, v in m.state_dict().items()},
+                          "criterion": {"_target_": "FixMatchLoss", "hard_weight": 0.5, "hard_pct": 0.2}}
+    # remat 'convs': every BatchNorm's all-reduce runs again in the recompute
+    legs["g_remat_convs"] = {**base, "remat": "convs"}
+    # ZeRO-1 with the skip: step 2's batch holds an inf in row 0, which only rank 0 loads; the averaged
+    # gradient is NaN on both ranks, so both skip that update
+    poisoned = [(im.copy(), lb) for im, lb in base["batches"]]
+    poisoned[1][0][0, 0, 0, 0] = np.inf
+    legs["h_zero1_skip"] = {**base, "zero1": True, "skip_nonfinite": 2, "batches": poisoned}
     for name, optim, lr in (("adamw", {"_target_": "adamw", "weight_decay": 1e-2}, 1e-3),
                             ("adais", {"_target_": "adais", "weight_decay": 1e-4}, base["lr"]),
                             ("lookahead_sgd", {**sgd, "lookahead": True, "lookahead_k": 2}, base["lr"])):
         legs[f"d_zero1_{name}"] = {**base, "optim": optim, "lr": lr, "zero1": True}
         legs[f"d_replicated_{name}"] = {**base, "optim": optim, "lr": lr}
     return legs
+
+
+def _max_rel(pairs) -> float:
+    """The largest relative difference of (got, want) pairs; a pair non-finite on both sides alike counts 0."""
+    out = 0.0
+    for a, b in pairs:
+        if not (math.isfinite(a) and math.isfinite(b)):
+            if not (math.isnan(a) and math.isnan(b)) and a != b:
+                return math.inf
+            continue
+        out = max(out, abs(a - b) / abs(b))
+    return out
 
 
 def _rel_delta(got: dict, want: dict, init: dict) -> float:
@@ -2889,8 +3262,12 @@ def model_ddp_phase(gpu: str) -> dict:
     bn_stats=local and bn_stats=4; (c) accumulate_steps=2 with unit-wise
     SAM; (d) ZeRO-1 under AdamW, AdaiS and Lookahead(SGD), each against the
     replicated two-rank run (bit for bit, AdaiS within DDP_TOL); (e) a
-    depth-cut adacos_sphere trunk with AdaCos's state. Loss, grad_norm, the
-    weights, BN buffers and EMA, and the criterion's state."""
+    depth-cut adacos_sphere trunk with AdaCos's state; (f) FixMatchLoss,
+    whose pairs sit on the other rank; (g) run.remat 'convs', the
+    recompute's BatchNorm all-reduces counted; (h) ZeRO-1 with
+    skip_nonfinite 2 and an inf in rank 0's rows of step 2: both ranks skip
+    that update. Loss, grad_norm, the weights, BN buffers and EMA, and the
+    criterion's state."""
     import numpy as np
 
     from sota_imagenet_tpu_torch.tools.ranks import run_ranks, train_legs, train_steps
@@ -2905,7 +3282,10 @@ def model_ddp_phase(gpu: str) -> dict:
     for i, name in enumerate(names):
         r0, r1 = ranks[0][i], ranks[1][i]
         init = legs[name]["init"]
-        row = {"ranks_bit_equal": all(np.array_equal(r0["model"][k], r1["model"][k]) for k in r0["model"]),
+        if name == "h_zero1_skip":  # the poisoned batch leaves NaN running statistics: the weights are compared
+            init = {k: v for k, v in init.items() if "running" not in k}
+        row = {"ranks_bit_equal": all(np.array_equal(r0["model"][k], r1["model"][k], equal_nan=True)
+                                      for k in r0["model"]),
                "loss": [m["loss"] for m in r0["metrics"]], "grad_norm": [m["grad_norm"] for m in r0["metrics"]],
                "collectives_per_step": {k: v / DDP_STEPS for k, v in r0["collectives"].items()}}
         if not row["ranks_bit_equal"]:
@@ -2916,9 +3296,8 @@ def model_ddp_phase(gpu: str) -> dict:
             row["vs_one_process"] = {
                 "state_rel_l2": _rel_delta(r0["model"], one["model"], init),
                 "ema_rel_l2": _rel_delta(r0["ema"], one["ema"], init) if one["ema"] is not None else None,
-                "loss_rel": max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(r0["metrics"], one["metrics"])),
-                "grad_norm_rel": max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
-                                     for a, b in zip(r0["metrics"], one["metrics"])),
+                "loss_rel": _max_rel((a["loss"], b["loss"]) for a, b in zip(r0["metrics"], one["metrics"])),
+                "grad_norm_rel": _max_rel((a["grad_norm"], b["grad_norm"]) for a, b in zip(r0["metrics"], one["metrics"])),
                 "loss_state": None if one["loss_state"] is None else {
                     k: [float(r0["loss_state"][k]), float(v)] for k, v in one["loss_state"].items()},
                 "tolerance": tol,
@@ -2930,6 +3309,14 @@ def model_ddp_phase(gpu: str) -> dict:
             if one["loss_state"] is not None and not all(
                     abs(a - b) <= 1e-6 * abs(b) for a, b in row["vs_one_process"]["loss_state"].values()):
                 failures.append(f"{name}: AdaCos's state {v['loss_state']}")
+        if name == "h_zero1_skip":
+            row["skip_counters"] = [r0["skip"], r1["skip"]]
+            if not r0["skip"] == r1["skip"] == {"notfinite_count": 0, "last_finite": True, "total_notfinite": 1,
+                                                "update_count": DDP_STEPS - 1}:
+                failures.append(f"{name}: the ranks' skip counters {row['skip_counters']}")
+        if name == "g_remat_convs":  # the recompute's BatchNorm all-reduces, beside leg a's (no remat)
+            row["bn_collectives_per_step_without_remat"] = ranks[0][names.index("a_sgd_ema_cutmix")][
+                "collectives"].get("bn", 0) / DDP_STEPS
         if name.startswith("d_zero1_"):
             rep = ranks[0][names.index(name.replace("zero1", "replicated"))]
             diff = max(float(np.abs(r0["model"][k] - rep["model"][k]).max()) for k in r0["model"])
@@ -3638,15 +4025,19 @@ def learn_process() -> int:
     return 0
 
 
-PHASES = ("build", "kernels", "learn", "model", "model_legacy", "model_ddp", "trainer_a", "trainer_b", "trainer_c",
-          "trainer_d", "trainer_e", "trainer_i", "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n",
-          "trainer_o", "trainer_q", "trainer_r", "trainer_p", "trainer_p1", "serve", "soak", "bench_models", "data",
-          "trainer_f", "trainer_g", "packed", "trainer_h", "profile")
+PHASES = ("build", "kernels", "learn", "model", "model_legacy", "model_remat", "model_skip", "model_debug_nans",
+          "model_ddp", "trainer_a", "trainer_b", "trainer_c", "trainer_s", "trainer_c_remat", "trainer_d", "trainer_e",
+          "trainer_i", "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n", "trainer_o", "trainer_q",
+          "trainer_r", "trainer_p", "trainer_p1", "serve", "soak", "bench_models", "data", "trainer_f", "trainer_t",
+          "trainer_g", "packed", "trainer_h", "profile")
 # the profiler runs inside these trainers from the end of step 1 to the end of step 3 (1-based): steps 2
 # and 3; their ms/step is the median of steps 5-10, the others' of steps 4-10 (trainer_phase; H, of two
 # epochs, is profiled in its first and timed in its second)
 PROFILE = (0, 2)
 FUSED = ("model={_target_: resnet50, fused_stats: true}",)
+# under run.remat=full every conv1x1_stats of the forward runs again in the recompute: 2 launches per fused
+# conv a step, as many as the JAX step's jaxpr holds pallas_calls (tests/test_torch_remat.py)
+REMAT_FULL_CONV1X1_PER_STEP = 72
 R50 = "configs/exp/1.r50_baseline.yaml"
 NFNET = "configs/exp/15.eca_nfnet_l0.yaml"
 RAND_INTERP = "configs/exp/2.r50_rand_interp.yaml"
@@ -3748,6 +4139,12 @@ def main(argv=None) -> int:
             run("model_losses", losses_model_phase)
         if "model_legacy" in phases:
             run("model_legacy", legacy_model_phase)
+        if "model_remat" in phases:
+            run("model_remat", remat_model_phase)
+        if "model_skip" in phases:
+            run("model_skip", skip_model_phase)
+        if "model_debug_nans" in phases:
+            run("model_debug_nans", debug_nans_model_phase)
         if "model_ddp" in phases:
             run("ddp_probe", ddp_probe_phase, gpu)
             run("model_ddp", model_ddp_phase, gpu)
@@ -3768,6 +4165,12 @@ def main(argv=None) -> int:
     if "trainer_c" in phases:
         run("trainer_c", trainer_phase, "trainer_c", R50, FUSED, gpu, {"fused_aug": 1, "conv1x1_stats": 36},
             profile_window=PROFILE)
+    if "trainer_s" in phases:
+        # r50_baseline under remat 'convs', its steps 2-3 traced by the config's own Profiler callback
+        run("trainer_s", trainer_phase, "trainer_s", R50, ("run.remat=convs",), gpu, aug_only, profiler_clb=PROFILE)
+    if "trainer_c_remat" in phases:
+        run("trainer_c_remat", trainer_phase, "trainer_c_remat", R50, (*FUSED, "run.remat=full"), gpu,
+            {"fused_aug": 1, "conv1x1_stats": REMAT_FULL_CONV1X1_PER_STEP})
     if "trainer_d" in phases:
         run("trainer_d", trainer_phase, "trainer_d", NFNET, NFNET_STAGE, gpu, aug_only, recipe="nfnet",
             profile_window=PROFILE)
@@ -3803,13 +4206,19 @@ def main(argv=None) -> int:
         print(f"[trainer_p1] {json.dumps({'ms_per_step_p1': p1, 'ms_per_step_a': a, 'collectives_cost_ms': p1 - a})}")
     cached = {"packed", "trainer_h"} & set(phases)
     with tempfile.TemporaryDirectory() as data_root:
-        if {"data", "trainer_f", "trainer_g"} & set(phases) or cached:
+        if {"data", "trainer_f", "trainer_g", "trainer_t"} & set(phases) or cached:
             run("imagefolder", write_imagefolder, data_root)
             print(f"[data] ImageFolder of JPEGs written: {json.dumps(results.get('imagefolder'))}", flush=True)
         if "data" in phases:
             run("data", data_phase, data_root, gpu)
         if "trainer_f" in phases:
             run("trainer_f", trainer_phase, "trainer_f", RAND_INTERP, (), gpu, aug_only, tree=data_root)
+        if "trainer_t" in phases:
+            records_root = os.path.join(data_root, "tfrecords")
+            run("records_tfrecord", write_records, data_root, records_root)
+            print(f"[trainer_t] records written: {json.dumps(results.get('records_tfrecord'))}", flush=True)
+            run("trainer_t", trainer_phase, "trainer_t", RAND_INTERP, (), gpu, aug_only, tree=records_root,
+                tfrecord=True)
         if "trainer_g" in phases:
             run("trainer_g", trainer_phase, "trainer_g", R50, DEVICE_RESAMPLE, gpu, aug_only, tree=data_root,
                 val_shapes=3)
@@ -3836,6 +4245,13 @@ def main(argv=None) -> int:
                   for g in ("gather", "fused_aug", "memcpy")}
         print(f"[trainer_h] {json.dumps({'device_ms_per_step': device_step, 'input_stage': shares})}")
         results["trainer_h"]["input_stage"] = shares
+    for other, base in (("trainer_s", "trainer_a"), ("trainer_c_remat", "trainer_c")):
+        if other in results and base in results:
+            o, b = results[other], results[base]
+            print(f"[{other}] {json.dumps({'ms_per_step': o['ms_per_step_median'], 'ms_per_step_' + base: b['ms_per_step_median'], 'max_memory_allocated_gib': o['max_memory_allocated_gib'], 'max_memory_allocated_gib_' + base: b['max_memory_allocated_gib']})}")
+    if "trainer_t" in results and "trainer_f" in results:
+        t, f = results["trainer_t"], results["trainer_f"]
+        print(f"[trainer_t] {json.dumps({'epoch_img_per_s': t['epoch_img_per_s'], 'epoch_img_per_s_trainer_f': f['epoch_img_per_s'], 'val_weights_sum': sum(t['val_weights']), 'records': results.get('records_tfrecord')})}")
     if "trainer_a" in results and "trainer_h" in results:
         a, h = results["trainer_a"], results["trainer_h"]
         print(f"[trainer_h] {json.dumps({'ms_per_step_h': h['ms_per_step_median'], 'ms_per_step_a': a['ms_per_step_median'], 'epoch_img_per_s_h': h['epoch_img_per_s'], 'img_per_s_a': a['img_per_s']})}")
@@ -3878,7 +4294,10 @@ def main(argv=None) -> int:
     # the data-parallel trainers: one augment launch a step on each rank
     kernels[0]["launches_ddp_two_ranks"] = [r["fused_aug"] for r in results["trainer_p"]["launches_per_rank"]]
     kernels[0]["launches_ddp_nccl_one_rank"] = results["trainer_p1"]["launches_per_rank"][0]["fused_aug"]
+    kernels[0]["launches_remat"] = results["trainer_s"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_tfrecord"] = results["trainer_t"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
+    kernels[1]["launches_remat_full"] = results["trainer_c_remat"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items()
                                  if k.startswith("trainer") and "kernel_launches" in r)

@@ -7,6 +7,7 @@ Usage:
     torchrun --nproc_per_node=N -m sota_imagenet_tpu_torch.cli [--device cpu] -c <yaml> [mesh.zero1=true] ...
     python -m sota_imagenet_tpu_torch.cli records packed <data_dir> [--size 224] ...   (records_main)
     python -m sota_imagenet_tpu_torch.cli records resize <data_dir> [--size 512] [--workers N]
+    python -m sota_imagenet_tpu_torch.cli records tfrecord <data_dir> [--out DIR] [--workers N]
     python -m sota_imagenet_tpu_torch.cli export -c <yaml> --ckpt <ckpt> --out <dir> [--ema]
         [--batch poly|N] [--image-size S] [--quantize int8] [--device cpu|cuda] [key=value ...]   (export_main)
 
@@ -18,8 +19,8 @@ device unless the caller passes ``device="cpu"``. Under torchrun (or with a
 the ``data`` axis (``parallel/mesh.py``): NCCL when each rank has a card of
 its own, gloo on the CPU or when ranks share a card; the batch of the
 config is the global one, rank 0 logs and writes, and ``mesh.zero1`` shards
-the optimizer state (``optim/zero1.py``). Options that would change
-the numbers and are not ported yet raise NotImplementedError naming the
+the optimizer state (``optim/zero1.py``). ``mesh.spatial`` and
+``mesh.model``, not ported yet, raise NotImplementedError naming the
 ROADMAP item. The TensorBoard sinks write event files into the run dir;
 where the tensorboard package is missing they log one warning and the run
 goes on.
@@ -44,6 +45,7 @@ from sota_imagenet_tpu_torch.models.norms import resolve_bn_stats, set_bn_stats_
 from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel, weight_standardization_fn
 from sota_imagenet_tpu_torch.optim import build_optimizer
 from sota_imagenet_tpu_torch.optim.factory import needs_layout
+from sota_imagenet_tpu_torch.optim.skip_nonfinite import ApplyIfFinite
 from sota_imagenet_tpu_torch.optim.zero1 import Zero1
 from sota_imagenet_tpu_torch.parallel import mesh as par
 from sota_imagenet_tpu_torch.registry import NotPortedError
@@ -81,8 +83,6 @@ def reject_unported(cfg) -> None:
     checks = (
         (cfg.mesh.model != 1 or cfg.mesh.spatial != 1, "mesh.spatial / mesh.model (spatial partitioning, head TP)",
          "Queue 1 item 14"),
-        (bool(cfg.run.skip_nonfinite), "run.skip_nonfinite", "Queue 1 item 9"),
-        (bool(cfg.run.remat), "run.remat", "Queue 1 item 9"),
     )
     for bad, what, item in checks:
         if bad:
@@ -124,7 +124,8 @@ def optimizer_factory(cfg, model):
     ``filter_from_wd`` is set (cli.py:199-202 of the JAX package; the mask
     read off ``model``); the unit-wise optimizers, AdamP and SGDP take each
     parameter's units and rank from the weights plan; ``mesh.zero1`` keeps
-    each rank's share of the state (cli.py:285-290 of the JAX package)."""
+    each rank's share of the state (cli.py:285-290 of the JAX package);
+    ``run.skip_nonfinite`` wraps it all in ``ApplyIfFinite``."""
     mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd) if cfg.filter_from_wd is not None else None
     layout = needs_layout(cfg.optim)
 
@@ -134,7 +135,9 @@ def optimizer_factory(cfg, model):
         def build(named):
             return build_optimizer(dict(cfg.optim), named, wd_mask=mask, **units)
 
-        return Zero1(build, m.named_parameters()) if cfg.mesh.zero1 else build(m.named_parameters())
+        opt = Zero1(build, m.named_parameters()) if cfg.mesh.zero1 else build(m.named_parameters())
+        # AMP-skip parity (cli.py:241-246 of the JAX package): drop non-finite updates, over the whole gradient
+        return ApplyIfFinite(opt, int(cfg.run.skip_nonfinite)) if cfg.run.skip_nonfinite else opt
 
     return make_optimizer
 
@@ -215,7 +218,8 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
     if bn_groups > 1:
         log.info(f"BatchNorm statistics: {bn_groups} groups (run.bn_stats={cfg.run.bn_stats})")
     if cfg.debug_nans:
-        log.warning("debug_nans has no effect in sota_imagenet_tpu_torch yet")
+        # the counterpart of jax_debug_nans (cli.py:123-124 of the JAX package): the Runner's guard
+        log.info("debug_nans: the first NaN of a forward, a backward or the new parameters raises")
     seed = cfg.random_seed if cfg.random_seed is not None else 0
     if cfg.random_seed is not None:
         set_random_seed(cfg.random_seed)
@@ -256,6 +260,7 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
         remat=cfg.run.remat,
         input_dtype=input_dtype,
         device=device,
+        debug_nans=cfg.debug_nans,
     )
     runner.init_state(seed=seed)
     if cfg.get("sigmoid_trick", False):
@@ -378,7 +383,7 @@ def records_main(argv=None):
       records packed   <data_dir> [--out DIR] [--size 224] [--workers N]
                        [--crops-per-image K] [--val-full-crop]
       records resize   <data_dir> [--size 512] [--workers N]
-      records tfrecord <data_dir> [--out DIR] [--workers N]    (not ported: item 12)
+      records tfrecord <data_dir> [--out DIR] [--workers N]
     """
     parser = argparse.ArgumentParser(description="sota_imagenet_tpu_torch dataset prep")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -403,7 +408,9 @@ def records_main(argv=None):
 
     args = parser.parse_args(argv)
     if args.cmd == "tfrecord":
-        raise NotPortedError("records tfrecord (create_records)", "Queue 1 item 12")
+        from sota_imagenet_tpu_torch.data.records import create_records
+
+        return create_records(args.data_dir, out_dir=args.out, workers=args.workers)
     if args.cmd == "resize":
         from sota_imagenet_tpu_torch.data.resize_tool import main as resize_tool_main
 

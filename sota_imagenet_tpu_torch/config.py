@@ -179,13 +179,11 @@ class RunnerConfig:
     # train.py:114; removes every BN all-reduce from the pod step), or an int
     # group count (ghost BN). See models/norms.py module docstring.
     bn_stats: Any = "global"
-    # Activation rematerialization (jax.checkpoint over the loss closure):
-    # false (keep all residuals), 'full'/true (recompute everything in
-    # backward — max HBM saving, ~1 extra forward of FLOPs), or 'convs'
-    # (save conv/matmul outputs, recompute only the bandwidth-bound tail —
-    # MXU work never redone). Trades FLOPs for HBM to fit bigger
-    # batches/images; torch needs hand-wrapped torch.utils.checkpoint for
-    # this (no reference analog). See train/steps.remat_policy.
+    # Activation rematerialization (torch.utils.checkpoint over the loss
+    # closure, as jax.checkpoint in the JAX package): false (keep all
+    # residuals), 'full'/true (recompute everything in backward, ~1 extra
+    # forward of FLOPs), or 'convs' (save conv/matmul outputs, recompute the
+    # bandwidth-bound tail). No reference analog. See train/steps.remat_policy.
     remat: Any = False
     # Skip optimizer updates whose gradients contain NaN/Inf, up to N
     # consecutive skips before giving up (optax.apply_if_finite). 0 = off.
@@ -260,8 +258,8 @@ class StrictConfig:
     log: LoggerConfig = field(default_factory=LoggerConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     debug: bool = False
-    # TPU replacement for AMP grad-scaler NaN handling (SURVEY.md §5.2): bf16
-    # needs no scaler; this flag turns on jax NaN checking for debugging
+    # NaN checking for debugging (the JAX package's jax_debug_nans): the first
+    # NaN of a forward, a backward or the new weights raises (utils/debug_nans.py)
     debug_nans: bool = False
     random_seed: Optional[int] = 42
 

@@ -2,11 +2,12 @@
 ``sota_imagenet_tpu/data/pipeline.py``: SyntheticLoader :44,
 scan_image_folder :67, FolderLoader :81-286, RectValLoader :294-388,
 DeviceFeed :391-519, _build_host_loader :527, build_loader :599,
-DataManager :650).
+DataManager :650; and TFRecordLoader, data/records.py :351-571).
 
 Layering (replaces DALI, reference dali_dataloader.py):
 
-  host loader (synthetic | folder | rectangular val | packed, data/packed.py)
+  host loader (synthetic | folder | rectangular val | packed, data/packed.py
+  | tfrecord)
       — yields (uint8 NHWC, int labels[, meta or val mask])
     └─ DeviceFeed: pinned host memory → H2D on a side CUDA stream → device
        augment (ops/augment.py: the device resample when the loader ships
@@ -22,12 +23,12 @@ unless a torch.distributed group is up): each of N ranks loads batches of
 B/N, and the synthetic and folder loaders give rank r rows [r*B/N,
 (r+1)*B/N) of the batch one process would load with the global B, so N
 ranks train on what one process trains on (the layout of the JAX
-package's make_array_from_process_local_data; its own folder loader reads
-files[rank::N] instead). The rectangular val loader, the packed loader and
+package's make_array_from_process_local_data; its own folder and tfrecord
+loaders read files[rank::N] instead). The tfrecord loader splits the same
+way. The rectangular val loader, the packed loader and
 the device cache keep a shard per rank, as the JAX package's do; the val
 metrics are masked sums over the ranks, so they do not depend on it. The augment's draws are the rank's own (the rank folded
-into the feed's seed). The tfrecord backend raises NotImplementedError
-naming the ROADMAP item.
+into the feed's seed).
 """
 
 from __future__ import annotations
@@ -128,7 +129,7 @@ class FolderLoader:
         drop_last: bool = True,
         device_resample: bool = False,
     ):
-        self.files, self.labels, self.classes = scan_image_folder(root)
+        self.files, self.labels, self.classes = self._scan(root, is_train)
         self.is_train = is_train
         # device-resample split (train only): batches become (canvas_imgs,
         # labels, meta) with meta = per-sample (sh, sw, filt)
@@ -146,6 +147,10 @@ class FolderLoader:
         self.drop_last = drop_last
         # this rank's rows of each global batch (replaces shard_id/num_shards, dali_dataloader.py:47)
         self.rank, self.global_batch = process_index(), batch_size * process_count()
+
+    @staticmethod
+    def _scan(root: str, is_train: bool) -> tuple:
+        return scan_image_folder(root)
 
     def __len__(self):
         n = len(self.files) // self.global_batch
@@ -178,14 +183,21 @@ class FolderLoader:
             self._exec = native.BatchExecutor(workers=self.workers) if native.available() else None
         return self._exec
 
-    def _submit_batch_native(self, idxs, rngs) -> tuple:
+    def _fetch(self, idxs) -> Tuple[list, List[int]]:
+        """The images of ``idxs`` as decode.py takes them (here their paths) and their labels."""
+        return [self.files[i] for i in idxs], [self.labels[i] for i in idxs]
+
+    def _fallback_rng(self, idx: int, rng: np.random.Generator) -> np.random.Generator:
+        """The generator of an image the C core could not decode: one of its own (the JAX FolderLoader's)."""
+        return np.random.default_rng((self.seed, self.epoch, int(idx), 1))
+
+    def _submit_batch_native(self, srcs, rngs) -> tuple:
         """Read bytes + sample crops + submit to the C executor; non-blocking.
         Returns (ticket, filts): filts feed the device-resample meta (the C
         resize uses them directly in host-resample mode)."""
         datas, crops, filts = [], [], []
-        for i, rng in zip(idxs, rngs):
-            with open(self.files[i], "rb") as f:
-                data = f.read()
+        for src, rng in zip(srcs, rngs):
+            data = D._read_bytes(src)
             dims = native.jpeg_dims(data)
             if dims is None:
                 crops.append((0, 0, 1, 1))  # fails in C -> PIL decode in _wait_batch_native
@@ -198,10 +210,10 @@ class FolderLoader:
             return self._exec.submit_scaled(datas, crops, self.image_size, canvas), filts
         return self._exec.submit(datas, crops, filts, (self.image_size, self.image_size)), filts
 
-    def _wait_batch_native(self, ticket, idxs, filts) -> tuple:
+    def _wait_batch_native(self, ticket, idxs, srcs, rngs, filts) -> tuple:
         """(imgs, meta): meta is None in host-resample mode. The images the C
-        core could not decode (non-JPEGs) are decoded again with PIL, from a
-        generator of their own."""
+        core could not decode (non-JPEGs) are decoded again with PIL
+        (``_fallback_rng``)."""
         if self.device_resample:
             imgs, failed, dims = self._exec.wait_scaled(ticket)
             meta = np.concatenate([dims, np.asarray(filts, np.int32)[:, None]], axis=1)
@@ -209,8 +221,7 @@ class FolderLoader:
             (imgs, failed), meta = self._exec.wait(ticket), None
         D.count_decoded("native", len(idxs) - len(failed))
         for fi in failed:
-            path = self.files[idxs[fi]]
-            rng = np.random.default_rng((self.seed, self.epoch, int(idxs[fi]), 1))
+            path, rng = srcs[fi], self._fallback_rng(idxs[fi], rngs[fi])
             if self.device_resample:
                 img, sh, sw, filt = D.decode_train_scaled(path, rng, self.image_size, use_native=False, **self._train_kw())
                 imgs[fi], meta[fi] = img, (sh, sw, filt)
@@ -238,17 +249,20 @@ class FolderLoader:
             pending = None  # ((ticket, filts), idxs) of the batch decoding in C
             if use_native and n_batches:
                 idxs0, rngs0 = batch_idxs(0)
-                pending = (self._submit_batch_native(idxs0, rngs0), idxs0)
+                srcs0, labs0 = self._fetch(idxs0)
+                pending = (self._submit_batch_native(srcs0, rngs0), idxs0, srcs0, rngs0, labs0)
             for b in range(n_batches):
                 if use_native:
-                    (ticket, filts), idxs = pending
+                    (ticket, filts), idxs, srcs, rngs, labs = pending
                     if b + 1 < n_batches:
                         idxs1, rngs1 = batch_idxs(b + 1)
-                        pending = (self._submit_batch_native(idxs1, rngs1), idxs1)
-                    stacked, meta = self._wait_batch_native(ticket, idxs, filts)
+                        srcs1, labs1 = self._fetch(idxs1)
+                        pending = (self._submit_batch_native(srcs1, rngs1), idxs1, srcs1, rngs1, labs1)
+                    stacked, meta = self._wait_batch_native(ticket, idxs, srcs, rngs, filts)
                 else:
                     idxs, rngs = batch_idxs(b)
-                    parts = list(pool.map(lambda a: self._decode_one(self.files[a[0]], a[1]), zip(idxs, rngs)))
+                    srcs, labs = self._fetch(idxs)
+                    parts = list(pool.map(lambda a: self._decode_one(*a), zip(srcs, rngs)))
                     if self.device_resample:
                         stacked = np.stack([p[0] for p in parts])
                         meta = np.asarray([p[1:] for p in parts], np.int32)
@@ -261,7 +275,7 @@ class FolderLoader:
                     if meta is not None:  # keep batch dims consistent for DeviceFeed
                         meta = np.concatenate([meta, np.repeat(meta[-1:], pad, axis=0)])
                 labels = np.full((bs,), -1, np.int32)
-                labels[:n_real] = [self.labels[i] for i in idxs[:n_real]]
+                labels[:n_real] = labs[:n_real]
                 if meta is not None:
                     yield stacked, labels, meta
                 elif not self.drop_last:
@@ -274,6 +288,49 @@ class FolderLoader:
                 else:
                     yield stacked, labels
         self.epoch += 1
+
+
+class TFRecordLoader(FolderLoader):
+    """The reference's own data format: JPEG records in TFRecord shards with
+    DALI-style ``.idx`` files (port of records.py:351-571 of the JAX package;
+    the DALI tfrecord reader, dali_dataloader.py:48-62), as ``records
+    tfrecord`` writes them (``data/records.create_records``): ``root`` holds
+    ``{split}_records`` and ``{split}_indexes``. The records of every shard,
+    in name order, are the images; each batch reads its records and decodes
+    them as ``FolderLoader`` decodes files, with the same shuffle
+    (``seed + epoch``), per-image generators ``(seed, epoch, index)``, native
+    and PIL paths, device-resample canvases and val padding. An image the C
+    core cannot decode is decoded with PIL from its own, already drawn,
+    generator, as the JAX loader does. Over ranks each takes its rows of the
+    global batch, as ``FolderLoader`` does (the JAX loader reads
+    ``entries[rank::N]`` instead), so N ranks load what one process loads."""
+
+    @staticmethod
+    def _scan(root: str, is_train: bool) -> tuple:
+        from sota_imagenet_tpu_torch.data.records import read_index
+
+        split = "train" if is_train else "val"
+        rec_dir, idx_dir = os.path.join(root, f"{split}_records"), os.path.join(root, f"{split}_indexes")
+        entries = []  # (shard path, offset)
+        for name in sorted(os.listdir(rec_dir)):
+            idx_path = os.path.join(idx_dir, name + ".idx")
+            if not os.path.exists(idx_path):
+                idx_path = os.path.join(idx_dir, name)
+            entries += [(os.path.join(rec_dir, name), off) for off, _ in read_index(idx_path)]
+        return entries, None, None
+
+    @property
+    def entries(self) -> List[Tuple[str, int]]:
+        return self.files
+
+    def _fetch(self, idxs) -> Tuple[list, List[int]]:
+        from sota_imagenet_tpu_torch.data.records import decode_example, read_record_at
+
+        examples = [decode_example(read_record_at(*self.files[i])) for i in idxs]
+        return [ex["image/encoded"] for ex in examples], [int(ex["image/class/label"]) for ex in examples]
+
+    def _fallback_rng(self, idx: int, rng: np.random.Generator) -> np.random.Generator:
+        return rng
 
 
 class RectValLoader:
@@ -483,10 +540,6 @@ class DeviceFeed:
             thread.join(timeout=30)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to sota_imagenet_tpu_torch yet (ROADMAP.md {item})")
-
-
 def _build_host_loader(loader_cfg: ConfigNode, is_train: bool):
     backend = loader_cfg.get("backend", "auto")
     root = loader_cfg.get("root_data_dir", "")
@@ -536,7 +589,19 @@ def _build_host_loader(loader_cfg: ConfigNode, is_train: bool):
             drop_last=is_train,  # val: pad + mask the tail (see FolderLoader)
         )
     if backend == "tfrecord":
-        raise _not_ported("the 'tfrecord' data backend", "Queue 1 item 12")
+        return TFRecordLoader(
+            root,
+            is_train=is_train,
+            batch_size=batch_size,
+            image_size=loader_cfg.image_size,
+            min_area=loader_cfg.get("min_area", 0.08),
+            random_interpolation=loader_cfg.get("random_interpolation", False),
+            interpolation=loader_cfg.get("interpolation", "triangular"),
+            full_crop=loader_cfg.get("full_crop", False),
+            workers=loader_cfg.get("workers", 6),
+            drop_last=is_train,  # val: pad + mask the tail (see FolderLoader)
+            device_resample=is_train and bool(loader_cfg.get("device_resample", False)),
+        )
     raise ValueError(f"unknown data backend {backend!r}")
 
 

@@ -1,6 +1,6 @@
-"""TFRecord framing and the tf.train.Example subset (port of the framing half
-of ``sota_imagenet_tpu/data/records.py``: crc32c :31-58, the Example proto
-:66-198, file IO :206-260, sharding constants :280-282).
+"""TFRecord framing, the tf.train.Example subset and the JPEG-record writer
+(port of ``sota_imagenet_tpu/data/records.py``: crc32c :31-58, the Example
+proto :66-198, file IO :206-260, ``create_records`` :267-349).
 
 Self-contained, as in the JAX package: a record is length (8 B, little
 endian) + masked crc32c of the length (4 B) + payload + masked crc32c of the
@@ -10,14 +10,21 @@ wheel where it is installed, else from a pure-Python table (slow: ~40 ms for
 a 150 KB record); ``CRC32C`` names the one this process uses. Readers never
 check it (``read_record_at`` and the packed loader skip the header).
 
-``TFRecordLoader`` and ``create_records`` (JPEG records and their decode)
-are not ported yet: ROADMAP.md Queue 1 item 12.
+``create_records`` writes the reference's JPEG records (``records
+tfrecord``); ``data/pipeline.TFRecordLoader`` reads them, beside the
+FolderLoader whose decode paths it shares.
 """
 
 from __future__ import annotations
 
+import io
+import multiprocessing
+import os
+import shutil
 import struct
 from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
 
 _CRC_POLY = 0x82F63B78
 
@@ -264,6 +271,80 @@ def read_record_at(path: str, offset: int) -> bytes:
         return f.read(length)
 
 
+BROKEN_IMAGES = {
+    "n02105855_2933.JPEG",  # PNG saved as JPEG
+    # CMYK jpegs
+    "n01739381_1309.JPEG", "n02077923_14822.JPEG", "n02447366_23489.JPEG",
+    "n02492035_15739.JPEG", "n02747177_10752.JPEG", "n03018349_4028.JPEG",
+    "n03062245_4620.JPEG", "n03347037_9675.JPEG", "n03467068_12171.JPEG",
+    "n03529860_11437.JPEG", "n03544143_17228.JPEG", "n03633091_5218.JPEG",
+    "n03710637_5125.JPEG", "n03961711_5286.JPEG", "n04033995_2932.JPEG",
+    "n04258138_17003.JPEG", "n04264628_27969.JPEG", "n04336792_7448.JPEG",
+    "n04371774_5854.JPEG", "n04596742_4225.JPEG", "n07583066_647.JPEG",
+    "n13037406_4650.JPEG", "ILSVRC2012_val_00019877.JPEG",
+}
+
 TRAIN_SHARDS = 128  # reference create_records.py:55
 VAL_SHARDS = 16  # reference create_records.py:56
 SHUFFLE_SEED = 42  # reference create_records.py:37
+
+
+def _encode_one(path: str, label: int) -> bytes:
+    """One image's Example: its JPEG bytes (the ImageNet files that are not
+    JPEGs re-encoded, create_records.py:87-91), label and file name."""
+    fname = os.path.basename(path)
+    if fname in BROKEN_IMAGES:
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.open(path).convert("RGB").save(buf, "JPEG", quality=95)
+        data = buf.getvalue()
+    else:
+        with open(path, "rb") as f:
+            data = f.read()
+    return encode_example({"image/encoded": data, "image/class/label": label, "image/filename": fname.encode()})
+
+
+def _write_shard(args) -> int:
+    shard_path, index_path, files, labels = args
+    return write_tfrecord(shard_path, (_encode_one(p, l) for p, l in zip(files, labels)), index_path)
+
+
+def create_records(
+    data_dir: str,
+    out_dir: Optional[str] = None,
+    train_shards: int = TRAIN_SHARDS,
+    val_shards: int = VAL_SHARDS,
+    workers: int = 8,
+) -> None:
+    """ImageFolder tree (``data_dir/{train,val}/<synset>/*``) -> sharded
+    TFRecords and their indexes under ``out_dir`` (default ``data_dir``):
+    ``{split}_records/{split}-SSSSS-of-NNNNN`` and ``{split}_indexes/*.idx``
+    (create_records.py:138-159). Each split's files are shuffled once by
+    ``SHUFFLE_SEED`` and cut into shards at ``linspace`` bounds, so the
+    files are byte for byte those of the JAX package for the same tree.
+    ``workers`` > 1 writes shards in that many spawned processes."""
+    from sota_imagenet_tpu_torch.data.pipeline import scan_image_folder
+
+    out_dir = out_dir or data_dir
+    for split, n_shards in (("val", val_shards), ("train", train_shards)):
+        files, labels, _ = scan_image_folder(os.path.join(data_dir, split))
+        order = np.arange(len(files))
+        np.random.default_rng(SHUFFLE_SEED).shuffle(order)  # create_records.py:37,110-112
+        files, labels = [files[i] for i in order], [labels[i] for i in order]
+        rec_dir, idx_dir = os.path.join(out_dir, f"{split}_records"), os.path.join(out_dir, f"{split}_indexes")
+        for d in (rec_dir, idx_dir):
+            shutil.rmtree(d, ignore_errors=True)
+            os.makedirs(d)
+        bounds = np.linspace(0, len(files), n_shards + 1).astype(int)
+        tasks = []
+        for s in range(n_shards):
+            lo, hi = bounds[s], bounds[s + 1]
+            name = f"{split}-{s:05d}-of-{n_shards:05d}"
+            tasks.append((os.path.join(rec_dir, name), os.path.join(idx_dir, name + ".idx"), files[lo:hi], labels[lo:hi]))
+        if workers > 1:
+            with multiprocessing.get_context("spawn").Pool(workers) as pool:
+                pool.map(_write_shard, tasks)
+        else:
+            for t in tasks:
+                _write_shard(t)

@@ -11,7 +11,7 @@ statistics (``models/norms.py``), the whole-tensor statistics of VarEMA and
 EstimatedABN, the sphere head's BatchNorm and AdaCos's batch terms
 (``losses/angular.py``), the mixup partner and the accumulation's
 microbatches, the gradients and the metrics (``train/steps.py``,
-``train/loop.py``). So N ranks compute what one process computes on the
+``train/loop.py``), FixMatch's partner rows (``losses/wrappers.py``). So N ranks compute what one process computes on the
 global batch.
 
 The collectives are built from ``all_reduce`` and ``broadcast`` only, so one
@@ -168,6 +168,22 @@ def gather_rows(x: torch.Tensor, kind: str = "gather") -> torch.Tensor:
     buf[process_index()] = x.detach()
     all_reduce_(buf.view(torch.uint8), kind)
     return buf.flatten(0, 1) if x.dim() else buf
+
+
+def global_rows(x: torch.Tensor, lo: int, hi: int, kind: str = "rows") -> torch.Tensor:
+    """Rows [lo, hi) of the global batch whose rank r holds rows [r*b, (r+1)*b)
+    as ``x``: an all-reduce of a zero-padded (hi - lo)-row buffer, summed as
+    bytes, so only those rows cross ranks and every value arrives bit for bit.
+    Not differentiable. One rank: ``x[lo:hi]``."""
+    if not distributed():
+        return x[lo:hi]
+    b, r = x.shape[0], process_index()
+    buf = x.new_zeros((hi - lo, *x.shape[1:]))
+    s, e = max(lo, r * b), min(hi, (r + 1) * b)
+    if s < e:
+        buf[s - lo : e - lo] = x[s - r * b : e - r * b].detach()
+    all_reduce_(buf.view(torch.uint8), kind)
+    return buf
 
 
 def mirror(x: torch.Tensor, kind: str = "mirror") -> torch.Tensor:

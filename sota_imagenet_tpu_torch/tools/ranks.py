@@ -107,18 +107,20 @@ def train_steps(spec: Dict[str, Any]) -> Dict[str, Any]:
     ``device``, ``optim`` (a config node for ``build_optimizer``), ``zero1``,
     ``criterion`` (a config node), ``lr`` (a constant), ``accumulate_steps``,
     ``ema_decay``, ``sam`` (the step's option or None), ``bn_stats`` (the
-    statistics groups), ``mixup`` (None, or ``{"cutmix_alpha",
+    statistics groups), ``remat`` (the step's policy), ``skip_nonfinite``
+    (N: the optimizer in ``ApplyIfFinite``), ``mixup`` (None, or ``{"cutmix_alpha",
     "mixup_alpha", "draws": [one dict of numpy scalars a step]}``: the
     pre-drawn values ``apply_cutmix_mixup`` takes), ``batches`` (a list of
     global (images NHWC, one-hot labels) in numpy), ``seed``. Returns the
     metrics of each step, the model's and the EMA's state_dicts, the
     criterion's state and the optimizer's (the unsharded one under ZeRO-1),
-    all in numpy, and the collectives' counts."""
+    all in numpy, the collectives' counts and the skip's counters (or None)."""
     from sota_imagenet_tpu_torch.config import instantiate
     from sota_imagenet_tpu_torch.losses.base import StatefulLoss
     from sota_imagenet_tpu_torch.models.layers import bind_generator
     from sota_imagenet_tpu_torch.models.norms import set_bn_stats_groups
     from sota_imagenet_tpu_torch.optim import build_optimizer
+    from sota_imagenet_tpu_torch.optim.skip_nonfinite import ApplyIfFinite
     from sota_imagenet_tpu_torch.optim.zero1 import Zero1
     from sota_imagenet_tpu_torch.parallel import mesh as par
     from sota_imagenet_tpu_torch.train import steps
@@ -141,6 +143,8 @@ def train_steps(spec: Dict[str, Any]) -> Dict[str, Any]:
             return build_optimizer(dict(spec["optim"]), named)
 
         opt = Zero1(build, model.named_parameters()) if spec.get("zero1") else build(model.named_parameters())
+        if spec.get("skip_nonfinite"):
+            opt = ApplyIfFinite(opt, int(spec["skip_nonfinite"]))
         ema_decay = spec.get("ema_decay", 0.0)
         generator = torch.Generator(device=device)
         bind_generator(model, generator)
@@ -161,7 +165,8 @@ def train_steps(spec: Dict[str, Any]) -> Dict[str, Any]:
 
         step = steps.build_train_step(
             criterion, lambda i: float(spec.get("lr", 0.1)), accumulate_steps=spec.get("accumulate_steps", 1),
-            ema_decay=ema_decay, mixup_fn=mixup_fn, sam=spec.get("sam"), input_dtype=dtype,
+            ema_decay=ema_decay, mixup_fn=mixup_fn, sam=spec.get("sam"), remat=spec.get("remat", False),
+            input_dtype=dtype,
         )
         world, rank = process_count(), process_index()
         par.STATS.reset()
@@ -181,6 +186,7 @@ def train_steps(spec: Dict[str, Any]) -> Dict[str, Any]:
             "loss_state": _numpy(state.loss_state) if state.loss_state is not None else None,
             "optimizer": _optimizer_numpy(state.optimizer.state_dict()),
             "collectives": dict(par.STATS.calls),
+            "skip": state.optimizer.counters() if isinstance(state.optimizer, ApplyIfFinite) else None,
         }
     finally:
         set_bn_stats_groups(1)

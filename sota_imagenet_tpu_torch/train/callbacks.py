@@ -38,14 +38,14 @@ parameter histogram are device tensors buffered during the epoch and read
 once at its end; the weight and spectrum histograms run on the host once an
 epoch.
 
-The profiler callback of the JAX package is not ported: it is registered
-under its name and raises NotImplementedError naming the ROADMAP item.
+``Profiler`` traces a window of steps with ``torch.profiler`` on rank 0.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+import socket
 import time
 from typing import Any, Dict, Optional
 
@@ -360,6 +360,53 @@ class OrthoInitClb(Callback):
                     w.copy_(torch.nn.init.orthogonal_(torch.empty(w.shape, dtype=torch.float64), self.gain, generator))
 
 
+class Profiler(Callback):
+    """A ``torch.profiler`` trace over a window of steps (callbacks.py:358-386
+    of the JAX package; the reference had no profiler). It starts at the end
+    of step ``start_step`` (the Runner's numbering, the JAX Runner's:
+    ``i + epoch * steps_per_epoch``) and stops at the end of step
+    ``start_step + num_steps``, after a synchronisation of the card, so it
+    holds the ``num_steps`` steps between; ``on_end`` stops one still open.
+    It records the host and, where there is one, the card. Only rank 0
+    profiles. The trace is a Chrome trace JSON that TensorBoard's profiler
+    plugin reads, ``<log_dir>/<host>_<pid>.<start>-<stop>.pt.trace.json``
+    (``path`` after the stop)."""
+
+    def __init__(self, log_dir: str = ".", start_step: int = 10, num_steps: int = 5):
+        self.log_dir = log_dir
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps
+        self.path = None
+        self._prof = None
+
+    def on_batch_end(self, step, metrics):
+        if process_index() != 0:
+            return
+        if step == self.start_step and self._prof is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.__enter__()
+        elif step >= self.stop_step and self._prof is not None:
+            self._stop()
+
+    def _stop(self) -> None:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        os.makedirs(self.log_dir, exist_ok=True)
+        name = f"{socket.gethostname()}_{os.getpid()}.{self.start_step}-{self.stop_step}.pt.trace.json"
+        self.path = os.path.join(self.log_dir, name)
+        prof.export_chrome_trace(self.path)
+        get_logger().info(f"Profiler trace written to {self.path}")
+
+    def on_end(self):
+        if self._prof is not None:
+            self._stop()
+
+
 class ConsoleLogger(Callback):
     """Epoch summary lines (reference ConsoleLogger + FileLogger; both write
     through the shared logger, which has stdout + file sinks)."""
@@ -605,13 +652,6 @@ registry.register("Cutmix", aliases=("pytorch_tools.fit_wrapper.callbacks.Cutmix
 registry.register("Mixup", aliases=("pytorch_tools.fit_wrapper.callbacks.Mixup", "pt_clb.Mixup"))(Mixup)
 
 
-def _register_unported(name: str, item: str, aliases: tuple = ()) -> None:
-    def make(*args, **kwargs):
-        raise registry.NotPortedError(f"callback {name!r}", item)
-
-    registry.register(name, aliases=aliases)(make)
-
-
 for _name, _cls in (("WeightNorm", WeightNorm), ("OrthoLossClb", OrthoLossClb), ("NormLossClb", NormLossClb),
                    ("OrthoInitClb", OrthoInitClb), ("ForwardWeightNorm", ForwardWeightNorm),
                    ("ForwardSpectralNorm", ForwardSpectralNorm)):
@@ -622,4 +662,4 @@ registry.register(
 for _name, _cls in (("SAM", SAM), ("SAMOriginal", SAMOriginal), ("WeightDistributionTB", WeightDistributionTB),
                    ("SpectralDistributionTB", SpectralDistributionTB), ("GradDistributionTB", GradDistributionTB)):
     registry.register(_name, aliases=(f"src.callbacks.{_name}",))(_cls)
-_register_unported("Profiler", "Queue 1 item 9")
+registry.register("Profiler")(Profiler)

@@ -24,6 +24,7 @@ from sota_imagenet_tpu_torch.train import steps as steps_lib
 from sota_imagenet_tpu_torch.train.callbacks import Callback
 from sota_imagenet_tpu_torch.train.schedule import make_lr_schedule
 from sota_imagenet_tpu_torch.train.state import TrainState
+from sota_imagenet_tpu_torch.utils import debug_nans
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 from sota_imagenet_tpu_torch.utils.misc import process_count, resolve_device
 
@@ -79,6 +80,7 @@ class Runner:
         remat: Any = False,
         input_dtype: torch.dtype = torch.bfloat16,
         device=None,
+        debug_nans: bool = False,
     ):
         self.device = resolve_device(device)
         self.model = model
@@ -90,6 +92,7 @@ class Runner:
         self.ema_decay = ema_decay
         self.remat = remat
         self.input_dtype = input_dtype
+        self.debug_nans = bool(debug_nans)
         self.state: Optional[TrainState] = None
         self.epoch = 0
         self.batch_size = 0
@@ -110,6 +113,10 @@ class Runner:
             self._effective_model(self._collect_step_options()), self.optimizer_factory, device=self.device,
             seed=seed, ema_decay=self.ema_decay, criterion=self.criterion,
         )
+        if self.debug_nans:
+            for m in (self.state.model, self.state.ema):
+                if m is not None:
+                    debug_nans.watch_forward(m)
         return self.state
 
     def _effective_model(self, opts: Dict[str, Any]) -> torch.nn.Module:
@@ -148,6 +155,8 @@ class Runner:
             input_dtype=self.input_dtype,
             **opts,
         )
+        if self.debug_nans:
+            self._train_step = debug_nans.check_step(self._train_step)
         self._build_eval_steps()
 
     def _build_eval_steps(self):

@@ -48,22 +48,44 @@ ranks after each pass (once after the last microbatch; after each of SAM's
 two passes, so the perturbation reads the global gradient), before the
 gradient transform, grad_norm and the optimizer read them.
 
-The step feature of the JAX package that is not ported raises
-NotImplementedError naming the ROADMAP item: remat.
+Rematerialization (``remat``, JAX steps.py:158-182 and :218-222): the
+forward, the criterion with its state and the aux loss of each microbatch
+and each SAM pass run under ``torch.utils.checkpoint`` (non-reentrant).
+``'full'`` keeps nothing of the closure for the backward and runs it again
+there; ``'convs'`` keeps the outputs of the convolutions and matrix
+products (a selective-checkpoint policy, the JAX ``conv_general_dilated`` /
+``dot_general`` predicate) and runs everything else again. A hand-written
+kernel called through ctypes (``conv1x1_stats``) is no dispatcher op, so it
+runs again under both, as a ``pallas_call`` does in the JAX step. The
+recompute sees what the forward saw and leaves what the forward left
+(``_Replay``): every buffer of the model (BatchNorm's running statistics,
+VarEMA's, the spectral u/v) and the state of the bound dropout generator
+are put back to their values before the forward while it runs, then to
+their values after it; the criterion's state is an output of the closure
+and the recompute's is dropped. Under N ranks the recomputed BatchNorm
+statistics issue their all-reduces again (``mesh.STATS`` counts them).
+
+A skipping optimizer (``optim/skip_nonfinite.ApplyIfFinite``, the
+counterpart of ``optax.apply_if_finite``) counts the updates it applied:
+the update reads the schedule at that count, as the JAX optimizer reads
+its own count, while the ``lr`` metric stays ``lr_schedule(step)``. A
+skipped update still moves the buffers, the criterion's state, the EMA
+and the post-step transform, as the JAX step does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from sota_imagenet_tpu_torch.losses.base import StatefulLoss, call_criterion
 from sota_imagenet_tpu_torch.models.layers import bind_generator
 from sota_imagenet_tpu_torch.optim.factory import _unitwise_norm
 from sota_imagenet_tpu_torch.parallel import mesh as par
-from sota_imagenet_tpu_torch.registry import NotPortedError
 from sota_imagenet_tpu_torch.train.metrics import accuracy_topk, classification_metrics
 from sota_imagenet_tpu_torch.train.state import TrainState
 from sota_imagenet_tpu_torch.utils.misc import process_index
@@ -300,6 +322,73 @@ class SamPerturbation:
         torch._foreach_add_(params, self.epsilon(model, params, grads))
 
 
+_aten = torch.ops.aten
+# the JAX 'convs' predicate's primitives (steps.py:176-180): every convolution, and every matrix product
+# (dot_general), which reach the dispatcher as these ops (matmul, einsum and linear lower to them)
+SAVED_BY_CONVS = frozenset((
+    _aten.convolution.default, _aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default,
+    _aten.mv.default, _aten.addmv.default, _aten.dot.default, _aten.vdot.default,
+))
+
+
+def _save_convs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_BY_CONVS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(remat: Any) -> Optional[Callable]:
+    """``run.remat`` -> the selective-checkpoint policy (JAX steps.py:158-182):
+    None for ``True``/``'full'`` (nothing of the closure is kept), the
+    ``SAVED_BY_CONVS`` policy for ``'convs'``; any other value raises."""
+    if remat in (True, "full"):
+        return None
+    if remat == "convs":
+        return _save_convs
+    raise ValueError(f"run.remat must be false | true | 'full' | 'convs', got {remat!r}")
+
+
+class _Replay:
+    """The contexts of one checkpointed closure (``checkpoint``'s
+    ``context_fn``): the forward records the model's buffers and the
+    generator's state before it runs; the recompute runs with those, then
+    puts back what the forward left, so one step moves them once, as the
+    JAX step whose batch_stats come from the primal pass. ``policy`` (a
+    selective-checkpoint policy, or None) adds its caching contexts inside."""
+
+    def __init__(self, model: torch.nn.Module, generator: Optional[torch.Generator], policy: Optional[Callable]):
+        self.buffers = list(model.buffers())
+        self.generator, self.policy = generator, policy
+        self.before, self.gen_before = None, None
+
+    def _state(self):
+        return _snapshot(self.buffers), (self.generator.get_state() if self.generator is not None else None)
+
+    def _put(self, buffers, gen_state) -> None:
+        _restore(self.buffers, buffers)
+        if self.generator is not None:
+            self.generator.set_state(gen_state)
+
+    @contextlib.contextmanager
+    def _forward(self, inner):
+        self.before, self.gen_before = self._state()
+        with inner:
+            yield
+
+    @contextlib.contextmanager
+    def _recompute(self, inner):
+        after, gen_after = self._state()
+        self._put(self.before, self.gen_before)
+        try:
+            with inner:
+                yield
+        finally:
+            self._put(after, gen_after)
+
+    def __call__(self):
+        inner = (create_selective_checkpoint_contexts(self.policy) if self.policy is not None
+                 else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return self._forward(inner[0]), self._recompute(inner[1])
+
+
 def build_train_step(
     criterion: Callable,
     lr_schedule: Callable[[int], float] = lambda step: 0.1,
@@ -314,13 +403,22 @@ def build_train_step(
     remat: Any = False,
     input_dtype: torch.dtype = torch.bfloat16,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, Any]]]:
-    if remat:
-        raise NotPortedError("run.remat", "Queue 1 item 9")
+    policy = remat_policy(remat) if remat else None
     accumulate_steps = max(int(accumulate_steps or 1), 1)
     perturb = SamPerturbation(sam.get("kind", "asam"), sam.get("rho", 0.05), sam.get("eta", 0.01)) if sam else None
     bn_from_perturbed = bool(sam.get("bn_from_perturbed", True)) if sam else True
 
-    def batch_grads(model, opt, images, labels, loss_state):
+    def forward_loss(model, images, labels, loss_state):
+        """The closure JAX differentiates (steps.py:202-216): forward, criterion, aux loss."""
+        logits = model(images.to(input_dtype))
+        loss, loss_state = call_criterion(criterion, logits, labels, loss_state)
+        if aux_loss is not None:
+            # once per microbatch, as inside the JAX scan; float32 whatever an autocast around the step says
+            with torch.autocast(images.device.type, enabled=False):
+                loss = loss + aux_loss(model)
+        return loss, logits, loss_state
+
+    def batch_grads(model, opt, images, labels, loss_state, generator):
         """The metrics of the batch (its mean loss among them) and the mean
         gradients, into the parameters' ``.grad``, both averaged over the
         ranks, and the criterion's state after it: the same microbatch loop
@@ -332,12 +430,13 @@ def build_train_step(
         mb = images.shape[0] // accumulate_steps
         loss_sum, all_logits = 0.0, []
         for im, lb in zip(images.split(mb), labels.split(mb)):
-            mb_logits = model(im.to(input_dtype))
-            mb_loss, loss_state = call_criterion(criterion, mb_logits, lb, loss_state)
-            if aux_loss is not None:
-                # once per microbatch, as inside the JAX scan; float32 whatever an autocast around the step says
-                with torch.autocast(images.device.type, enabled=False):
-                    mb_loss = mb_loss + aux_loss(model)
+            if remat:
+                mb_loss, mb_logits, loss_state = checkpoint(
+                    forward_loss, model, im, lb, loss_state, use_reentrant=False,
+                    context_fn=_Replay(model, generator, policy),
+                )
+            else:
+                mb_loss, mb_logits, loss_state = forward_loss(model, im, lb, loss_state)
             mb_loss.backward()  # sums into .grad
             loss_sum = loss_sum + mb_loss.detach()
             all_logits.append(mb_logits.detach())
@@ -372,7 +471,7 @@ def build_train_step(
         keep_buffers = perturb is not None and not bn_from_perturbed
         # the second pass starts from the step's buffers (the JAX state.batch_stats)
         before = _snapshot(list(model.buffers())) if keep_buffers else None
-        metrics, params, grads, loss_state = batch_grads(model, opt, images, labels, state.loss_state)
+        metrics, params, grads, loss_state = batch_grads(model, opt, images, labels, state.loss_state, state.generator)
         if perturb is not None:
             # the second gradient, at p + epsilon (JAX steps.py:314-327); the update then applies to the
             # saved p, copied back, since p + eps - eps need not be p in floating point
@@ -383,7 +482,7 @@ def build_train_step(
                     after = _snapshot(list(model.buffers()))  # the clean pass's, which the step keeps
                     _restore(list(model.buffers()), before)
             second_state = loss_state if bn_from_perturbed else state.loss_state
-            _, params, grads, second_state = batch_grads(model, opt, images, labels, second_state)
+            _, params, grads, second_state = batch_grads(model, opt, images, labels, second_state, state.generator)
             if bn_from_perturbed:
                 loss_state = second_state
             with torch.no_grad():
@@ -396,8 +495,11 @@ def build_train_step(
                 grad_transform(model, params, grads)
         grad_norm = torch.nn.utils.get_total_norm(grads)
         lr = lr_schedule(state.step)
+        # the schedule at the optimizer's own count of applied updates, where it keeps one (a skipping
+        # optimizer: JAX's tx reads its inner count, which a skipped update does not advance)
+        update_lr = lr_schedule(opt.update_count) if hasattr(opt, "update_count") else lr
         for group in opt.param_groups:
-            group["lr"] = lr
+            group["lr"] = update_lr
         opt.step()
         if post_step_transform is not None:
             with torch.no_grad():

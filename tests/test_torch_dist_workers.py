@@ -95,3 +95,16 @@ def cli_train_eval(config: str, overrides: list, log_dir: str) -> dict:
         bad = str(e)
     return {"train": train, "eval": evaluated, "ckpts": ckpts, "bad": bad,
             "files": sorted(os.path.relpath(f, log_dir) for f in glob.glob(os.path.join(log_dir, "*", "*", "*")))}
+
+
+def tfrecord_batches(root: str, is_train: bool, batch_size: int, image_size: int, device_resample: bool) -> list:
+    """Two epochs of this rank's ``TFRecordLoader`` batches (``batch_size`` is the global batch)."""
+    from sota_imagenet_tpu_torch.data.pipeline import TFRecordLoader
+
+    loader = TFRecordLoader(root, is_train=is_train, batch_size=batch_size // process_count(), image_size=image_size,
+                            workers=2, random_interpolation=True, drop_last=is_train, device_resample=device_resample)
+    out = []
+    for epoch in range(2):
+        loader.set_epoch(epoch)
+        out.append([tuple(np.asarray(a) for a in b) for b in loader])
+    return out

@@ -260,12 +260,6 @@ def test_build_loader_composes_the_resample(tree):
     assert tuple(batches[0]["image"].shape) == (8, 32, 32, 3) and tuple(batches[0]["label"].shape) == (8, 1000)
 
 
-@pytest.mark.parametrize("override", ["loader.backend=tfrecord", "loader.use_tfrecords=true"])
-def test_other_input_tiers_raise_naming_item_12(tree, override):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-        P.build_loader(_cfg(tree, override).loader, True, device="cpu")
-
-
 def test_device_cache_with_rectangular_val_is_rejected_first(tree):
     cfg = _cfg(tree, "val_loader.device_cache=true", "val_loader.rectangular=true")
     with pytest.raises(ValueError, match="incompatible with val_loader.rectangular"):

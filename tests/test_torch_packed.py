@@ -194,8 +194,9 @@ def test_records_cli_packs_a_tree(tree, tmp_path, monkeypatch):
     loader = PK.PackedLoader(str(tmp_path), is_train=True, batch_size=4, image_size=SIZE)
     assert len(loader.entries) == 2 * N_TRAIN
     assert len(os.listdir(PK.packed_dirs(str(tmp_path), "val")[0])) == R.VAL_SHARDS
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.records_main(["tfrecord", tree])
+    # tfrecord is ported (tests/test_torch_tfrecord_loader.py): it writes the shards beside their indexes
+    cli.records_main(["tfrecord", tree, "--out", str(tmp_path / "tf"), "--workers", "1"])
+    assert len(os.listdir(tmp_path / "tf" / "val_records")) == R.VAL_SHARDS
     # resize is ported (tests/test_torch_resize_tool.py): it writes the mirror tree
     cli.records_main(["resize", tree, "--size", str(SIZE), "--workers", "1"])
     assert os.path.isdir(tree.rstrip("/") + f"_{SIZE}")
