@@ -8,9 +8,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (each runs even if an earlier one failed, except that nothing runs
 without a build; any failure exits non-zero and prints no result). They run
-in the order of PHASES: build, kernels, then learn in a process of its own
-beside the model phases and model_ddp, then the trainers, serve beside the
-soak, bench_models, the data phases and A's profile.
+in this order: build, kernels, trainer A, then learn in a process of its
+own beside the phases that check values and time nothing (the model phases,
+model_ddp, model_mesh, wheel, serve, and the soak's processes from the
+start), then the other trainers (U and V after P1), bench_models, the data
+phases and A's profile.
 
 1. build   — compile every CUDA library of the port from ``csrc/`` with nvcc,
              one nvcc per source, all started together; print the build
@@ -233,7 +235,7 @@ soak, bench_models, the data phases and A's profile.
              JAX model's parameter count and 16 MBConv blocks.
 20. model_ddp — first a probe (ddp_probe_phase): two ranks on the card
              under gloo try each collective on CUDA tensors, and two under
-             NCCL must be refused (one device). Then three float64 steps of
+             NCCL must be refused (one device). Then two float64 steps of
              each leg (model_ddp_phase: the truncated Bottleneck ResNet of
              tools/dryrun_multichip.py at 64 px, global batch 16, TF32 off,
              cuDNN deterministic) on two gloo ranks sharing the card against
@@ -258,6 +260,26 @@ soak, bench_models, the data phases and A's profile.
 22. trainer P1 — the same config as one rank under NCCL, from torchrun's
              environment (WORLD_SIZE=1, mesh.data=-1): its ms/step against
              trainer A's is the cost of the port's collectives at one rank.
+22a. model_mesh — the mesh's spatial and model axes on two gloo ranks
+             sharing the card against one process on it (mesh_model_phase):
+             i_spatial_2, the model_ddp truncated ResNet at 64 px in float64
+             with mesh.spatial=2 (two steps, within DDP_TOL), and with
+             fused_stats in float32 (conv1x1_stats on each rank's band; one
+             step, MESH_FUSED_TOL: bf16 products); j_tp_2, the adacos_sphere
+             trunk with mesh.model=2 and its SphereLinearLayer class-sharded.
+             Then wheel (wheel_phase): a wheel of this checkout built
+             offline, installed with pip --target outside it, imported by a
+             fresh interpreter that has no directory of the checkout on its
+             path, which builds fused_aug from the wheel's csrc/ and holds
+             one launch against its plain version.
+22a'. trainers U and V — r50_baseline at full width through cli.main as two
+             gloo ranks on the card with trainer P's batch on one data rank
+             (trainer_mesh_phase): U with mesh.spatial=2 (a 112-row band of
+             every image on each rank), V with mesh.model=2 (500 of the
+             head's 1000 classes on each). ms/step, the halo, spatial-sum,
+             spatial_gather and class collectives a step (calls, bytes, ms),
+             peak memory and head bytes per rank; both ranks' weights equal
+             and fused_aug 10 in 10 on each.
 22b. serve — the serving path (serve_phase): trainer A's r50_baseline
              checkpoint, exported by ``cli export`` on the CPU in bf16
              (symbolic batch), float32 and int8, served on the card against
@@ -295,6 +317,11 @@ soak, bench_models, the data phases and A's profile.
              device step by depthwise convs, BatchNorm/ABN, BNet's partial
              residual (a scope of its own) and fused_aug are printed apart
              (legacy_layer_shares).
+
+Trainers S and C-remat must peak below A and C in ``max_memory_allocated``
+(run.remat's memory gate, checked after the trainers), and model_remat
+counts conv1x1_stats a step under each remat policy on the full-width
+fused_stats ResNet-50 (36, 72, 72).
 
 Every kernel counter is set to 0 just before each trainer's ``cli.main`` and
 read just after. The line before the last is the card's name and power
@@ -1195,6 +1222,12 @@ def _probe_callback(profile_window=None, record_shapes=False):
                 # AGC keeps device tensors about the next (last) step's clip: no host read inside any step
                 self.agc.record = True
             self.metric_devices.add(metrics["loss"].device.type)
+            # the train steps' peak once cuDNN's autotuning (steps 1-2) is done: an allocator counter, no sync
+            if step == 1:
+                self.warm_peak = torch.cuda.max_memory_allocated()  # steps 1-2, autotuning included
+                torch.cuda.reset_peak_memory_stats()
+            elif step > 1:
+                self.steady_peak = torch.cuda.max_memory_allocated()
             if profile_window and step == profile_window[0]:
                 torch.cuda.synchronize()
                 acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -2642,7 +2675,8 @@ def trainer_phase(
         "input_utilization": probe.train_metrics.get("input_utilization"),
         "data_time_s": probe.train_metrics.get("data_time_s"),
         "epoch_time_s": probe.train_metrics.get("epoch_time_s"),
-        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "max_memory_allocated_gib": max(getattr(probe, "warm_peak", 0), torch.cuda.max_memory_allocated()) / 2**30,
+        "max_memory_allocated_steady_gib": getattr(probe, "steady_peak", math.nan) / 2**30,
         "wall_s": wall,
         "gpu": gpu,
     }
@@ -2876,11 +2910,14 @@ def _remat_case(name, make_state, images, labels, criterion, lr: float) -> dict:
     from sota_imagenet_tpu_torch.train import steps
 
     flat = lambda ts: torch.cat([t.detach().double().flatten().cpu() for t in ts]) if ts else None
-    runs = {}
+    counter = kernel_counters()["conv1x1_stats"]
+    runs, conv1x1 = {}, {}
     for remat in REMAT_POLICIES:
         state = make_state()
         step = steps.build_train_step(criterion, lambda i: lr, remat=remat, input_dtype=torch.float32)
+        counter.launches = 0
         state, m = step(state, {"image": images.cuda(), "label": labels.cuda()})
+        conv1x1[str(remat)] = counter.launches
         runs[remat] = {
             "loss": flat([m["loss"]]), "grads": flat([p.grad for p in state.model.parameters()]),
             "buffers": flat(list(state.model.buffers())),
@@ -2892,15 +2929,18 @@ def _remat_case(name, make_state, images, labels, criterion, lr: float) -> dict:
         keys = [k for k in base if base[k] is not None]
         out[remat] = {"rel": {k: float((r[k] - base[k]).norm() / base[k].norm()) for k in keys},
                       "bit_identical": {k: bool(torch.equal(r[k], base[k])) for k in keys}}
-    return {"case": name, "buffers": int(base["buffers"].numel()), **out}
+    return {"case": name, "buffers": int(base["buffers"].numel()), "conv1x1_stats_launches": conv1x1, **out}
 
 
 def remat_model_phase() -> dict:
     """``run.remat`` on the card (f32, 64 px, batch 8, cuDNN deterministic):
     a depth-cut full-width bresnet50 with drop-path 0.2 and dropout 0.2 (the
     masks come from the bound generator, which the recompute must replay),
-    the config-8 BNet trunk under ForwardSpectralNorm (u/v advance once) and
-    the adacos_sphere trunk with AdaCos's state. Under 'full' and 'convs',
+    the config-8 BNet trunk under ForwardSpectralNorm (u/v advance once),
+    the adacos_sphere trunk with AdaCos's state, and the full-width
+    ``fused_stats`` ResNet-50, whose conv1x1_stats launches each policy
+    counts (36 a step without remat, 72 under each: every fused conv runs
+    again in its block's recompute). Under 'full' and 'convs',
     loss, gradients, buffers and the criterion's state within REMAT_TOL of
     the step without remat; whether they are bit-identical is reported."""
     import copy
@@ -2913,7 +2953,7 @@ def remat_model_phase() -> dict:
     from sota_imagenet_tpu_torch.losses import CrossEntropyLoss
     from sota_imagenet_tpu_torch.models.cmodel import CModel
     from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel
-    from sota_imagenet_tpu_torch.models.resnet import bresnet50
+    from sota_imagenet_tpu_torch.models.resnet import bresnet50, resnet50
     from sota_imagenet_tpu_torch.optim import build_optimizer
     from sota_imagenet_tpu_torch.train import steps
     from sota_imagenet_tpu_torch.train.callbacks import ForwardSpectralNorm
@@ -2937,6 +2977,7 @@ def remat_model_phase() -> dict:
             lambda: ParametrizedModel(CModel(layer_config=yaml.safe_load(BNET_TRUNK), extra_kwargs=extra), spectral),
             lambda m: build_optimizer(dict(bnet.optim), m.named_parameters())), CrossEntropyLoss(smoothing=0.1), 0.05),
         ("adacos_trunk", state_of(lambda: instantiate(copy.deepcopy(adacos_model)), criterion=adacos), adacos, 0.1),
+        ("r50_fused_stats", state_of(lambda: resnet50(fused_stats=True)), CrossEntropyLoss(smoothing=0.1), 0.1),
     ]
     with _deterministic_cudnn():
         rows = [_remat_case(name, make, images, labels, crit, lr) for name, make, crit, lr in cases]
@@ -2946,6 +2987,9 @@ def remat_model_phase() -> dict:
            if not v <= REMAT_TOL]
     if bad:
         raise AssertionError(f"model_remat: a remat step differs from the plain one: {bad}")
+    fused = next(r for r in rows if r["case"] == "r50_fused_stats")["conv1x1_stats_launches"]
+    if fused != {"False": 36, "full": REMAT_FULL_CONV1X1_PER_STEP, "convs": REMAT_FULL_CONV1X1_PER_STEP}:
+        raise AssertionError(f"model_remat: conv1x1_stats launches per policy {fused}")
     return result
 
 
@@ -3176,7 +3220,7 @@ FIXMATCH_TRUNK = """
 - [-1, 1, "pt.modules.FastGlobalAvgPool2d", [], {flatten: True}]
 - [-1, 1, "nn.Linear", [16, 100]]
 """
-DDP_STEPS = 3
+DDP_STEPS = 2  # 3 before model_mesh and trainers U and V joined: room for them in the 1,200 s
 # two ranks against one process on the card, relative L2 of the state's change (float64): the BN statistics
 # are summed in another order over ranks; AdaCos's head rounds its cosines to float32 and AdaiS keeps float32
 # second moments whose mean the shards sum in two parts (1.1e-8 on the CPU, tests/test_torch_ddp_step.py)
@@ -3223,10 +3267,10 @@ def _ddp_legs() -> dict:
                           "criterion": {"_target_": "FixMatchLoss", "hard_weight": 0.5, "hard_pct": 0.2}}
     # remat 'convs': every BatchNorm's all-reduce runs again in the recompute
     legs["g_remat_convs"] = {**base, "remat": "convs"}
-    # ZeRO-1 with the skip: step 2's batch holds an inf in row 0, which only rank 0 loads; the averaged
+    # ZeRO-1 with the skip: the next-to-last step's batch holds an inf in row 0, which only rank 0 loads; the averaged
     # gradient is NaN on both ranks, so both skip that update
     poisoned = [(im.copy(), lb) for im, lb in base["batches"]]
-    poisoned[1][0][0, 0, 0, 0] = np.inf
+    poisoned[DDP_STEPS - 2][0][0, 0, 0, 0] = np.inf  # the step before the last: the last one finite again
     legs["h_zero1_skip"] = {**base, "zero1": True, "skip_nonfinite": 2, "batches": poisoned}
     for name, optim, lr in (("adamw", {"_target_": "adamw", "weight_decay": 1e-2}, 1e-3),
                             ("adais", {"_target_": "adais", "weight_decay": 1e-4}, base["lr"]),
@@ -3256,7 +3300,7 @@ def _rel_delta(got: dict, want: dict, init: dict) -> float:
 
 
 def model_ddp_phase(gpu: str) -> dict:
-    """Three float64 steps on the card of each leg, on two gloo ranks sharing
+    """DDP_STEPS float64 steps on the card of each leg, on two gloo ranks sharing
     it against one process on it with the same global batch of 16 (TF32
     off): (a) SGD, EMA, sync-BN, cutmix with pre-drawn values; (b)
     bn_stats=local and bn_stats=4; (c) accumulate_steps=2 with unit-wise
@@ -3333,14 +3377,173 @@ def model_ddp_phase(gpu: str) -> dict:
     return result
 
 
+WHEEL_CHECK = r"""
+import json, sys, torch
+import sota_imagenet_tpu_torch
+from sota_imagenet_tpu_torch.ops import cuda_build
+from sota_imagenet_tpu_torch.ops.fused_aug import draw_augment_scalars, fused_augment, fused_augment_reference
+gen = torch.Generator(device="cuda").manual_seed(0)
+imgs = torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8, device="cuda", generator=gen)
+kw = dict(color_twist_prob=0.4, gray_prob=0.2, re_prob=0.3, re_count=3)
+scalars = draw_augment_scalars(gen, 8, device="cuda", **kw)
+before = fused_augment.launches
+out = fused_augment(imgs, scalars, out_dtype=torch.bfloat16, **kw)
+ref = fused_augment_reference(imgs, scalars, out_dtype=torch.bfloat16, **kw)
+torch.cuda.synchronize()
+print(json.dumps({"package": sota_imagenet_tpu_torch.__file__, "build_dir": str(cuda_build.build_dir()),
+                  "library": str(cuda_build.library_path("fused_aug", ["fused_aug.cu"])),
+                  "launches": fused_augment.launches - before,
+                  "max_abs_err": (out.float() - ref.float()).abs().max().item(), "sys_path": sys.path}))
+"""
+
+
+def wheel_phase(gpu: str) -> dict:
+    """The port installed from a wheel of this checkout, outside it: ``pip
+    wheel`` of a copy of the tree (offline: no index, no build isolation, no
+    dependencies), ``pip install --no-deps --target`` into a temporary
+    directory, then a fresh interpreter that has that directory on its path
+    and no directory of the checkout imports the port, builds fused_aug from
+    the wheel's own csrc/ and launches it on the card against its plain
+    version (bit for bit)."""
+    import shutil
+    import subprocess
+    import zipfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PIP_NO_INDEX": "1", "PIP_DISABLE_PIP_VERSION_CHECK": "1"}
+    env.pop("PYTHONPATH", None)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tree, wheels, site, work = (os.path.join(tmp, d) for d in ("tree", "wheels", "site", "work"))
+        os.makedirs(tree)
+        os.makedirs(work)
+        for name in ("pyproject.toml", "MANIFEST.in", "README.md", "LICENSE"):
+            shutil.copy2(os.path.join(repo, name), tree)
+        ignore = shutil.ignore_patterns("__pycache__", "_build", "*.pyc", "*.so")
+        for pkg in ("sota_imagenet_tpu", "sota_imagenet_tpu_torch"):
+            shutil.copytree(os.path.join(repo, pkg), os.path.join(tree, pkg), ignore=ignore)
+        pip = [sys.executable, "-m", "pip", "--disable-pip-version-check", "-q"]
+        subprocess.run([*pip, "wheel", ".", "--no-deps", "--no-build-isolation", "--no-index", "-w", wheels],
+                       cwd=tree, env=env, check=True, capture_output=True, text=True, timeout=300)
+        (whl,) = [os.path.join(wheels, f) for f in os.listdir(wheels) if f.endswith(".whl")]
+        cu = sorted(n for n in zipfile.ZipFile(whl).namelist() if n.endswith(".cu"))
+        subprocess.run([*pip, "install", "--no-deps", "--no-index", "--target", site, whl], env=env, check=True,
+                       capture_output=True, text=True, timeout=300)
+        proc = subprocess.run([sys.executable, "-c", WHEEL_CHECK], cwd=work, env={**env, "PYTHONPATH": site},
+                              capture_output=True, text=True, timeout=600)
+        site = os.path.realpath(site)
+        if proc.returncode != 0:
+            raise AssertionError(f"wheel: the installed port failed:\n{proc.stdout}\n{proc.stderr}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+    result = {"phase": "wheel", "cu_files": cu, "package": got["package"], "build_dir": got["build_dir"],
+              "launches": got["launches"], "max_abs_err": got["max_abs_err"],
+              "outside_checkout": not got["package"].startswith(repo) and not any(
+                  p and os.path.abspath(p).startswith(repo) for p in got["sys_path"]),
+              "seconds": time.perf_counter() - t0, "gpu": gpu}
+    print(f"[wheel] {json.dumps(result)}")
+    if len(cu) != 4 or result["launches"] != 1 or result["max_abs_err"] != 0.0 or not result["outside_checkout"]:
+        raise AssertionError(f"wheel: {result}")
+    if not result["build_dir"].startswith(site):
+        raise AssertionError(f"wheel: built into {result['build_dir']}, not beside the installed package")
+    return result
+
+
+def truncated_fused_resnet():
+    """trainer P's truncated ResNet (two one-block stages, 100 classes) with ``fused_stats``: every 1x1 conv
+    and its BatchNorm through conv1x1_stats, a strided ``fdown`` among them."""
+    from sota_imagenet_tpu_torch.models.resnet import Bottleneck, ResNet
+
+    return ResNet(block=Bottleneck, layers=(1, 1), num_classes=100, fused_stats=True)
+
+
+# the fused legs' products are bf16: one rank's band and one process's image round a few products apart once their
+# inputs differ by float32's noise (the BatchNorm sums' order), so they agree to bf16's grain, not float64's
+MESH_FUSED_TOL = {"loss": 1e-3, "state": 1e-2}
+
+
+def mesh_model_phase(gpu: str) -> dict:
+    """The mesh's two new axes on two gloo ranks sharing the card, each leg
+    against one process on the card with the same global batch:
+    i_spatial_2, trainer P's truncated ResNet at 64 px in float64 (SGD, EMA,
+    cutmix with pre-drawn values, sync-BN) with mesh.spatial=2 (DDP_STEPS steps,
+    within DDP_TOL), and the same with ``fused_stats`` in float32 (1 step;
+    conv1x1_stats on each rank's band, its sums over both); j_tp_2, the
+    depth-cut adacos_sphere trunk with mesh.model=2 and its SphereLinearLayer
+    class-sharded (AdaCos's state, float32 cosines: DDP_TOL's float32
+    parts). Loss, grad_norm, the weights, BN buffers and EMA, and the ranks
+    bit for bit."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sota_imagenet_tpu_torch.tools.ranks import run_ranks, train_legs, train_steps
+
+    legs = _ddp_legs()
+    base = {**legs["a_sgd_ema_cutmix"], "zero1": False}
+    fused = truncated_fused_resnet()
+    fused.reset_parameters(torch.Generator().manual_seed(0))
+    mesh_legs = {
+        "i_spatial_2": {**base, "spatial": 2},
+        "i_spatial_2_fused_stats": {**base, "spatial": 2, "model": truncated_fused_resnet, "dtype": "float32",
+                                    "init": {k: v.numpy().copy() for k, v in fused.state_dict().items()},
+                                    "batches": base["batches"][:1], "mixup": None, "ema_decay": 0.0},
+        "j_tp_2": {**copy.deepcopy(legs["e_adacos"]), "model_axis": 2, "tp_params": ["SphereLinearLayer"]},
+    }
+    names = list(mesh_legs)
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(train_legs, 2, ([mesh_legs[n] for n in names],), tmp_dir=tmp, timeout=600)
+    ranks_s = time.perf_counter() - t0
+    out, failures = {}, []
+    for i, name in enumerate(names):
+        r0, r1 = ranks[0][i], ranks[1][i]
+        spec = {**mesh_legs[name], "spatial": 1, "model_axis": 1}
+        counters["conv1x1_stats"].launches = 0
+        one = train_steps(spec)
+        init = spec["init"]
+        row = {"ranks_bit_equal": all(np.array_equal(r0["model"][k], r1["model"][k]) for k in r0["model"]),
+               "loss": [m["loss"] for m in r0["metrics"]], "loss_one_process": [m["loss"] for m in one["metrics"]],
+               "state_rel_l2": _rel_delta(r0["model"], one["model"], init),
+               "loss_rel": _max_rel((a["loss"], b["loss"]) for a, b in zip(r0["metrics"], one["metrics"])),
+               "grad_norm_rel": _max_rel((a["grad_norm"], b["grad_norm"]) for a, b in zip(r0["metrics"], one["metrics"])),
+               "collectives_per_step": {k: v / len(r0["metrics"]) for k, v in r0["collectives"].items()},
+               "shards": r0["shards"], "conv1x1_stats_launches_one_process": counters["conv1x1_stats"].launches}
+        if name == "i_spatial_2_fused_stats":
+            ok = row["loss_rel"] < MESH_FUSED_TOL["loss"] and row["state_rel_l2"] < MESH_FUSED_TOL["state"]
+            ok = ok and row["conv1x1_stats_launches_one_process"] > 0
+        else:
+            tol = DDP_TOL["float32_parts"] if name == "j_tp_2" else DDP_TOL["state"]
+            row["tolerance"] = tol
+            ok = row["state_rel_l2"] < tol and row["loss_rel"] <= 2**-23 and row["grad_norm_rel"] < max(tol, 1e-10)
+            if name == "j_tp_2":
+                row["loss_state"] = {k: [float(r0["loss_state"][k]), float(v)] for k, v in one["loss_state"].items()}
+                ok = ok and all(abs(a - b) <= 1e-6 * abs(b) for a, b in row["loss_state"].values())
+                ok = ok and r0["shards"] == {"layers.4.0.weight": [1, 1000]} and r0["collectives"].get("tp_gather")
+            else:
+                ok = ok and r0["collectives"].get("halo")
+        if not (ok and row["ranks_bit_equal"]):
+            failures.append(f"{name}: {row}")
+        out[name] = row
+    result = {"phase": "model_mesh", "legs": out, "two_rank_wall_s": ranks_s, "gpu": gpu}
+    print(f"[model_mesh] {json.dumps(result)}")
+    if failures:
+        raise AssertionError("model_mesh: " + "; ".join(failures))
+    return result
+
+
 def _digest(model) -> str:
-    """A hash of every parameter and buffer's bytes, in the state_dict's order."""
+    """A hash of every parameter and buffer's bytes, in the state_dict's order
+    (a head-TP shard gathered whole: every rank of a run must call it)."""
     import hashlib
 
     import torch
 
+    from sota_imagenet_tpu_torch.parallel import tp
+
     h = hashlib.sha256()
-    for v in model.state_dict().values():
+    for v in tp.full_state_dict(model).values():
         h.update(v.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
 
@@ -3374,6 +3577,7 @@ def ddp_trainer_rank(config: str, overrides: list, log_dir: str, timed: bool, re
 
     from sota_imagenet_tpu_torch import cli
     from sota_imagenet_tpu_torch.parallel import mesh as par
+    from sota_imagenet_tpu_torch.parallel import tp
 
     probe = _probe_callback()
     counters = kernel_counters()
@@ -3393,8 +3597,10 @@ def ddp_trainer_rank(config: str, overrides: list, log_dir: str, timed: bool, re
         "rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.get_backend(), "val": val,
         "launches": launches, "step_ms": probe.step_ms, "batch_size": probe.batch_size,
         "train_loss": probe.train_metrics.get("loss"), "collectives": stats, "wall_s": wall,
-        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "max_memory_allocated_gib": max(getattr(probe, "warm_peak", 0), torch.cuda.max_memory_allocated()) / 2**30,
+        "max_memory_allocated_steady_gib": getattr(probe, "steady_peak", math.nan) / 2**30,
         "digest": _digest(model), "parameters": sum(p.numel() for p in model.parameters()),
+        "head_bytes": {n: p.numel() * p.element_size() for n, p in model.named_parameters() if n in tp.sharded(model)},
         "optimizer": type(probe.runner.state.optimizer).__name__,
         "param_devices": sorted(probe.param_devices),
     }
@@ -3408,7 +3614,7 @@ def ddp_trainer_rank(config: str, overrides: list, log_dir: str, timed: bool, re
 
 
 P_OVERRIDES = ("mesh.data=2", "mesh.zero1=true")
-P1_OVERRIDES = ("mesh.data=-1", "mesh.zero1=true")
+P1_OVERRIDES = ("mesh.data=-1", "mesh.zero1=true", "val_loader.batch_size=64")
 
 
 def _free_port() -> int:
@@ -3419,12 +3625,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _ddp_summary(ranks: list) -> dict:
-    """The trainer's figures from its ranks' results (rank 0's clock)."""
+def _ddp_summary(ranks: list, data_ranks: int = None) -> dict:
+    """The trainer's figures from its ranks' results (rank 0's clock); ``data_ranks``: the ranks that
+    split the batch (all of them without spatial or model ranks)."""
     r0 = ranks[0]
     steps = len(r0["step_ms"])
     ms = statistics.median(r0["step_ms"][3:10])
-    global_batch = r0["batch_size"] * r0["world"]
+    global_batch = r0["batch_size"] * (data_ranks or r0["world"])
     col = r0["collectives"]
 
     def per_step(kinds):
@@ -3441,6 +3648,7 @@ def _ddp_summary(ranks: list) -> dict:
         "zero1_param_broadcasts": per_step(("params",)),
         "grad_all_reduce_alone_ms": [r["grad_all_reduce_alone_ms"] for r in ranks],
         "max_memory_allocated_gib_per_rank": [r["max_memory_allocated_gib"] for r in ranks],
+        "max_memory_allocated_steady_gib_per_rank": [r["max_memory_allocated_steady_gib"] for r in ranks],
         "launches_per_rank": [r["launches"] for r in ranks], "parameters": r0["parameters"],
         "optimizer": r0["optimizer"], "train_loss": r0["train_loss"], "val": r0["val"],
         "wall_s": max(r["wall_s"] for r in ranks),
@@ -3480,6 +3688,77 @@ def trainer_p_phase(gpu: str) -> dict:
         raise AssertionError(f"trainer_p: backend {result['backend']}, optimizer {result['optimizer']}")
     if not math.isfinite(result["train_loss"]) or not all(math.isfinite(v) for v in result["val"].values()):
         raise AssertionError(f"trainer_p: non-finite loss {result['train_loss']}, val {result['val']}")
+    return result
+
+
+# a val batch of 64 (the config's is 250): the trainers' 20 val steps are a check, and the run's seconds are short
+MESH_TRAINERS = {"trainer_u": ("mesh.spatial=2", "val_loader.batch_size=64"),
+                 "trainer_v": ("mesh.model=2", "val_loader.batch_size=64")}
+
+
+def mesh_trainer_ranks(names: list, log_dir: str) -> list:
+    """ddp_trainer_rank for each of the mesh trainers ``names``, one after the other on this rank (one spawn)."""
+    return [ddp_trainer_rank(R50, [*TRAINER_OVERRIDES, *MESH_TRAINERS[n]], os.path.join(log_dir, n), True, False)
+            for n in names]
+
+
+def mesh_trainers_phase(names: list, gpu: str) -> dict:
+    """Trainers U and V (trainer_mesh_result) from one spawn of two ranks."""
+    from sota_imagenet_tpu_torch.tools.ranks import run_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(mesh_trainer_ranks, 2, (names, os.path.join(tmp, "logs")), tmp_dir=tmp, timeout=1200)
+    out, failures = {}, []
+    for i, name in enumerate(names):
+        try:
+            out[name] = trainer_mesh_result(name, [r[i] for r in ranks], gpu)
+        except AssertionError as e:
+            failures.append(str(e))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def trainer_mesh_result(name: str, ranks: list, gpu: str) -> dict:
+    """r50_baseline at full width through cli.main as two gloo ranks sharing
+    the card, trainer P's batch (256 at 224 px, bf16, synthetic, debug, 10
+    steps) on one data rank: U with mesh.spatial=2 (each rank a 112-row band
+    of every image, the deepest map 7 rows split 3 and 4), V with
+    mesh.model=2 (each rank 500 of the head's 1000 classes). The collectives
+    are timed, each between two synchronisations. Checks: fused_aug 10
+    launches on each rank (the same rows, the same draws), no conv1x1_stats
+    or moments; the ranks' weights equal bit for bit (V's head gathered
+    whole); finite losses; U's halos and V's class gathers counted."""
+    overrides = MESH_TRAINERS[name]
+    summary = _ddp_summary(ranks, data_ranks=1)
+    col, steps = ranks[0]["collectives"], summary["train_steps"]
+
+    def per_step(kinds):
+        secs = [col[k]["seconds"] for k in kinds if k in col]
+        return {"calls": sum(col.get(k, {}).get("calls", 0) for k in kinds) / steps,
+                "bytes": sum(col.get(k, {}).get("bytes", 0) for k in kinds) / steps,
+                "ms": sum(secs) * 1e3 / steps if secs else 0.0}
+
+    result = {"phase": name, "config": R50, "overrides": list(overrides), **summary,
+              "halo": per_step(("halo", "halo_backward")),
+              "spatial_gather": per_step(("spatial_gather", "spatial_gather_backward")),
+              "spatial_sums": per_step(("spatial_sum", "spatial_sum_backward")),
+              "class_gathers": per_step(("tp_gather", "tp_input_backward", "tp_reduce")),
+              "collective_ms_per_step": sum(v["seconds"] or 0.0 for v in col.values()) * 1e3 / steps,
+              "head_bytes_per_rank": [sum(r["head_bytes"].values()) for r in ranks],
+              "digests_equal": len({r["digest"] for r in ranks}) == 1, "gpu": gpu}
+    print(f"[{name}] {json.dumps(result)}")
+    want = {"fused_aug": 10, "conv1x1_stats": 0, "moments": 0}
+    if result["train_steps"] != 10 or any(r["launches"] != want for r in ranks):
+        raise AssertionError(f"{name}: launches per rank {result['launches_per_rank']}, want {want} each")
+    if not result["digests_equal"]:
+        raise AssertionError(f"{name}: the ranks' weights differ")
+    if not math.isfinite(result["train_loss"]) or not all(math.isfinite(v) for v in result["val"].values()):
+        raise AssertionError(f"{name}: non-finite loss {result['train_loss']}, val {result['val']}")
+    if name == "trainer_u" and not result["halo"]["calls"]:
+        raise AssertionError("trainer_u: no halo exchanged")
+    if name == "trainer_v" and (not result["class_gathers"]["calls"] or result["head_bytes_per_rank"] != [500 * 2049 * 4] * 2):
+        raise AssertionError(f"trainer_v: class gathers {result['class_gathers']}, head bytes {result['head_bytes_per_rank']}")
     return result
 
 
@@ -4028,8 +4307,8 @@ def learn_process() -> int:
 PHASES = ("build", "kernels", "learn", "model", "model_legacy", "model_remat", "model_skip", "model_debug_nans",
           "model_ddp", "trainer_a", "trainer_b", "trainer_c", "trainer_s", "trainer_c_remat", "trainer_d", "trainer_e",
           "trainer_i", "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n", "trainer_o", "trainer_q",
-          "trainer_r", "trainer_p", "trainer_p1", "serve", "soak", "bench_models", "data", "trainer_f", "trainer_t",
-          "trainer_g", "packed", "trainer_h", "profile")
+          "trainer_r", "trainer_p", "trainer_p1", "model_mesh", "trainer_u", "trainer_v", "wheel", "serve", "soak",
+          "bench_models", "data", "trainer_f", "trainer_t", "trainer_g", "packed", "trainer_h", "profile")
 # the profiler runs inside these trainers from the end of step 1 to the end of step 3 (1-based): steps 2
 # and 3; their ms/step is the median of steps 5-10, the others' of steps 4-10 (trainer_phase; H, of two
 # epochs, is profiled in its first and timed in its second)
@@ -4118,9 +4397,23 @@ def main(argv=None) -> int:
         run("fused_aug", kernel_phase)
         run("conv1x1_stats", conv_stats_phase)
         run("moments", moments_phase)
-    # learn trains in a process of its own beside the phases that check values, time nothing and give
-    # the card little work (the model phases and the rank drives); it ends before anything is timed again
+    aug_only = {"fused_aug": 1}
+    serve_dir = tempfile.TemporaryDirectory()  # trainer A's checkpoint and serve's artifacts, until bench_models
+    trainer_a_ckpt = os.path.join(serve_dir.name, "trainer_a.ckpt")
+    if "trainer_a" in phases:  # alone on the card: the main path's ms/step; serve exports its checkpoint
+        run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only, keep_ckpt=trainer_a_ckpt)
+    # learn trains in a process of its own beside the phases that check values and time nothing: the model
+    # phases and the rank drives, then serve (its exports trace on one host core, its checks on the card hold
+    # values) with the soak's two processes beside it from the start; all end before anything is timed again
     learn = LearnProcess() if "learn" in phases else None
+    soak = threading.Thread(target=run, args=("soak", soak_phase, gpu)) if "soak" in phases else None
+    if soak is not None:
+        soak.start()
+    # the installed-wheel check is pip and nvcc on the host and one launch on the card: it runs beside the
+    # value-checking model phases, as learn does
+    wheel = threading.Thread(target=run, args=("wheel", wheel_phase, gpu)) if "wheel" in phases else None
+    if wheel is not None:
+        wheel.start()
     try:
         if "model" in phases:
             run("model", model_phase)
@@ -4148,17 +4441,20 @@ def main(argv=None) -> int:
         if "model_ddp" in phases:
             run("ddp_probe", ddp_probe_phase, gpu)
             run("model_ddp", model_ddp_phase, gpu)
+        if "model_mesh" in phases:
+            run("model_mesh", mesh_model_phase, gpu)
+        if "serve" in phases:
+            run("serve", serve_phase, gpu, serve_dir.name, trainer_a_ckpt)
+        if wheel is not None:
+            wheel.join()
+        if soak is not None:
+            soak.join()
         if learn is not None:
             run("learn", learn.join)
             seconds["learn"] = learn.seconds
     finally:
         if learn is not None:
             learn.stop()
-    aug_only = {"fused_aug": 1}
-    serve_dir = tempfile.TemporaryDirectory()  # trainer A's checkpoint and serve's artifacts, until bench_models
-    trainer_a_ckpt = os.path.join(serve_dir.name, "trainer_a.ckpt")
-    if "trainer_a" in phases:
-        run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only, keep_ckpt=trainer_a_ckpt)
     if "trainer_b" in phases:
         hard = "configs/exp/3.r50_hard-aug_rand-interp.yaml"
         run("trainer_b", trainer_phase, "trainer_b", hard, ("loader.re_prob=0.3",), gpu, aug_only)
@@ -4189,15 +4485,10 @@ def main(argv=None) -> int:
         run("trainer_p", trainer_p_phase, gpu)
     if "trainer_p1" in phases:
         run("trainer_p1", trainer_p1_phase, gpu)
-    # the soak's two processes run beside serve, whose exports trace on one host core, and whose checks
-    # on the card hold values, not times; both end before anything is timed again
-    soak = threading.Thread(target=run, args=("soak", soak_phase, gpu)) if "soak" in phases else None
-    if soak is not None:
-        soak.start()
-    if "serve" in phases:
-        run("serve", serve_phase, gpu, serve_dir.name, trainer_a_ckpt)
-    if soak is not None:
-        soak.join()
+    mesh_trainers = [n for n in MESH_TRAINERS if n in phases]
+    if mesh_trainers:
+        run("trainer_" + "".join(n[-1] for n in mesh_trainers), mesh_trainers_phase, mesh_trainers, gpu)
+        results.update(results.pop("trainer_" + "".join(n[-1] for n in mesh_trainers), {}))
     if "bench_models" in phases:
         run("bench_models", bench_models_phase, gpu, results.get("serve"))
     serve_dir.cleanup()
@@ -4248,7 +4539,12 @@ def main(argv=None) -> int:
     for other, base in (("trainer_s", "trainer_a"), ("trainer_c_remat", "trainer_c")):
         if other in results and base in results:
             o, b = results[other], results[base]
-            print(f"[{other}] {json.dumps({'ms_per_step': o['ms_per_step_median'], 'ms_per_step_' + base: b['ms_per_step_median'], 'max_memory_allocated_gib': o['max_memory_allocated_gib'], 'max_memory_allocated_gib_' + base: b['max_memory_allocated_gib']})}")
+            print(f"[{other}] {json.dumps({'ms_per_step': o['ms_per_step_median'], 'ms_per_step_' + base: b['ms_per_step_median'], 'max_memory_allocated_gib': o['max_memory_allocated_gib'], 'max_memory_allocated_gib_' + base: b['max_memory_allocated_gib'], 'peak_ratio': o['max_memory_allocated_gib'] / b['max_memory_allocated_gib'], 'steady_peak_gib': o['max_memory_allocated_steady_gib'], 'steady_peak_gib_' + base: b['max_memory_allocated_steady_gib'], 'steady_peak_ratio': o['max_memory_allocated_steady_gib'] / b['max_memory_allocated_steady_gib']})}")
+            # the memory gate of run.remat: a remat trainer peaks below its plain twin in the same run
+            if not o["max_memory_allocated_gib"] < b["max_memory_allocated_gib"]:
+                print(f"[{other}] FAILED: peak {o['max_memory_allocated_gib']} GiB, not below {base}'s "
+                      f"{b['max_memory_allocated_gib']}", flush=True)
+                failed.append(f"{other}_memory_gate")
     if "trainer_t" in results and "trainer_f" in results:
         t, f = results["trainer_t"], results["trainer_f"]
         print(f"[trainer_t] {json.dumps({'epoch_img_per_s': t['epoch_img_per_s'], 'epoch_img_per_s_trainer_f': f['epoch_img_per_s'], 'val_weights_sum': sum(t['val_weights']), 'records': results.get('records_tfrecord')})}")
@@ -4296,8 +4592,13 @@ def main(argv=None) -> int:
     kernels[0]["launches_ddp_nccl_one_rank"] = results["trainer_p1"]["launches_per_rank"][0]["fused_aug"]
     kernels[0]["launches_remat"] = results["trainer_s"]["kernel_launches"]["fused_aug"]
     kernels[0]["launches_tfrecord"] = results["trainer_t"]["kernel_launches"]["fused_aug"]
+    kernels[0]["launches_spatial_two_ranks"] = [r["fused_aug"] for r in results["trainer_u"]["launches_per_rank"]]
+    kernels[0]["launches_head_tp_two_ranks"] = [r["fused_aug"] for r in results["trainer_v"]["launches_per_rank"]]
+    kernels[0]["launches_installed_wheel"] = results["wheel"]["launches"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_remat_full"] = results["trainer_c_remat"]["kernel_launches"]["conv1x1_stats"]
+    kernels[1]["launches_per_step_by_remat_policy"] = next(
+        r for r in results["model_remat"]["cases"] if r["case"] == "r50_fused_stats")["conv1x1_stats_launches"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items()
                                  if k.startswith("trainer") and "kernel_launches" in r)

@@ -5,6 +5,7 @@ Usage:
     python -m sota_imagenet_tpu_torch.cli -c configs/exp/1.r50_baseline.yaml [key=value ...]
     python -m sota_imagenet_tpu_torch.cli -c <yaml> run.evaluate=true run.resume=<run_dir>/model_last.ckpt
     torchrun --nproc_per_node=N -m sota_imagenet_tpu_torch.cli [--device cpu] -c <yaml> [mesh.zero1=true] ...
+    torchrun --nproc_per_node=2 -m sota_imagenet_tpu_torch.cli -c <yaml> mesh.spatial=2   (or mesh.model=2)
     python -m sota_imagenet_tpu_torch.cli records packed <data_dir> [--size 224] ...   (records_main)
     python -m sota_imagenet_tpu_torch.cli records resize <data_dir> [--size 512] [--workers N]
     python -m sota_imagenet_tpu_torch.cli records tfrecord <data_dir> [--out DIR] [--workers N]
@@ -19,9 +20,12 @@ device unless the caller passes ``device="cpu"``. Under torchrun (or with a
 the ``data`` axis (``parallel/mesh.py``): NCCL when each rank has a card of
 its own, gloo on the CPU or when ranks share a card; the batch of the
 config is the global one, rank 0 logs and writes, and ``mesh.zero1`` shards
-the optimizer state (``optim/zero1.py``). ``mesh.spatial`` and
-``mesh.model``, not ported yet, raise NotImplementedError naming the
-ROADMAP item. The TensorBoard sinks write event files into the run dir;
+the optimizer state (``optim/zero1.py``). The ranks form the mesh
+(data, spatial, model) of the JAX CLI (``parallel/mesh.create_mesh``):
+``mesh.spatial`` shards the image height over ranks (``parallel/spatial.py``,
+every stage's image size checked by ``validate_spatial_extent``) and
+``mesh.model`` shards the head's classes (``parallel/tp.py``, the leaves
+``mesh.tp_params`` names). The TensorBoard sinks write event files into the run dir;
 where the tensorboard package is missing they log one warning and the run
 goes on.
 """
@@ -48,7 +52,7 @@ from sota_imagenet_tpu_torch.optim.factory import needs_layout
 from sota_imagenet_tpu_torch.optim.skip_nonfinite import ApplyIfFinite
 from sota_imagenet_tpu_torch.optim.zero1 import Zero1
 from sota_imagenet_tpu_torch.parallel import mesh as par
-from sota_imagenet_tpu_torch.registry import NotPortedError
+from sota_imagenet_tpu_torch.parallel.spatial import validate_spatial_extent
 from sota_imagenet_tpu_torch.train.callbacks import (
     Callback,
     CheckpointSaver,
@@ -76,17 +80,6 @@ def find_auto_resume(log_dir: str, exp_name: str) -> Optional[str]:
     """Newest checkpoint for this experiment, for preemption recovery."""
     cands = sorted(glob.glob(os.path.join(log_dir, f"*_{exp_name}", "*", "model*.ckpt")), key=os.path.getmtime)
     return cands[-1] if cands else None
-
-
-def reject_unported(cfg) -> None:
-    """Raise for every option that changes the numbers and is not in this port yet."""
-    checks = (
-        (cfg.mesh.model != 1 or cfg.mesh.spatial != 1, "mesh.spatial / mesh.model (spatial partitioning, head TP)",
-         "Queue 1 item 14"),
-    )
-    for bad, what, item in checks:
-        if bad:
-            raise NotPortedError(what, item)
 
 
 def build_model(cfg):
@@ -185,8 +178,12 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
 
     start_time = time.time()
     cfg = C.load(args.config, overrides=args.overrides, strict_env=False)
-    reject_unported(cfg)
-    data = par.data_axis(cfg.mesh.data, process_count())
+    # the mesh of the JAX CLI (cli.py:132), its shape errors included (a data axis alone names the ranks it
+    # does not match); rank 0 of the world logs and writes
+    if cfg.mesh.spatial == cfg.mesh.model == 1:
+        par.data_axis(cfg.mesh.data, process_count())
+    mesh = par.create_mesh(data=cfg.mesh.data, model=cfg.mesh.model, spatial=cfg.mesh.spatial)
+    data = mesh.shape["data"]
     is_master = process_index() == 0
 
     # run dir: logs/<date>_<exp>/<time> (reference configs/base.yaml:13-15), rank 0's on every rank
@@ -212,6 +209,13 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
         log.info(f"PyTorch {torch.__version__} | device: {device}")
     if backend is not None:
         log.info(f"Data parallel: {data} ranks over {backend}")
+    if mesh.shape["spatial"] > 1:
+        # every stage's image size keeps >= 2 deepest-feature rows per spatial rank (cli.py:137-143, :188-195)
+        validate_spatial_extent(mesh, cfg.loader.image_size)
+        for st in parse_stages(cfg.run.stages):
+            if (st.extra_args or {}).get("image_size"):
+                validate_spatial_extent(mesh, st.extra_args["image_size"])
+        log.info(f"Spatial partitioning: image H sharded over {mesh.shape['spatial']} devices")
     # the BatchNorm statistics view (cli.py:148-153 of the JAX package), before the model is built
     bn_groups = resolve_bn_stats(cfg.run.bn_stats, data)
     set_bn_stats_groups(bn_groups)
@@ -261,6 +265,7 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
         input_dtype=input_dtype,
         device=device,
         debug_nans=cfg.debug_nans,
+        tp_params=cfg.mesh.tp_params,
     )
     runner.init_state(seed=seed)
     if cfg.get("sigmoid_trick", False):
@@ -273,6 +278,8 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
     log.info(f"Model params: {count_parameters(runner.state.model) / 1e6:.2f}M")
     if cfg.mesh.zero1:
         log.info(f"ZeRO-1: optimizer state sharded over {data} data-parallel ranks")
+    if mesh.shape["model"] > 1:
+        log.info(f"Head TP: matching params class-sharded over {mesh.shape['model']} devices")
 
     start_epoch = cfg.run.start_epoch
     if cfg.run.auto_resume and not cfg.run.resume:

@@ -15,7 +15,8 @@ Sampling, as in the JAX package: each data shard draws its own permutation of
 its resident samples every epoch, from ``np.random.default_rng((0x5EED,
 epoch, shard))`` (DDP's sampler contract); val is one sequential sweep with
 exact masked coverage. One card per process, so this process holds one data
-shard, global shard ``process_index()`` of ``process_count()``; the stream
+shard, global shard ``data_index()`` of ``data_count()`` (the data axis;
+a spatial or model rank holds its data rank's shard); the stream
 routing of the JAX fill (row i on local shard i % shards_here) is kept, with
 one local shard.
 
@@ -36,8 +37,7 @@ import numpy as np
 import torch
 
 from sota_imagenet_tpu_torch.utils.logging import get_logger
-from sota_imagenet_tpu_torch.parallel.mesh import rank_seed
-from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
+from sota_imagenet_tpu_torch.parallel.mesh import data_count, data_index, rank_seed
 
 
 class DeviceCacheFeed:
@@ -74,9 +74,9 @@ class DeviceCacheFeed:
         self.label_divisor = max(int(label_divisor), 1)
         self.is_train = is_train
         self.fill_chunk_mb = float(fill_chunk_mb)  # fractional MB allowed (tests)
-        self.batch_size = host_loader.batch_size * max(process_count(), 1)
+        self.batch_size = host_loader.batch_size * max(data_count(), 1)
         self.epoch = 0
-        self._n_data = max(process_count(), 1)  # data shards: one card per process
+        self._n_data = max(data_count(), 1)  # data shards: one per data rank
         self._bs_local = self.batch_size // self._n_data
         # lazy fill: a resume that skips a stage, or an evaluate-only run that
         # never iterates the train feed, pays no copy of the split
@@ -353,7 +353,7 @@ class DeviceCacheFeed:
         self.ensure_filled()
         steps = len(self)
         if self.is_train:
-            shard = process_index()  # this process's one shard, of process_count()
+            shard = data_index()  # this data rank's one shard, of data_count()
             perm = np.random.default_rng((0x5EED, self.epoch, shard)).permutation(self._n_per_shard)
             self.epoch += 1
         else:

@@ -45,7 +45,10 @@ from sota_imagenet_tpu_torch.data.records import (
     read_index,
     write_tfrecord,
 )
-from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
+from sota_imagenet_tpu_torch.parallel.mesh import data_count, data_index
+
+# a shard of the records is a data rank's (the JAX loader calls these by jax's names)
+process_count, process_index = data_count, data_index
 
 __all__ = ["create_packed_records", "PackedLoader", "packed_dirs"]
 

@@ -18,10 +18,11 @@ Layering (replaces DALI, reference dali_dataloader.py):
          └─ batches {'image': (B,H,W,3) bf16 on the device, 'label': one-hot f32
                      [, 'mask': f32 (B,) for padded val batches]}
 
-Per-rank sharding (utils/misc.process_index/process_count; one process
-unless a torch.distributed group is up): each of N ranks loads batches of
-B/N, and the synthetic and folder loaders give rank r rows [r*B/N,
-(r+1)*B/N) of the batch one process would load with the global B, so N
+Per-rank sharding (``process_index``/``process_count`` here are the data
+axis's ``parallel/mesh.data_index``/``data_count``: a spatial or model rank
+loads its data rank's rows; one process unless a torch.distributed group is up): each of N data ranks loads
+batches of B/N, and the synthetic and folder loaders give rank r rows
+[r*B/N, (r+1)*B/N) of the batch one process would load with the global B, so N
 ranks train on what one process trains on (the layout of the JAX
 package's make_array_from_process_local_data; its own folder and tfrecord
 loaders read files[rank::N] instead). The tfrecord loader splits the same
@@ -51,9 +52,11 @@ from sota_imagenet_tpu_torch.data import native
 from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
 from sota_imagenet_tpu_torch.data.packed import PackedLoader
 from sota_imagenet_tpu_torch.ops.augment import build_train_augment, build_val_augment
-from sota_imagenet_tpu_torch.parallel.mesh import rank_seed
+from sota_imagenet_tpu_torch.parallel.mesh import data_count, data_index, rank_seed
 from sota_imagenet_tpu_torch.utils.logging import get_logger
-from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
+
+# the loaders' shard of the batch is their data rank's (the JAX loaders call these by jax's names)
+process_count, process_index = data_count, data_index
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 

@@ -31,8 +31,8 @@ from torch import nn
 from sota_imagenet_tpu_torch.losses.base import Loss, StatefulLoss
 from sota_imagenet_tpu_torch.losses.smooth import CrossEntropyLoss
 from sota_imagenet_tpu_torch.models.layers import Linear
-from sota_imagenet_tpu_torch.parallel.mesh import all_reduce_, gather_rows, global_mean
-from sota_imagenet_tpu_torch.utils.misc import at_least_f32, process_count, sqrt
+from sota_imagenet_tpu_torch.parallel.mesh import all_reduce_, data_count, gather_rows, global_mean
+from sota_imagenet_tpu_torch.utils.misc import at_least_f32, sqrt
 
 EPS = 1e-7
 
@@ -277,7 +277,7 @@ class AdaCos(StatefulLoss):
         with torch.no_grad():
             # over the global batch: the ranks' sums, and the median of every rank's target cosines
             b_sum = all_reduce_(torch.where(neg_mask, torch.exp(cosine * state["prev_s"]), 0.0).sum(), "loss")
-            b_batch = b_sum / (cosine.shape[0] * process_count())
+            b_batch = b_sum / (cosine.shape[0] * data_count())
             med_cos = _median(gather_rows(_true(cosine, idx), "loss"))
             running_b = state["running_B"] * self.momentum + b_batch * (1 - self.momentum)
             running_cos = state["running_cos"] * self.momentum + med_cos * (1 - self.momentum)
@@ -304,7 +304,7 @@ def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     sum over the global count, so the mean of the ranks' losses, and of
     their gradients, is the global one."""
     cnt = all_reduce_(mask.sum(), "loss")
-    mean = torch.where(mask, values, 0.0).sum() * process_count() / torch.clamp(cnt, min=1)
+    mean = torch.where(mask, values, 0.0).sum() * data_count() / torch.clamp(cnt, min=1)
     return torch.where(cnt > 0, mean, torch.zeros_like(mean))
 
 
@@ -334,7 +334,7 @@ class SphereCosMAELoss(Loss):
         tc = _true(cosine, idx)
         mask = tc < self.threshold
         cnt = all_reduce_(mask.sum(), "loss")  # over the global batch, as _masked_mean
-        loss = 1.0 - torch.where(mask, tc, 0.0).sum() * process_count() / torch.clamp(cnt, min=1)
+        loss = 1.0 - torch.where(mask, tc, 0.0).sum() * data_count() / torch.clamp(cnt, min=1)
         return torch.where(cnt > 0, loss, torch.zeros_like(loss))
 
 

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from sota_imagenet_tpu_torch.losses.base import Loss
-from sota_imagenet_tpu_torch.utils.misc import at_least_f32, process_count
+from sota_imagenet_tpu_torch.parallel.mesh import data_count
+from sota_imagenet_tpu_torch.utils.misc import at_least_f32
 
 
 def _as_soft_targets(target: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -163,7 +164,7 @@ def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
         return x.mean()
     if reduction == "sum":
         # the global batch's sum: N ranks average their losses and gradients, so each returns N times its share
-        return x.sum() * process_count()
+        return x.sum() * data_count()
     if reduction == "none":
         return x
     raise ValueError(f"unknown reduction {reduction!r}")

@@ -9,7 +9,7 @@ import torch.nn.functional as F
 from sota_imagenet_tpu_torch.losses.base import Loss
 from sota_imagenet_tpu_torch.losses.smooth import BinaryKLDivLoss
 from sota_imagenet_tpu_torch.parallel import mesh as par
-from sota_imagenet_tpu_torch.utils.misc import at_least_f32, process_count, process_index
+from sota_imagenet_tpu_torch.utils.misc import at_least_f32
 
 
 def _top_k_mean(raw: torch.Tensor, pct: float) -> torch.Tensor:
@@ -57,14 +57,14 @@ class FixMatchLoss(Loss):
         y_pred = at_least_f32(y_pred)
         if y_true.dim() == 1:
             y_true = F.one_hot(y_true.long(), y_pred.shape[-1]).to(torch.float32)
-        world = process_count()
+        world = par.data_count()
         if world == 1:
             half = y_pred.shape[0] // 2
             raw_soft = self.criterion(y_pred[:half], torch.sigmoid(y_pred[half:]).detach())
             raw_hard = self.criterion(y_pred[:half], y_true[half:])
             return _top_k_mean(raw_soft, self.hard_pct) + self.hard_weight * _top_k_mean(raw_hard, self.hard_pct)
         b, classes = y_pred.shape
-        half, lo = b * world // 2, b * process_index()
+        half, lo = b * world // 2, b * par.data_index()
         first = min(max(half - lo, 0), b)  # this rank's rows of the first half
         targets = torch.cat([torch.sigmoid(y_pred).detach(), y_true.to(y_pred.dtype)], -1)
         soft, hard = par.global_rows(targets, half, 2 * half, "fixmatch")[lo : lo + first].split(classes, -1)

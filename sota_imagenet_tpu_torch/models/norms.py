@@ -13,10 +13,12 @@ the JAX modules update ``batch_stats``.
 
 Statistics over the batch axis are over the GLOBAL batch, as in the JAX
 package, whose step runs on a global array sharded over the mesh's
-``data`` axis (norms.py:1-24 there): with N > 1 ranks of a
-``torch.distributed`` group, each rank holds rows [r*B/N, (r+1)*B/N) and the
-statistics are summed over the ranks (``parallel/mesh.py``); one rank
-computes them as one process does. ``run.bn_stats`` chooses BatchNorm's and
+``data`` axis (norms.py:1-24 there): with N > 1 data ranks of a
+``torch.distributed`` group, each holds rows [r*B/N, (r+1)*B/N) and the
+statistics are summed over them (``parallel/mesh.py``); one rank computes
+them as one process does. Under spatial partitioning a rank holds a band of
+H rows of its images (``parallel/spatial.py``), and the statistics of a band
+are summed over the data x spatial ranks, over the global count. ``run.bn_stats`` chooses BatchNorm's and
 ABN's view (``resolve_bn_stats``, ``set_bn_stats_groups``): ``global``
 (one group, sync-BN), ``local`` (one group per rank) or an int g (g groups,
 each a contiguous run of B/g rows of the global batch, which may straddle
@@ -41,8 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from sota_imagenet_tpu_torch.models.layers import activation_from_name
-from sota_imagenet_tpu_torch.parallel.mesh import all_reduce_sum, global_mean
-from sota_imagenet_tpu_torch.utils.misc import at_least_f32, process_count, process_index, sqrt
+from sota_imagenet_tpu_torch.parallel.mesh import all_reduce_sum, band_of, data_count, data_index, global_mean
+from sota_imagenet_tpu_torch.utils.misc import at_least_f32, sqrt
 
 # Process-wide default of BatchNorm's and ABN's statistics groups, set once
 # from cfg.run.bn_stats before the model is built (norms.py:46-56 of the JAX
@@ -79,20 +81,26 @@ def group_moments(x: torch.Tensor, groups: int = 1):
     NCHW ``x``: each row's sums go to its group's row of a (2, g, C) buffer,
     one differentiable all-reduce sums the buffers of the ranks, and
     var = max(E[x^2] - mean^2, 0) as in the JAX one-pass form. Returns the
-    (g, C) mean and var in at least float32, and each local row's group."""
-    b, world = x.shape[0], process_count()
+    (g, C) mean and var in at least float32, and each local row's group.
+    The groups count rows of the data axis (the JAX ``resolve_bn_stats``
+    over ``mesh.shape['data']``); a band of H rows sums its share over the
+    data x spatial ranks."""
+    b, world, band = x.shape[0], data_count(), band_of(x)
     if (b * world) % groups:
         raise ValueError(f"bn_stats groups={groups} must divide the global batch ({b * world})")
     per = b * world // groups
-    rows = (torch.arange(b, device=x.device) + process_index() * b) // per
-    # each row's and channel's sums of x and x^2 over (H, W), accumulated in at least float32 without a float32
-    # copy of x (a bf16 reduction to float32 reads x as it is); autograd keeps x and the norms only
-    acc = torch.promote_types(x.dtype, torch.float32)
-    sums = torch.stack([x.sum(dim=(2, 3), dtype=acc), torch.linalg.vector_norm(x, dim=(2, 3), dtype=acc).square()])
-    # each row's sums into its group's row, as a product with the one-hot (b, g) membership: deterministic on the
-    # card, where index_add's atomics sum in a varying order
-    part = torch.einsum("bg,sbc->sgc", F.one_hot(rows, groups).to(sums.dtype), sums)
-    tot = all_reduce_sum(part, "bn") / (per * x.shape[2] * x.shape[3])
+    with torch._C.DisableTorchFunction():  # this rank's rows (its band of them), whatever mode is active
+        rows = (torch.arange(b, device=x.device) + data_index() * b) // per
+        # each row's and channel's sums of x and x^2 over (H, W), accumulated in at least float32 without a
+        # float32 copy of x (a bf16 reduction to float32 reads x as it is); autograd keeps x and the norms only
+        acc = torch.promote_types(x.dtype, torch.float32)
+        sums = torch.stack([x.sum(dim=(2, 3), dtype=acc),
+                            torch.linalg.vector_norm(x, dim=(2, 3), dtype=acc).square()])
+        # each row's sums into its group's row, as a product with the one-hot (b, g) membership: deterministic on
+        # the card, where index_add's atomics sum in a varying order
+        part = torch.einsum("bg,sbc->sgc", F.one_hot(rows, groups).to(sums.dtype), sums)
+    height = x.shape[2] if band is None else band[1][-1][1]
+    tot = all_reduce_sum(part, "bn", "data" if band is None else "data_spatial") / (per * height * x.shape[3])
     return tot[0], (tot[1] - tot[0].square()).clamp(min=0.0), rows
 
 
@@ -162,7 +170,7 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps).to(dt)
         groups = self.stats_groups if self.stats_groups is not None else bn_stats_groups()
         # one group over one rank is the one process's BatchNorm, whether or not a process group is up
-        if groups > 1 or process_count() > 1:
+        if groups > 1 or data_count() > 1 or band_of(x) is not None:
             s = self.subsample
             mean, var, rows = group_moments(x if s == 1 else x[:, :, ::s, ::s], groups)
             self._update(mean.detach().mean(0), var.detach().mean(0))
@@ -438,7 +446,7 @@ class VarEMA(nn.Module):
         # a monitor's statistics need no graph
         with torch.set_grad_enabled(self.use and torch.is_grad_enabled()):
             xf = at_least_f32(x)
-            if process_count() > 1:  # over the global batch: two passes, as jnp.std
+            if data_count() > 1 or band_of(xf) is not None:  # over the global batch: two passes, as jnp.std
                 mean = global_mean(xf)
                 std = sqrt(global_mean((xf - mean).square()))
             else:  # one fused pass

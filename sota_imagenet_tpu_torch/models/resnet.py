@@ -35,6 +35,7 @@ from sota_imagenet_tpu_torch.models.layers import (
 )
 from sota_imagenet_tpu_torch.models.norms import BatchNorm, GroupNorm
 from sota_imagenet_tpu_torch.ops.conv_stats import conv1x1_stats_nhwc
+from sota_imagenet_tpu_torch.parallel.mesh import all_reduce_sum, band_of, data_count, with_band
 
 
 class Conv1x1BNStats(nn.Module):
@@ -49,6 +50,11 @@ class Conv1x1BNStats(nn.Module):
     activation dtype: y * (rsqrt(var + eps) * scale) + (bias - mean * scale *
     rsqrt(var + eps)), each factor cast to that dtype first. Eval mode is a
     plain conv in the activation dtype, normalised with the running buffers.
+    Over ranks the sums are the global batch's, as the JAX step's over its
+    global array: summed over the data ranks, and over the data x spatial
+    ranks for a band of H rows (``parallel/spatial.py``), where the kernel
+    runs on this rank's band and a stride takes the band's rows of the
+    global subsample.
 
     Names: ``weight`` (OIHW, fan-out kaiming init as ``Conv``), ``scale``,
     ``bias``; buffers ``running_mean``, ``running_var``."""
@@ -86,8 +92,16 @@ class Conv1x1BNStats(nn.Module):
             y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride)
             mean, var = self.running_mean, self.running_var
         else:
-            y, s1, s2 = conv1x1_stats_nhwc(x, self.weight, self.stride)
-            n = y.shape[0] * y.shape[2] * y.shape[3]
+            stride, band = self.stride, band_of(x)
+            if band is not None and stride != 1:
+                x, stride = x[:, :, ::stride, ::stride], 1  # the band's rows of the global subsample
+            with torch._C.DisableTorchFunction():  # the kernel on this rank's rows
+                y, s1, s2 = conv1x1_stats_nhwc(x, self.weight, stride)
+            y = with_band(y, band_of(x))
+            height = y.shape[2] if band is None else band_of(x)[1][-1][1]
+            n = y.shape[0] * height * y.shape[3] * data_count()
+            if data_count() > 1 or band is not None:
+                s1, s2 = all_reduce_sum(torch.stack([s1, s2]), "bn", "data" if band is None else "data_spatial")
             mean = s1 / n
             var = torch.clamp(s2 / n - mean * mean, min=0.0)
             with torch.no_grad():

@@ -2,8 +2,11 @@
 them with ctypes.
 
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) at first use,
-from the ``.cu`` files under ``sota_imagenet_tpu_torch/csrc/`` alone, into
-``sota_imagenet_tpu_torch/_build/`` (git-ignored): one ``nvcc`` per source,
+from the ``.cu`` files under ``sota_imagenet_tpu_torch/csrc/`` alone (a
+wheel carries them: ``MANIFEST.in``), into ``sota_imagenet_tpu_torch/_build/``
+(git-ignored) where the package's directory is writable, as in a checkout,
+and else into a per-user cache, ``$XDG_CACHE_HOME`` (or ``~/.cache``)
+``/sota_imagenet_tpu_torch/<hash of the package's path>`` (``build_dir``): one ``nvcc`` per source,
 all started together, then one link. The file name carries a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. The sources expose ``extern "C"`` launch
@@ -22,12 +25,42 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import lru_cache
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
+
+from sota_imagenet_tpu_torch.utils.logging import get_logger
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+
+
+def _writable(path: Path) -> bool:
+    """Whether ``path`` (an existing directory, or one that can be made in its parent) takes new files."""
+    while not path.exists():
+        path = path.parent
+    return os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir(package_dir: Optional[Path] = None) -> Path:
+    """Where the libraries are built: ``_build/`` beside the package's
+    modules where that can be written (a checkout, or a wheel installed into
+    a directory of the user's), else a per-user cache directory keyed by the
+    package's path (a wheel in a read-only site-packages)."""
+    package_dir = Path(package_dir or PACKAGE_DIR).resolve()
+    local = package_dir / "_build"
+    if _writable(local):
+        return local
+    cache = Path(os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache")
+    return cache / "sota_imagenet_tpu_torch" / hashlib.sha256(str(package_dir).encode()).hexdigest()[:16]
+
+
+@lru_cache(maxsize=None)
+def _build_dir() -> Path:
+    out = build_dir()
+    if out != PACKAGE_DIR / "_build":
+        get_logger().info(f"CUDA kernels: {PACKAGE_DIR} is read-only; building them into {out}")
+    return out
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -61,7 +94,7 @@ def library_path(name: str, sources: Sequence[str]) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update((CSRC_DIR / src).read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return _build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str, sources: Sequence[str]) -> Path:
@@ -70,7 +103,7 @@ def build(name: str, sources: Sequence[str]) -> Path:
     out = library_path(name, sources)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     nvcc = find_nvcc()
     objects = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o") for src in sources]

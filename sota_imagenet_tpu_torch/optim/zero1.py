@@ -1,7 +1,8 @@
 """ZeRO-1: the optimizer state sharded over the ranks (port of ``mesh.zero1``,
 ``sota_imagenet_tpu/parallel/mesh.py``:106-141 and ``cli.py``:285-290).
 
-Each rank owns whole parameters, dealt out by size (largest first, each to
+Each rank of the data axis (``parallel/mesh.py``; the same within each
+spatial and model index) owns whole parameters, dealt out by size (largest first, each to
 the rank that owns the fewest elements so far), keeps the optimizer state of
 its own and steps only them; each rank then broadcasts its updated
 parameters, so every rank holds the same weights. The JAX package shards
@@ -29,7 +30,6 @@ import torch
 
 from sota_imagenet_tpu_torch.optim.zoo import ZooOptimizer
 from sota_imagenet_tpu_torch.parallel import mesh as par
-from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
 
 Named = List[Tuple[str, torch.nn.Parameter]]
 
@@ -107,7 +107,7 @@ class Zero1(torch.optim.Optimizer):
                   for g in full.param_groups]
         super().__init__(groups, dict(full.defaults))
         del full, meta
-        world, rank = process_count(), process_index()
+        world, rank = par.data_count(), par.data_index()
         owner = deal([named[i][1].numel() for i in order], world)
         if len(set(owner)) < world:
             raise ValueError(f"ZeRO-1 over {world} ranks needs at least {world} parameters, got {len(named)}")
@@ -141,10 +141,11 @@ class Zero1(torch.optim.Optimizer):
         for g, j in zip(self.inner.param_groups, self._group_of_inner):
             g["lr"] = self.param_groups[j]["lr"]
         self.inner.step()
-        for src, ps in self._broadcasts:
-            flat = par.broadcast_(par.flatten(ps), src, "params")
-            if src != process_index():
-                par.unflatten_(ps, flat)
+        with torch._C.DisableTorchFunction():  # whole tensors, whatever mode marks the step's reductions
+            for src, ps in self._broadcasts:
+                flat = par.broadcast_(par.flatten(ps), src, "params")
+                if src != par.data_index():
+                    par.unflatten_(ps, flat)
         return None
 
     def state_dict(self) -> dict:
@@ -152,8 +153,8 @@ class Zero1(torch.optim.Optimizer):
         sd = super().state_dict()  # the groups under the unsharded indices, no state
         mine = _to_cpu(_remap(self.inner.state_dict(), self._shard_index()))
         merged = {"state": {}}
-        for src in range(process_count()):
-            _fill(merged, par.broadcast_object(mine, src))
+        for src in range(par.data_count()):
+            _fill(merged, par.broadcast_object(mine, src, axis="data"))
         sd["state"] = dict(sorted(merged["state"].items()))
         if "inner" in merged:
             sd["inner"] = {"state": dict(sorted(merged["inner"]["state"].items())), "param_groups": sd["param_groups"]}

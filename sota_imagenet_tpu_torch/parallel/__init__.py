@@ -1,1 +1,1 @@
-"""Data parallelism over ``torch.distributed`` (port of ``sota_imagenet_tpu/parallel``)."""
+"""The mesh over ``torch.distributed``: data parallelism, spatial partitioning and head TP (port of ``sota_imagenet_tpu/parallel``)."""

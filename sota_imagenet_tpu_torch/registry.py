@@ -9,9 +9,6 @@ Registered names are case-sensitive. Aliases let configs written against the
 reference keep working (e.g. ``pytorch_tools.models.resnet50`` → ``resnet50``).
 Every name of the JAX package's registry resolves here; an unknown name
 raises ``KeyError``, as there (registry.py:73 of the JAX package).
-``NotPortedError`` (a NotImplementedError) is what the port raises for an
-option of the JAX package it does not have yet; its message names the
-ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -21,15 +18,6 @@ from typing import Callable, Dict, Optional
 
 _REGISTRY: Dict[str, Callable] = {}
 _ALIASES: Dict[str, str] = {}
-
-
-class NotPortedError(NotImplementedError):
-    """A name or option of the JAX package that this port does not have yet.
-    The message names the ROADMAP item that ports it."""
-
-    def __init__(self, what: str, item: str, more: str = ""):
-        msg = f"{what} is not ported to sota_imagenet_tpu_torch yet (ROADMAP.md {item})"
-        super().__init__(f"{msg}; {more}" if more else msg)
 
 
 def register(name: Optional[str] = None, *, aliases: tuple = ()):

@@ -11,8 +11,9 @@ traceback. The children start from a fresh import of torch and this package
 function of an importable module and its arguments and results pickle.
 
 ``train_steps(spec)`` runs a few train steps of a model on this rank's rows
-of given global batches (every rank the same spec) and returns what they
-left, in numpy; run with no group it is the one-process replay of the same
+of given global batches (every rank the same spec; the mesh's spatial and
+model axes from the spec, the data axis the ranks they leave) and returns
+what they left, in numpy; run with no group it is the one-process replay of the same
 steps (``train_legs``: several specs in one spawn). ``cli_rank(argv,
 device)`` is ``cli.main`` on a rank.
 """
@@ -31,7 +32,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
 
 
 def _child(fn, rank: int, world: int, init_file: str, args: tuple, threads: int, backend, env, out) -> None:
@@ -111,9 +111,11 @@ def train_steps(spec: Dict[str, Any]) -> Dict[str, Any]:
     (N: the optimizer in ``ApplyIfFinite``), ``mixup`` (None, or ``{"cutmix_alpha",
     "mixup_alpha", "draws": [one dict of numpy scalars a step]}``: the
     pre-drawn values ``apply_cutmix_mixup`` takes), ``batches`` (a list of
-    global (images NHWC, one-hot labels) in numpy), ``seed``. Returns the
-    metrics of each step, the model's and the EMA's state_dicts, the
-    criterion's state and the optimizer's (the unsharded one under ZeRO-1),
+    global (images NHWC, one-hot labels) in numpy), ``seed``, ``spatial`` and
+    ``model_axis`` (the mesh's axes; the data axis takes the other ranks) with
+    ``tp_params`` (the head-TP patterns). Returns the metrics of each step,
+    the model's and the EMA's state_dicts, the criterion's state and the
+    optimizer's (the unsharded one under ZeRO-1, the whole head under TP),
     all in numpy, the collectives' counts and the skip's counters (or None)."""
     from sota_imagenet_tpu_torch.config import instantiate
     from sota_imagenet_tpu_torch.losses.base import StatefulLoss
@@ -123,6 +125,7 @@ def train_steps(spec: Dict[str, Any]) -> Dict[str, Any]:
     from sota_imagenet_tpu_torch.optim.skip_nonfinite import ApplyIfFinite
     from sota_imagenet_tpu_torch.optim.zero1 import Zero1
     from sota_imagenet_tpu_torch.parallel import mesh as par
+    from sota_imagenet_tpu_torch.parallel import tp
     from sota_imagenet_tpu_torch.train import steps
     from sota_imagenet_tpu_torch.train.state import TrainState
 
@@ -133,11 +136,15 @@ def train_steps(spec: Dict[str, Any]) -> Dict[str, Any]:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     set_bn_stats_groups(spec.get("bn_stats", 1))
+    par.create_mesh(spatial=spec.get("spatial", 1) if dist.is_initialized() else 1,
+                    model=spec.get("model_axis", 1) if dist.is_initialized() else 1)
     try:
         make = spec["model"]
         model = instantiate(copy.deepcopy(make)) if isinstance(make, dict) else make()
         model.load_state_dict({k: torch.from_numpy(v) for k, v in spec["init"].items()})
         model.to(device=device, dtype=dtype, memory_format=torch.channels_last)
+        if par.axis_size("model") > 1:
+            tp.apply_head_tp(model, spec.get("tp_params"))
 
         def build(named):
             return build_optimizer(dict(spec["optim"]), named)
@@ -168,7 +175,7 @@ def train_steps(spec: Dict[str, Any]) -> Dict[str, Any]:
             ema_decay=ema_decay, mixup_fn=mixup_fn, sam=spec.get("sam"), remat=spec.get("remat", False),
             input_dtype=dtype,
         )
-        world, rank = process_count(), process_index()
+        world, rank = par.data_count(), par.data_index()
         par.STATS.reset()
         metrics = []
         for images, labels in spec["batches"]:
@@ -179,17 +186,22 @@ def train_steps(spec: Dict[str, Any]) -> Dict[str, Any]:
             }
             state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
+        collectives = dict(par.STATS.calls)
         return {
             "metrics": metrics,
-            "model": _numpy(state.model.state_dict()),
-            "ema": _numpy(state.ema.state_dict()) if state.ema is not None else None,
+            "model": _numpy(tp.full_state_dict(state.model)),
+            "ema": _numpy(tp.full_state_dict(state.ema)) if state.ema is not None else None,
             "loss_state": _numpy(state.loss_state) if state.loss_state is not None else None,
-            "optimizer": _optimizer_numpy(state.optimizer.state_dict()),
-            "collectives": dict(par.STATS.calls),
+            "optimizer": _optimizer_numpy(tp.full_optimizer_state(state.model, state.optimizer,
+                                                                  state.optimizer.state_dict())),
+            "collectives": collectives,
             "skip": state.optimizer.counters() if isinstance(state.optimizer, ApplyIfFinite) else None,
+            "shards": {k: list(v) for k, v in tp.sharded(state.model).items()},
+            "bytes": {k: v.numel() * v.element_size() for k, v in state.model.state_dict().items()},
         }
     finally:
         set_bn_stats_groups(1)
+        par.set_mesh(None)
 
 
 def train_legs(specs: List[Dict[str, Any]]) -> List[Dict[str, Any]]:

@@ -17,8 +17,11 @@ leaves the run's fresh ``init_state()``.
 
 Over ranks (JAX checkpoint.py:50-51, 80, 86-90): every rank calls
 ``save_checkpoint`` (a ZeRO-1 optimizer gathers its whole state in
-``state_dict``), rank 0 writes, and the others wait for it at a barrier; a
-resume loads the same file on every rank.
+``state_dict``; under head TP the class shards of the weights, the EMA and
+the optimizer state are gathered whole, ``parallel/tp.py``), rank 0 writes,
+and the others wait for it at a barrier; a resume loads the same file on
+every rank, each keeping its shards, so a checkpoint resumes with or without
+head TP.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Tuple
 import torch
 
 from sota_imagenet_tpu_torch.parallel import mesh as par
+from sota_imagenet_tpu_torch.parallel import tp
 from sota_imagenet_tpu_torch.train.state import TrainState
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 from sota_imagenet_tpu_torch.utils.misc import process_index
@@ -41,9 +45,10 @@ def save_checkpoint(
     payload = {
         "state": {
             "step": int(state.step),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict() if include_optimizer else None,
-            "ema": state.ema.state_dict() if state.ema is not None else None,
+            "model": tp.full_state_dict(state.model),
+            "optimizer": (tp.full_optimizer_state(state.model, state.optimizer, state.optimizer.state_dict())
+                          if include_optimizer else None),
+            "ema": tp.full_state_dict(state.ema) if state.ema is not None else None,
             "loss_state": state.loss_state,
         },
         "epoch": int(epoch),
@@ -61,9 +66,9 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
     device = next(state.model.parameters()).device
     payload = torch.load(os.path.abspath(path), map_location=device, weights_only=True)
     disk = payload["state"]
-    state.model.load_state_dict(disk["model"])
+    state.model.load_state_dict(tp.shard_state_dict(state.model, disk["model"]))
     if state.ema is not None and disk.get("ema") is not None:
-        state.ema.load_state_dict(disk["ema"])
+        state.ema.load_state_dict(tp.shard_state_dict(state.ema, disk["ema"]))
     saved_ls = disk.get("loss_state")
     if state.loss_state is not None and saved_ls is not None:
         if set(saved_ls) == set(state.loss_state):
@@ -73,6 +78,6 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
     if disk.get("optimizer") is None:
         get_logger().info("Checkpoint has no optimizer state (log.save_optim=false); restoring params/batch_stats")
     else:
-        state.optimizer.load_state_dict(disk["optimizer"])
+        state.optimizer.load_state_dict(tp.shard_optimizer_state(state.model, state.optimizer, disk["optimizer"]))
         state.step = int(disk["step"])
     return state, int(payload["epoch"])

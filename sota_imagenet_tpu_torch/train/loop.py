@@ -26,7 +26,7 @@ from sota_imagenet_tpu_torch.train.schedule import make_lr_schedule
 from sota_imagenet_tpu_torch.train.state import TrainState
 from sota_imagenet_tpu_torch.utils import debug_nans
 from sota_imagenet_tpu_torch.utils.logging import get_logger
-from sota_imagenet_tpu_torch.utils.misc import process_count, resolve_device
+from sota_imagenet_tpu_torch.utils.misc import resolve_device
 
 
 def reduce_metrics(dev_metrics: List[Dict[str, Any]], over_ranks: bool = False) -> Dict[str, float]:
@@ -58,7 +58,7 @@ def reduce_metrics(dev_metrics: List[Dict[str, Any]], over_ranks: bool = False) 
     if tensor_keys:
         means = torch.stack([torch.stack([m[k].float() for m in dev_metrics]).mean() for k in tensor_keys])
         if over_ranks:
-            means = par.all_reduce_(means, "metrics") / process_count()
+            means = par.all_reduce_(means, "metrics") / par.data_count()
         out.update(zip(tensor_keys, means.tolist()))
     for k in keys:
         if k not in out:
@@ -81,8 +81,10 @@ class Runner:
         input_dtype: torch.dtype = torch.bfloat16,
         device=None,
         debug_nans: bool = False,
+        tp_params=None,
     ):
         self.device = resolve_device(device)
+        self.tp_params = tp_params  # mesh.tp_params: the head-TP patterns (parallel/tp.py)
         self.model = model
         self.criterion = criterion
         self.optimizer_factory = optimizer_factory
@@ -111,7 +113,7 @@ class Runner:
         # stateful parametrization seeds its state from the initial weights
         self.state = steps_lib.init_state(
             self._effective_model(self._collect_step_options()), self.optimizer_factory, device=self.device,
-            seed=seed, ema_decay=self.ema_decay, criterion=self.criterion,
+            seed=seed, ema_decay=self.ema_decay, criterion=self.criterion, tp_params=self.tp_params,
         )
         if self.debug_nans:
             for m in (self.state.model, self.state.ema):

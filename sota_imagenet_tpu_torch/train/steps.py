@@ -48,22 +48,37 @@ ranks after each pass (once after the last microbatch; after each of SAM's
 two passes, so the perturbation reads the global gradient), before the
 gradient transform, grad_norm and the optimizer read them.
 
-Rematerialization (``remat``, JAX steps.py:158-182 and :218-222): the
-forward, the criterion with its state and the aux loss of each microbatch
-and each SAM pass run under ``torch.utils.checkpoint`` (non-reentrant).
-``'full'`` keeps nothing of the closure for the backward and runs it again
-there; ``'convs'`` keeps the outputs of the convolutions and matrix
-products (a selective-checkpoint policy, the JAX ``conv_general_dilated`` /
+Rematerialization (``remat``, JAX steps.py:158-182 and :218-222): each
+top-level unit of the model's trunk (``remat_segments``: every residual
+block, CModel layer, stem conv and norm; not the head) runs under a
+``torch.utils.checkpoint`` of its own (non-reentrant), so the backward
+recomputes one unit just before that unit's backward, and only one unit's
+activations are live again at a time, as XLA schedules the JAX recompute;
+the criterion, its state and the aux loss run outside. ``'full'`` keeps
+nothing of a unit for the backward and runs it again there; ``'convs'``
+keeps the outputs of the convolutions and matrix products (a
+selective-checkpoint policy, the JAX ``conv_general_dilated`` /
 ``dot_general`` predicate) and runs everything else again. A hand-written
 kernel called through ctypes (``conv1x1_stats``) is no dispatcher op, so it
 runs again under both, as a ``pallas_call`` does in the JAX step. The
 recompute sees what the forward saw and leaves what the forward left
-(``_Replay``): every buffer of the model (BatchNorm's running statistics,
-VarEMA's, the spectral u/v) and the state of the bound dropout generator
-are put back to their values before the forward while it runs, then to
-their values after it; the criterion's state is an output of the closure
-and the recompute's is dropped. Under N ranks the recomputed BatchNorm
-statistics issue their all-reduces again (``mesh.STATS`` counts them).
+(``_Replay``, per unit): the unit's buffers (BatchNorm's running
+statistics, VarEMA's) and the state of the bound dropout generator are put
+back to their values before its forward while it runs, then to their
+values after it; a parametrized model's transformed weights are swapped in
+again, and its spectral u/v, outside the units, move once. Under N ranks
+the recomputed BatchNorm statistics issue their all-reduces again
+(``mesh.STATS`` counts them).
+
+Spatial partitioning (``mesh.spatial`` = S > 1, ``parallel/spatial.py``):
+after the mixup each rank keeps its band of H rows of the images and the
+model runs on bands; a spatial rank backpropagates 1/S of its data rank's
+loss, and the gradients are summed over the data x spatial ranks and
+divided by the data ranks. Head TP (``mesh.model`` > 1,
+``parallel/tp.py``): the head's class shards gather their logits, and the
+reductions of the gradient transform, grad_norm, SAM's perturbation, the
+optimizer and the post-step transform over a shard's classes take the other
+shards' share.
 
 A skipping optimizer (``optim/skip_nonfinite.ApplyIfFinite``, the
 counterpart of ``optax.apply_if_finite``) counts the updates it applied:
@@ -80,15 +95,18 @@ import copy
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, set_checkpoint_early_stop,
+)
 
 from sota_imagenet_tpu_torch.losses.base import StatefulLoss, call_criterion
 from sota_imagenet_tpu_torch.models.layers import bind_generator
+from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel
 from sota_imagenet_tpu_torch.optim.factory import _unitwise_norm
 from sota_imagenet_tpu_torch.parallel import mesh as par
+from sota_imagenet_tpu_torch.parallel import spatial, tp
 from sota_imagenet_tpu_torch.train.metrics import accuracy_topk, classification_metrics
 from sota_imagenet_tpu_torch.train.state import TrainState
-from sota_imagenet_tpu_torch.utils.misc import process_index
 from sota_imagenet_tpu_torch.utils.weights import flax_ranks, unit_dims
 
 Batch = Dict[str, torch.Tensor]
@@ -224,16 +242,21 @@ def init_state(
     seed: int = 0,
     ema_decay: float = 0.0,
     criterion: Optional[Callable] = None,
+    tp_params=None,
 ) -> TrainState:
     """Initialize the model's parameters from ``seed`` (on the host, so the
     weights do not depend on the device), move it to ``device`` in
-    channels_last memory, and build its optimizer, its EMA copy, the
+    channels_last memory, keep this rank's class shards of the head under
+    ``mesh.model`` > 1 (``parallel/tp.apply_head_tp`` with the patterns
+    ``tp_params``), and build its optimizer, its EMA copy, the
     step's random generator on the device (bound to the model's dropout and
     drop-path modules) and, for a stateful ``criterion``, its initial state
     on the device."""
     if hasattr(model, "reset_parameters"):
         model.reset_parameters(torch.Generator().manual_seed(int(seed)))
     model.to(device=device, memory_format=torch.channels_last)
+    if par.axis_size("model") > 1:
+        tp.apply_head_tp(model, tp_params)
     ema = copy.deepcopy(model).requires_grad_(False) if ema_decay else None
     generator = torch.Generator(device=device)
     bind_generator(model, generator)
@@ -347,12 +370,13 @@ def remat_policy(remat: Any) -> Optional[Callable]:
 
 
 class _Replay:
-    """The contexts of one checkpointed closure (``checkpoint``'s
-    ``context_fn``): the forward records the model's buffers and the
-    generator's state before it runs; the recompute runs with those, then
-    puts back what the forward left, so one step moves them once, as the
-    JAX step whose batch_stats come from the primal pass. ``policy`` (a
-    selective-checkpoint policy, or None) adds its caching contexts inside."""
+    """The contexts of one checkpointed segment (``checkpoint``'s
+    ``context_fn``): the forward records the buffers of ``model`` (the
+    segment's module) and the generator's state before it runs; the
+    recompute runs with those, then puts back what the forward left, so one
+    step moves them once, as the JAX step whose batch_stats come from the
+    primal pass. ``policy`` (a selective-checkpoint policy, or None) adds its
+    caching contexts inside."""
 
     def __init__(self, model: torch.nn.Module, generator: Optional[torch.Generator], policy: Optional[Callable]):
         self.buffers = list(model.buffers())
@@ -389,6 +413,72 @@ class _Replay:
         return self._forward(inner[0]), self._recompute(inner[1])
 
 
+def _units(module: torch.nn.Module):
+    """The top-level units of a model's trunk, in order: its children, with
+    the containers (``nn.Sequential``, ``nn.ModuleList``, a CModel's layer
+    lists) opened up."""
+    for child in module.children():
+        if isinstance(child, (torch.nn.Sequential, torch.nn.ModuleList)):
+            yield from _units(child)
+        else:
+            yield child
+
+
+def remat_segments(model: torch.nn.Module) -> list:
+    """The modules ``run.remat`` checkpoints one by one: every top-level unit
+    with state (each residual block, CModel layer, stem conv and norm) but the
+    last one with parameters, the head."""
+    root = model.model if isinstance(model, ParametrizedModel) else model
+    has = lambda u, what: next(iter(getattr(u, what)()), None) is not None  # noqa: E731
+    units = [u for u in _units(root) if has(u, "parameters") or has(u, "buffers")]
+    with_params = [u for u in units if has(u, "parameters")]
+    head = with_params[-1] if len(with_params) > 1 else None
+    return [u for u in units if u is not head]
+
+
+@contextlib.contextmanager
+def checkpointed_segments(model: torch.nn.Module, generator: Optional[torch.Generator], policy: Optional[Callable]):
+    """Within the context each of ``remat_segments(model)`` runs under its own
+    non-reentrant checkpoint, so the backward recomputes one segment just
+    before that segment's own backward and only one segment's activations
+    are live again at a time (XLA schedules the JAX step's recompute so).
+    The recompute runs with the parameters the forward saw (a parametrized
+    model's transformed weights are swapped in only during its forward), with
+    the segment's buffers and the generator as the forward found them
+    (``_Replay``), and inside the spatial partitioning the forward ran in."""
+    from torch.nn.utils.stateless import _reparametrize_module
+
+    def wrap(seg):
+        run = type(seg).forward
+
+        def forward(*args, **kwargs):
+            seen = dict(seg.named_parameters(remove_duplicate=False))
+            within = spatial.current()
+
+            def segment(*a, **k):
+                now = dict(seg.named_parameters(remove_duplicate=False))
+                swap = any(now[n] is not t for n, t in seen.items())
+                with within(), (_reparametrize_module(seg, seen) if swap else contextlib.nullcontext()):
+                    return run(seg, *a, **k)
+
+            # the whole unit runs again, as XLA's recompute of the JAX closure: no early stop once its saved
+            # tensors are back (a stem conv saves only its input and weight, and would never run again)
+            with set_checkpoint_early_stop(False):
+                return checkpoint(segment, *args, use_reentrant=False, context_fn=_Replay(seg, generator, policy),
+                                  **kwargs)
+
+        return forward
+
+    segs = remat_segments(model)
+    for seg in segs:
+        seg.forward = wrap(seg)
+    try:
+        yield segs
+    finally:
+        for seg in segs:
+            del seg.forward
+
+
 def build_train_step(
     criterion: Callable,
     lr_schedule: Callable[[int], float] = lambda step: 0.1,
@@ -408,13 +498,15 @@ def build_train_step(
     perturb = SamPerturbation(sam.get("kind", "asam"), sam.get("rho", 0.05), sam.get("eta", 0.01)) if sam else None
     bn_from_perturbed = bool(sam.get("bn_from_perturbed", True)) if sam else True
 
-    def forward_loss(model, images, labels, loss_state):
-        """The closure JAX differentiates (steps.py:202-216): forward, criterion, aux loss."""
-        logits = model(images.to(input_dtype))
+    def forward_loss(model, images, labels, loss_state, generator):
+        """The closure JAX differentiates (steps.py:202-216): forward (each
+        remat segment under its checkpoint), criterion, aux loss."""
+        with checkpointed_segments(model, generator, policy) if remat else contextlib.nullcontext():
+            logits = spatial.forward(model, images.to(input_dtype))
         loss, loss_state = call_criterion(criterion, logits, labels, loss_state)
         if aux_loss is not None:
             # once per microbatch, as inside the JAX scan; float32 whatever an autocast around the step says
-            with torch.autocast(images.device.type, enabled=False):
+            with torch.autocast(images.device.type, enabled=False), tp.reductions(model):
                 loss = loss + aux_loss(model)
         return loss, logits, loss_state
 
@@ -429,15 +521,12 @@ def build_train_step(
         opt.zero_grad(set_to_none=True)
         mb = images.shape[0] // accumulate_steps
         loss_sum, all_logits = 0.0, []
+        # every spatial rank computes its data rank's loss: each backpropagates 1/S of it, so that the sum of the
+        # ranks' gradients is the data rank's (a band's convolutions give their share, the head its 1/S)
+        bands = par.axis_size("spatial")
         for im, lb in zip(images.split(mb), labels.split(mb)):
-            if remat:
-                mb_loss, mb_logits, loss_state = checkpoint(
-                    forward_loss, model, im, lb, loss_state, use_reentrant=False,
-                    context_fn=_Replay(model, generator, policy),
-                )
-            else:
-                mb_loss, mb_logits, loss_state = forward_loss(model, im, lb, loss_state)
-            mb_loss.backward()  # sums into .grad
+            mb_loss, mb_logits, loss_state = forward_loss(model, im, lb, loss_state, generator)
+            (mb_loss if bands == 1 else mb_loss / bands).backward()  # sums into .grad
             loss_sum = loss_sum + mb_loss.detach()
             all_logits.append(mb_logits.detach())
         params = [p for group in opt.param_groups for p in group["params"]]
@@ -446,8 +535,21 @@ def build_train_step(
             torch._foreach_div_(grads, float(accumulate_steps))
         loss = loss_sum / accumulate_steps
         metrics = classification_metrics(torch.cat(all_logits), labels, loss)
-        # one all-reduce per dtype; the loss in its own dtype, then rounded as one process rounds it
-        par.average_([*grads, loss, metrics["Acc@1"], metrics["Acc@5"]], "grad")
+        stats = [loss, metrics["Acc@1"], metrics["Acc@5"]]
+        heads = par.axis_size("model")
+        if bands == heads == 1:
+            # one all-reduce per dtype; the loss in its own dtype, then rounded as one process rounds it
+            par.average_([*grads, *stats], "grad")
+        else:
+            # the bands' shares summed and the data ranks averaged; a replicated parameter's copies on the model
+            # ranks averaged too (the same gradient, which the card's non-deterministic kernels round apart), so
+            # every rank applies the same bits; the metrics are the data ranks'
+            shards = {id(p) for n, p in model.named_parameters() if n in tp.sharded(model)}
+            par.average_([g for p, g in zip(params, grads) if id(p) not in shards], "grad", axis="world",
+                         count=par.data_count() * heads)
+            par.average_([g for p, g in zip(params, grads) if id(p) in shards], "grad", axis="data_spatial",
+                         count=par.data_count())
+            par.average_(stats, "grad")
         metrics["loss"] = loss.to(torch.float32)
         return metrics, params, grads, loss_state
 
@@ -461,7 +563,7 @@ def build_train_step(
             # on the whole batch, before the split: the partner of sample i is B-1-i of the whole batch
             with torch.no_grad():
                 images, labels = mixup_fn(state.generator, images, labels)
-        if state.generator is not None and process_index() > 0:
+        if state.generator is not None and par.data_index() > 0:
             # dropout and drop-path draw from this rank's own stream; the mixup draws above are every rank's
             state.generator.manual_seed(step_seed(par.rank_seed(state.seed), state.step))
         images = par.microbatch_rows(images, accumulate_steps)
@@ -477,7 +579,8 @@ def build_train_step(
             # saved p, copied back, since p + eps - eps need not be p in floating point
             with torch.no_grad():
                 saved = _snapshot(params)
-                perturb(model, params, grads)
+                with tp.reductions(model, opt):
+                    perturb(model, params, grads)
                 if keep_buffers:
                     after = _snapshot(list(model.buffers()))  # the clean pass's, which the step keeps
                     _restore(list(model.buffers()), before)
@@ -489,21 +592,28 @@ def build_train_step(
                 _restore(params, saved)
                 if keep_buffers:
                     _restore(list(model.buffers()), after)
-        if grad_transform is not None:
-            # before grad_norm and before the optimizer adds the weight decay, as the JAX step and optax order them
+        # a head-TP shard's reductions over its classes take the other shards' share (parallel/tp.py)
+        with tp.reductions(model, opt):
+            if grad_transform is not None:
+                # before grad_norm and before the optimizer adds the weight decay, as the JAX step and optax order them
+                with torch.no_grad():
+                    grad_transform(model, params, grads)
+            grad_norm = torch.nn.utils.get_total_norm(grads)
+            lr = lr_schedule(state.step)
+            # the schedule at the optimizer's own count of applied updates, where it keeps one (a skipping
+            # optimizer: JAX's tx reads its inner count, which a skipped update does not advance)
+            update_lr = lr_schedule(opt.update_count) if hasattr(opt, "update_count") else lr
+            for group in opt.param_groups:
+                group["lr"] = update_lr
+            opt.step()
+            if post_step_transform is not None:
+                with torch.no_grad():
+                    post_step_transform(model)
+        if par.axis_size("model") > 1:
+            # every model rank takes the same statistics of the same rows, which the card's kernels (cuDNN's
+            # algorithms are chosen per process) round apart: the buffers averaged, the same on every rank
             with torch.no_grad():
-                grad_transform(model, params, grads)
-        grad_norm = torch.nn.utils.get_total_norm(grads)
-        lr = lr_schedule(state.step)
-        # the schedule at the optimizer's own count of applied updates, where it keeps one (a skipping
-        # optimizer: JAX's tx reads its inner count, which a skipped update does not advance)
-        update_lr = lr_schedule(opt.update_count) if hasattr(opt, "update_count") else lr
-        for group in opt.param_groups:
-            group["lr"] = update_lr
-        opt.step()
-        if post_step_transform is not None:
-            with torch.no_grad():
-                post_step_transform(model)
+                par.average_([b for b in model.buffers() if b.is_floating_point()], "buffers", axis="model")
         if ema_decay:
             with torch.no_grad():
                 ema_t = list(state.ema.state_dict().values())
@@ -528,7 +638,7 @@ def build_eval_step(
         model = state.ema if (use_ema and state.ema is not None) else state.model
         model.eval()
         with torch.no_grad():
-            logits = model(batch["image"].to(input_dtype))
+            logits = spatial.forward(model, batch["image"].to(input_dtype))
             labels = batch["label"]
             if "mask" not in batch:
                 loss, _ = call_criterion(criterion, logits, labels, state.loss_state)

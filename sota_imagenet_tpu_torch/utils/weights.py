@@ -473,15 +473,17 @@ def apply_sigmoid_trick(model: torch.nn.Module, num_classes: Optional[int] = Non
     ``bias`` of width ``num_classes`` in the model's order (a CModel's
     ``nn.Linear`` head). In place; returns the names it set."""
     plan = _plan(model)
+    whole = getattr(model, "_tp", {})  # a head-TP shard: the width is the whole head's (parallel/tp.py)
+    width = lambda n, p: whole.get(n, (0, p.shape[0]))[1]  # noqa: E731
     named = [(n, p) for n, p in model.named_parameters() if p.dim() == 1]
     hits = [n for n, _ in named if plan[n][1].split("/")[-2:] == ["fc", "bias"]]
     if not hits and num_classes is not None:
-        hits = [n for n, p in named if plan[n][1].split("/")[-1] == "bias" and p.shape[0] == num_classes][-1:]
+        hits = [n for n, p in named if plan[n][1].split("/")[-1] == "bias" and width(n, p) == num_classes][-1:]
     if not hits:
         raise ValueError("sigmoid_trick: no fc/bias leaf found in params (classifier must be "
                          "named 'fc' with a bias, or pass num_classes for the fallback)")
     params = dict(model.named_parameters())
     with torch.no_grad():
         for n in hits:
-            params[n].fill_(-float(np.log(max(params[n].shape[0] - 1, 1))))
+            params[n].fill_(-float(np.log(max(width(n, params[n]) - 1, 1))))
     return hits

@@ -120,7 +120,10 @@ def test_main_defaults_to_cuda():
 
 @pytest.mark.parametrize("override", ["mesh.spatial=2", "mesh.model=2"])
 def test_unported_options_raise(override, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # both axes are ported (parallel/spatial.py, parallel/tp.py): one process cannot hold a mesh of two
+    # ranks, and the CLI raises the JAX create_mesh's error (tests/test_torch_spatial.py and
+    # tests/test_torch_tp.py train with them on two ranks)
+    with pytest.raises(ValueError, match=r"1 devices not divisible by spatial\*model=2"):
         cli.main(["-c", CONFIG, *OVERRIDES, override, f"log.dir={tmp_path}"], device="cpu")
 
 

@@ -101,7 +101,6 @@ def _build_model_and_optimizer(path):
     from sota_imagenet_tpu_torch.utils.misc import filter_from_weight_decay
 
     cfg = TC.load(path, strict_env=False)
-    cli.reject_unported(cfg)
     model = cli.build_model(cfg)
     mask = filter_from_weight_decay(model.named_parameters(), cfg.filter_from_wd) if cfg.filter_from_wd is not None else None
     build_optimizer(dict(cfg.optim), model.named_parameters(), wd_mask=mask)

@@ -337,3 +337,26 @@ def test_unknown_remat_value_raises(value):
         steps.remat_policy(value)
     with pytest.raises(ValueError, match="run.remat"):
         steps.build_train_step(CrossEntropyLoss(), remat=value)
+
+
+def test_each_block_is_recomputed_just_before_its_own_backward():
+    """The segments are per unit (``steps.remat_segments``): in the backward,
+    block k runs again after block k+1's backward and before its own, once."""
+    torch.manual_seed(0)
+    state = _port_state(resnet18(num_classes=CLASSES), torch.float32)
+    blocks = [s for s in steps.remat_segments(state.model) if type(s).__name__ == "BasicBlock"]
+    assert len(blocks) == 8 and type(steps.remat_segments(state.model)[0]).__name__ == "Conv"
+    events = []
+    for k, block in enumerate(blocks):
+        block.conv1.register_forward_pre_hook(
+            lambda m, a, k=k: events.append(("recompute", k)) if torch._C._current_graph_task_id() != -1 else None)
+        block.register_full_backward_hook(lambda m, gi, go, k=k: events.append(("backward", k)))
+    images, labels = _batch()
+    step = steps.build_train_step(CrossEntropyLoss(smoothing=0.1), lambda s: LR, remat="full", input_dtype=torch.float32)
+    step(state, {"image": torch.from_numpy(images).float(), "label": torch.from_numpy(labels).float()})
+    for k in range(len(blocks)):
+        assert events.count(("recompute", k)) == 1 and events.count(("backward", k)) == 1, events
+        assert events.index(("recompute", k)) < events.index(("backward", k))
+        if k + 1 < len(blocks):
+            assert events.index(("recompute", k)) > events.index(("backward", k + 1)), events
+
