@@ -10,8 +10,8 @@ Phases (each runs even if an earlier one failed, except that nothing runs
 without a build; any failure exits non-zero and prints no result). They run
 in this order: build, kernels, trainer A, then learn in a process of its
 own beside the phases that check values and time nothing (the model phases,
-model_ddp, model_mesh, wheel, serve, and the soak's processes from the
-start), then the other trainers (U and V after P1), bench_models, the data
+model_ddp, model_mesh, wheel, serve, resume, and the soak's processes from
+the start), then the other trainers (U and V after P1), bench_models, the data
 phases and A's profile.
 
 1. build   — compile every CUDA library of the port from ``csrc/`` with nvcc,
@@ -60,7 +60,9 @@ phases and A's profile.
              AdaCos three with its state (losses_model_phase). The CPU
              steps of the phases built on _card_vs_cpu_step(s) (bresnet,
              bnet, zoo, sam, these two and model_legacy) run PyTorch's own
-             convs, not oneDNN's (cpu_reference).
+             convs, not oneDNN's (cpu_reference); the card's, through
+             model_mesh, cuDNN's heuristic picks, not its autotuner's
+             (_deterministic_cudnn).
 3b. model_legacy — one f32 step on the card against the CPU of each legacy
              architecture with its config's optimizer, SiLU activations,
              64 px, batch 8: exp48's BNet trunk at full width (one block a
@@ -271,7 +273,9 @@ phases and A's profile.
              offline, installed with pip --target outside it, imported by a
              fresh interpreter that has no directory of the checkout on its
              path, which builds fused_aug from the wheel's csrc/ and holds
-             one launch against its plain version.
+             one launch against its plain version; then the installed
+             sota-train-torch console script trains tiny_synthetic for one
+             debug epoch on the card and exits 0.
 22a'. trainers U and V — r50_baseline at full width through cli.main as two
              gloo ranks on the card with trainer P's batch on one data rank
              (trainer_mesh_phase): U with mesh.spatial=2 (a 112-row band of
@@ -290,6 +294,16 @@ phases and A's profile.
              inside their programs (within 1e-4 of the wrapped live
              modules); no custom op in any program (fused_stats too); no
              kernel of the port launched.
+22b'. resume — trainer A's model_last.ckpt (SGD, step 10) resumed through
+             cli.main under AdamW for one debug epoch (resume_phase): the
+             weights bit for bit the checkpoint's at the first step, a fresh
+             AdamW and step 0 (the JAX restore's params-only fallback), 10
+             fused_aug launches, a finite loss; the same file under SGD
+             restores the step and every momentum buffer bit for bit. Then
+             how long a save holds its caller with the background write
+             beside a synchronous save of the same payload (model.ckpt,
+             model_last.ckpt), and how long trainer A's CheckpointSaver held
+             its epoch loop (saver_timing); reported, not checked.
 22c. soak — tools/soak.py with debug=true: configs/tpu_soak.yaml killed
              with SIGKILL once its checkpoint holds epoch 1, resumed with
              run.auto_resume=true at that epoch to the end across the
@@ -3404,7 +3418,10 @@ def wheel_phase(gpu: str) -> dict:
     directory, then a fresh interpreter that has that directory on its path
     and no directory of the checkout imports the port, builds fused_aug from
     the wheel's own csrc/ and launches it on the card against its plain
-    version (bit for bit)."""
+    version (bit for bit); then the installed ``sota-train-torch`` console
+    script trains tiny_synthetic for one debug epoch on the card and must
+    exit 0 with its model_last.ckpt written."""
+    import glob
     import shutil
     import subprocess
     import zipfile
@@ -3431,20 +3448,33 @@ def wheel_phase(gpu: str) -> dict:
                        capture_output=True, text=True, timeout=300)
         proc = subprocess.run([sys.executable, "-c", WHEEL_CHECK], cwd=work, env={**env, "PYTHONPATH": site},
                               capture_output=True, text=True, timeout=600)
-        site = os.path.realpath(site)
         if proc.returncode != 0:
             raise AssertionError(f"wheel: the installed port failed:\n{proc.stdout}\n{proc.stderr}")
         got = json.loads(proc.stdout.strip().splitlines()[-1])
+        # the installed console script trains tiny_synthetic for one debug epoch on the card
+        logs, t1 = os.path.join(work, "logs"), time.perf_counter()
+        script = subprocess.run([os.path.join(site, "bin", "sota-train-torch"), "-c", os.path.join(repo, "configs",
+                                 "tiny_synthetic.yaml"), "log.tensorboard=false", f"log.dir={logs}",
+                                 "run.stages=[{start: 0, end: 1, lr: [0.05, 0]}]"], cwd=work,
+                                env={**env, "PYTHONPATH": site}, capture_output=True, text=True, timeout=600)
+        script_result = {"rc": script.returncode, "seconds": time.perf_counter() - t1,
+                         "on_the_card": "| device: cuda" in script.stdout + script.stderr,
+                         "model_last": len(glob.glob(os.path.join(logs, "*", "*", "model_last.ckpt")))}
+        if script.returncode != 0:
+            print(f"[wheel] sota-train-torch:\n{script.stdout[-3000:]}\n{script.stderr[-3000:]}", flush=True)
+        site = os.path.realpath(site)
     result = {"phase": "wheel", "cu_files": cu, "package": got["package"], "build_dir": got["build_dir"],
               "launches": got["launches"], "max_abs_err": got["max_abs_err"],
               "outside_checkout": not got["package"].startswith(repo) and not any(
                   p and os.path.abspath(p).startswith(repo) for p in got["sys_path"]),
-              "seconds": time.perf_counter() - t0, "gpu": gpu}
+              "sota_train_torch": script_result, "seconds": time.perf_counter() - t0, "gpu": gpu}
     print(f"[wheel] {json.dumps(result)}")
     if len(cu) != 4 or result["launches"] != 1 or result["max_abs_err"] != 0.0 or not result["outside_checkout"]:
         raise AssertionError(f"wheel: {result}")
     if not result["build_dir"].startswith(site):
         raise AssertionError(f"wheel: built into {result['build_dir']}, not beside the installed package")
+    if script_result["rc"] != 0 or not script_result["on_the_card"] or script_result["model_last"] != 1:
+        raise AssertionError(f"wheel: the installed sota-train-torch: {script_result}")
     return result
 
 
@@ -4245,6 +4275,129 @@ def soak_phase(gpu: str) -> dict:
     return result
 
 
+RESUME_OPTIM = "optim={_target_: adamw, weight_decay: 0.05}"
+
+
+@contextlib.contextmanager
+def saver_timing():
+    """How long each ``CheckpointSaver.on_epoch_end`` of the runs inside
+    holds the epoch loop, and each ``save_checkpoint`` call in it (wall ms;
+    the second save of an epoch that improves the best waits for the
+    first's write, since one save at most is in flight). The CLI's own
+    save of model_last.ckpt is not among them: ``cli`` binds the function
+    when imported, before the patch."""
+    from sota_imagenet_tpu_torch import cli  # noqa: F401 - imported first, it binds the save itself
+    from sota_imagenet_tpu_torch.train import callbacks, checkpoint
+
+    real_end, real_save = callbacks.CheckpointSaver.on_epoch_end, checkpoint.save_checkpoint
+    held = {"on_epoch_end_ms": [], "save_call_ms": []}
+
+    def on_epoch_end(self, *a, **kw):
+        t0 = time.perf_counter()
+        real_end(self, *a, **kw)
+        held["on_epoch_end_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def save(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_save(*a, **kw)
+        held["save_call_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    callbacks.CheckpointSaver.on_epoch_end, checkpoint.save_checkpoint = on_epoch_end, save
+    try:
+        yield held
+    finally:
+        callbacks.CheckpointSaver.on_epoch_end, checkpoint.save_checkpoint = real_end, real_save
+
+
+def resume_phase(gpu: str, ckpt: str, saver_a: dict) -> dict:
+    """Trainer A's ``model_last.ckpt`` (SGD, with the optimizer, step 10)
+    resumed through ``cli.main`` under AdamW (RESUME_OPTIM,
+    ``run.load_start_epoch=false``) for one debug epoch: the restore falls
+    back to the params, as the JAX package's does. Checks: before the first
+    step the weights equal the checkpoint's bit for bit, the optimizer is a
+    fresh AdamW with no state and the step is 0; 10 steps, a finite loss,
+    fused_aug 10 in 10. Then the same file loaded under r50_baseline's SGD
+    restores the step and every momentum buffer bit for bit. Then the saves
+    of that state, timed: for model.ckpt (weights and buffers) and
+    model_last.ckpt (with the optimizer), how long ``save_checkpoint``
+    holds its caller with the background write, the write after it
+    returns, and one synchronous save (``block=True``) of the same payload,
+    with the files' bytes; beside trainer A's CheckpointSaver
+    (saver_timing). The saves write warm, into the page cache of a local
+    temporary directory. The times are reported, not checked."""
+    import torch
+
+    from sota_imagenet_tpu_torch import cli
+    from sota_imagenet_tpu_torch import config as C
+    from sota_imagenet_tpu_torch.train import steps
+    from sota_imagenet_tpu_torch.train.callbacks import Callback
+    from sota_imagenet_tpu_torch.train.checkpoint import finalize_checkpoints, load_checkpoint, save_checkpoint
+
+    disk = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
+
+    class AtBegin(Callback):
+        def on_begin(self):
+            st = self.runner.state
+            self.step, self.optimizer, self.optimizer_state = st.step, type(st.optimizer).__name__, len(st.optimizer.state)
+            mine = st.model.state_dict()
+            self.weights_equal = mine.keys() == disk["model"].keys() and all(
+                torch.equal(v.cpu(), disk["model"][k]) for k, v in mine.items())
+
+        def on_epoch_end(self, epoch, train_metrics, val_metrics):
+            self.loss, self.step_after = train_metrics["loss"], self.runner.state.step
+
+    probe, counters = AtBegin(), kernel_counters()
+    with tempfile.TemporaryDirectory() as logdir:
+        overrides = [*TRAINER_OVERRIDES, RESUME_OPTIM, f"run.resume={ckpt}", "run.load_start_epoch=false",
+                     f"log.dir={logdir}"]
+        for fn in counters.values():
+            fn.launches = 0  # counts from here are this path's
+        t0 = time.perf_counter()
+        val = cli.main(["-c", R50, *overrides], callbacks=[probe])
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+    cfg = C.load(R50, overrides=list(TRAINER_OVERRIDES), strict_env=False)
+    model = cli.build_model(cfg)
+    state, epoch = load_checkpoint(ckpt, steps.init_state(model, cli.optimizer_factory(cfg, model), device="cuda"))
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    saved = disk["optimizer"]["state"]
+    sgd_exact = state.step == disk["step"] and len(saved) == len(params) and all(
+        torch.equal(state.optimizer.state[p]["momentum_buffer"].cpu(), saved[i]["momentum_buffer"])
+        for i, p in enumerate(params))
+    saves = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, with_optimizer in (("model.ckpt", False), ("model_last.ckpt", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(d, state, epoch, name=name, include_optimizer=with_optimizer)
+            t1 = time.perf_counter()
+            finalize_checkpoints()
+            t2 = time.perf_counter()
+            save_checkpoint(d, state, epoch, name=name, include_optimizer=with_optimizer, block=True)
+            t3 = time.perf_counter()
+            saves[name] = {"bytes": os.path.getsize(os.path.join(d, name)), "background_held_ms": (t1 - t0) * 1e3,
+                           "write_after_return_ms": (t2 - t1) * 1e3, "synchronous_ms": (t3 - t2) * 1e3}
+    sgd_step = state.step
+    del state, model
+    result = {"phase": "resume", "optimizer_at_begin": probe.optimizer, "step_at_begin": probe.step,
+              "optimizer_state_at_begin": probe.optimizer_state, "weights_equal_checkpoint": probe.weights_equal,
+              "step_after": probe.step_after, "train_loss": probe.loss, "val": val, "kernel_launches": launches,
+              "wall_s": wall, "sgd_resume_exact": sgd_exact, "sgd_resume_step": sgd_step,
+              "saves": saves, "trainer_a_saver": saver_a, "gpu": gpu}
+    print(f"[resume] {json.dumps(result)}", flush=True)
+    if not (probe.optimizer == "AdamW" and probe.step == 0 and probe.optimizer_state == 0 and probe.weights_equal):
+        raise AssertionError(f"resume: at the first step {probe.optimizer}, step {probe.step}, "
+                             f"{probe.optimizer_state} optimizer states, weights equal {probe.weights_equal}")
+    if probe.step_after != 10 or not math.isfinite(probe.loss) or not all(math.isfinite(v) for v in val.values()):
+        raise AssertionError(f"resume: step {probe.step_after} after the epoch, loss {probe.loss}, val {val}")
+    if launches != {"fused_aug": 10, "conv1x1_stats": 0, "moments": 0}:
+        raise AssertionError(f"resume: kernel launches {launches} in 10 train steps")
+    if not sgd_exact:
+        raise AssertionError("resume: the file under SGD did not restore the step and every momentum buffer")
+    return result
+
+
 class LearnProcess:
     """learn_phase run by this script in a process of its own on the same
     card (``learn_process``), started at once; ``join`` waits for it,
@@ -4307,8 +4460,8 @@ def learn_process() -> int:
 PHASES = ("build", "kernels", "learn", "model", "model_legacy", "model_remat", "model_skip", "model_debug_nans",
           "model_ddp", "trainer_a", "trainer_b", "trainer_c", "trainer_s", "trainer_c_remat", "trainer_d", "trainer_e",
           "trainer_i", "trainer_j", "trainer_k", "trainer_l", "trainer_m", "trainer_n", "trainer_o", "trainer_q",
-          "trainer_r", "trainer_p", "trainer_p1", "model_mesh", "trainer_u", "trainer_v", "wheel", "serve", "soak",
-          "bench_models", "data", "trainer_f", "trainer_t", "trainer_g", "packed", "trainer_h", "profile")
+          "trainer_r", "trainer_p", "trainer_p1", "model_mesh", "trainer_u", "trainer_v", "wheel", "serve", "resume",
+          "soak", "bench_models", "data", "trainer_f", "trainer_t", "trainer_g", "packed", "trainer_h", "profile")
 # the profiler runs inside these trainers from the end of step 1 to the end of step 3 (1-based): steps 2
 # and 3; their ms/step is the median of steps 5-10, the others' of steps 4-10 (trainer_phase; H, of two
 # epochs, is profiled in its first and timed in its second)
@@ -4352,8 +4505,9 @@ def main(argv=None) -> int:
     phases = [p for p in args.phases.split(",") if p]
     if set(phases) - set(PHASES):
         parser.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
-    if "serve" in phases and "trainer_a" not in phases:
-        parser.error("serve exports trainer_a's checkpoint: add trainer_a")
+    for needs_a in ("serve", "resume"):
+        if needs_a in phases and "trainer_a" not in phases:
+            parser.error(f"{needs_a} reads trainer_a's checkpoint: add trainer_a")
 
     import torch
 
@@ -4400,8 +4554,10 @@ def main(argv=None) -> int:
     aug_only = {"fused_aug": 1}
     serve_dir = tempfile.TemporaryDirectory()  # trainer A's checkpoint and serve's artifacts, until bench_models
     trainer_a_ckpt = os.path.join(serve_dir.name, "trainer_a.ckpt")
-    if "trainer_a" in phases:  # alone on the card: the main path's ms/step; serve exports its checkpoint
-        run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only, keep_ckpt=trainer_a_ckpt)
+    saver_a = None
+    if "trainer_a" in phases:  # alone on the card: the main path's ms/step; serve and resume read its checkpoint
+        with saver_timing() as saver_a:
+            run("trainer_a", trainer_phase, "trainer_a", R50, (), gpu, aug_only, keep_ckpt=trainer_a_ckpt)
     # learn trains in a process of its own beside the phases that check values and time nothing: the model
     # phases and the rank drives, then serve (its exports trace on one host core, its checks on the card hold
     # values) with the soak's two processes beside it from the start; all end before anything is timed again
@@ -4415,36 +4571,43 @@ def main(argv=None) -> int:
     if wheel is not None:
         wheel.start()
     try:
-        if "model" in phases:
-            run("model", model_phase)
-            run("model_fused_silu", model_phase, fused_stats=True, norm_act="silu")
-            run("model_fused_relu", model_phase, fused_stats=True, check=False)
-            run("model_nfnet", nfnet_model_phase)
-            run("model_nf_lamb", nf_lamb_model_phase)
-            run("model_nondeep", nondeep_model_phase)
-            run("model_bresnet", bresnet_model_phase)
-            run("model_bresnet_leaky_relu", bresnet_model_phase, norm_act="leaky_relu", check=False)
-            run("model_bnet", bnet_model_phase)
-            run("model_bnet_spectral", bnet_model_phase, spectral=True)
-            run("model_zoo", zoo_model_phase)
-            run("model_sam", sam_model_phase)
-            run("model_cmodel_tables", cmodel_tables_model_phase)
-            run("model_losses", losses_model_phase)
-        if "model_legacy" in phases:
-            run("model_legacy", legacy_model_phase)
-        if "model_remat" in phases:
-            run("model_remat", remat_model_phase)
-        if "model_skip" in phases:
-            run("model_skip", skip_model_phase)
-        if "model_debug_nans" in phases:
-            run("model_debug_nans", debug_nans_model_phase)
-        if "model_ddp" in phases:
-            run("ddp_probe", ddp_probe_phase, gpu)
-            run("model_ddp", model_ddp_phase, gpu)
-        if "model_mesh" in phases:
-            run("model_mesh", mesh_model_phase, gpu)
+        # the phases that hold the card to the CPU run on the algorithms cuDNN's heuristics pick for each
+        # shape, not its autotuner's (trainer A's cli.main turned it on): the autotuner picks by timings that
+        # the processes beside these phases disturb, and in one run its pick left model_cmodel_tables' trunk's
+        # float32 gradients 1.7e-3 off the CPU's (relative L2), where its other picks left them 7e-6 off
+        with _deterministic_cudnn():
+            if "model" in phases:
+                run("model", model_phase)
+                run("model_fused_silu", model_phase, fused_stats=True, norm_act="silu")
+                run("model_fused_relu", model_phase, fused_stats=True, check=False)
+                run("model_nfnet", nfnet_model_phase)
+                run("model_nf_lamb", nf_lamb_model_phase)
+                run("model_nondeep", nondeep_model_phase)
+                run("model_bresnet", bresnet_model_phase)
+                run("model_bresnet_leaky_relu", bresnet_model_phase, norm_act="leaky_relu", check=False)
+                run("model_bnet", bnet_model_phase)
+                run("model_bnet_spectral", bnet_model_phase, spectral=True)
+                run("model_zoo", zoo_model_phase)
+                run("model_sam", sam_model_phase)
+                run("model_cmodel_tables", cmodel_tables_model_phase)
+                run("model_losses", losses_model_phase)
+            if "model_legacy" in phases:
+                run("model_legacy", legacy_model_phase)
+            if "model_remat" in phases:
+                run("model_remat", remat_model_phase)
+            if "model_skip" in phases:
+                run("model_skip", skip_model_phase)
+            if "model_debug_nans" in phases:
+                run("model_debug_nans", debug_nans_model_phase)
+            if "model_ddp" in phases:
+                run("ddp_probe", ddp_probe_phase, gpu)
+                run("model_ddp", model_ddp_phase, gpu)
+            if "model_mesh" in phases:
+                run("model_mesh", mesh_model_phase, gpu)
         if "serve" in phases:
             run("serve", serve_phase, gpu, serve_dir.name, trainer_a_ckpt)
+        if "resume" in phases:
+            run("resume", resume_phase, gpu, trainer_a_ckpt, saver_a)
         if wheel is not None:
             wheel.join()
         if soak is not None:
@@ -4595,6 +4758,7 @@ def main(argv=None) -> int:
     kernels[0]["launches_spatial_two_ranks"] = [r["fused_aug"] for r in results["trainer_u"]["launches_per_rank"]]
     kernels[0]["launches_head_tp_two_ranks"] = [r["fused_aug"] for r in results["trainer_v"]["launches_per_rank"]]
     kernels[0]["launches_installed_wheel"] = results["wheel"]["launches"]
+    kernels[0]["launches_resume_adamw"] = results["resume"]["kernel_launches"]["fused_aug"]
     kernels[1]["launches"] = results["trainer_c"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_remat_full"] = results["trainer_c_remat"]["kernel_launches"]["conv1x1_stats"]
     kernels[1]["launches_per_step_by_remat_policy"] = next(

@@ -2,15 +2,16 @@
 train.py).
 
 Usage:
-    python -m sota_imagenet_tpu_torch.cli -c configs/exp/1.r50_baseline.yaml [key=value ...]
+    python -m sota_imagenet_tpu_torch.cli -c configs/exp/1.r50_baseline.yaml [key=value ...]   (or sota-train-torch)
     python -m sota_imagenet_tpu_torch.cli -c <yaml> run.evaluate=true run.resume=<run_dir>/model_last.ckpt
     torchrun --nproc_per_node=N -m sota_imagenet_tpu_torch.cli [--device cpu] -c <yaml> [mesh.zero1=true] ...
     torchrun --nproc_per_node=2 -m sota_imagenet_tpu_torch.cli -c <yaml> mesh.spatial=2   (or mesh.model=2)
-    python -m sota_imagenet_tpu_torch.cli records packed <data_dir> [--size 224] ...   (records_main)
+    python -m sota_imagenet_tpu_torch.cli records packed <data_dir> [--size 224] ...   (records_main; sota-records-torch)
     python -m sota_imagenet_tpu_torch.cli records resize <data_dir> [--size 512] [--workers N]
     python -m sota_imagenet_tpu_torch.cli records tfrecord <data_dir> [--out DIR] [--workers N]
     python -m sota_imagenet_tpu_torch.cli export -c <yaml> --ckpt <ckpt> --out <dir> [--ema]
-        [--batch poly|N] [--image-size S] [--quantize int8] [--device cpu|cuda] [key=value ...]   (export_main)
+        [--batch poly|N] [--image-size S] [--quantize int8] [--device cpu|cuda] [key=value ...]   (export_main;
+        sota-export-torch)
 
 Mirrors the reference main() flow (reference train.py:22-185): config →
 run dir + git snapshot → model / criterion / optimizer → resume → callbacks
@@ -322,7 +323,7 @@ def main(argv=None, *, device=None, callbacks: Iterable[Callback] = ()):
         log.info(f"Acc@1 {vm.get('Acc@1', 0):.3f} Acc@5 {vm.get('Acc@5', 0):.3f}")
     m = (time.time() - start_time) / 60
     log.info(f"Total time: {int(m / 60)}h {m % 60:.1f}m")
-    save_checkpoint(run_dir, runner.state, data_manager.tot_epochs, name="model_last.ckpt")
+    save_checkpoint(run_dir, runner.state, data_manager.tot_epochs, name="model_last.ckpt", block=True)
     runner.close()
     return vm
 
@@ -432,6 +433,27 @@ def records_main(argv=None):
         crops_per_image=args.crops_per_image,
         full_crop=args.val_full_crop,
     )
+
+
+def train_script() -> int:
+    """The ``sota-train-torch`` console script: ``main`` on the command line.
+    A console script exits with what its function returns, and ``sys.exit``
+    of a non-zero value, such as ``main``'s val metrics, gives status 1: so
+    it returns 0 once ``main`` has returned."""
+    main()
+    return 0
+
+
+def export_script() -> int:
+    """The ``sota-export-torch`` console script: ``export_main``, then 0 (see ``train_script``)."""
+    export_main()
+    return 0
+
+
+def records_script() -> int:
+    """The ``sota-records-torch`` console script: ``records_main``, then 0 (see ``train_script``)."""
+    records_main()
+    return 0
 
 
 if __name__ == "__main__":

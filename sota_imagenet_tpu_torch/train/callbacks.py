@@ -442,7 +442,8 @@ class Timer(Callback):
 class CheckpointSaver(Callback):
     """Save the state each epoch and keep the best by a monitored val metric
     (pytorch_tools CheckpointSaver monitors loss; reference train.py:134).
-    Every rank calls it, and rank 0 writes (``save_checkpoint``)."""
+    Every rank calls it, and rank 0 writes in the background
+    (``save_checkpoint``); ``on_end`` waits for the last write."""
 
     def __init__(
         self,
@@ -477,6 +478,11 @@ class CheckpointSaver(Callback):
             self._best = val
             save_checkpoint(self.save_dir, state, epoch, name="model_best.ckpt", include_optimizer=self.include_optimizer)
             get_logger().info(f"Epoch {epoch:3d} | new best {self.monitor}: {val:.4f}")
+
+    def on_end(self):
+        from sota_imagenet_tpu_torch.train.checkpoint import finalize_checkpoints
+
+        finalize_checkpoints()  # the last save in flight, before the run ends
 
 
 def tensorboard_writer(log_dir: str):

@@ -261,3 +261,6 @@ class Runner:
     def close(self):
         for c in self.callbacks:
             c.on_end()
+        from sota_imagenet_tpu_torch.train.checkpoint import finalize_checkpoints
+
+        finalize_checkpoints()  # any save still in flight

@@ -44,7 +44,7 @@ from sota_imagenet_tpu_torch.models.cmodel import CModel
 from sota_imagenet_tpu_torch.optim import build_optimizer
 from sota_imagenet_tpu_torch.optim.skip_nonfinite import ApplyIfFinite
 from sota_imagenet_tpu_torch.train import callbacks
-from sota_imagenet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from sota_imagenet_tpu_torch.train.checkpoint import finalize_checkpoints, load_checkpoint, save_checkpoint
 from sota_imagenet_tpu_torch.train.loop import Runner
 from sota_imagenet_tpu_torch.train.schedule import phases_from_stages
 from sota_imagenet_tpu_torch.utils.weights import flax_to_torch_model
@@ -213,6 +213,7 @@ def test_counters_survive_a_checkpoint_and_a_resume(tmp_path):
     _, whole = _port_run(3, pattern, None)
     first, part = _port_run(3, pattern[:3], None)
     path = save_checkpoint(str(tmp_path), first.state, 0, name="model.ckpt")
+    finalize_checkpoints()  # the write runs in the background
     disk = torch.load(path, weights_only=True)["state"]["optimizer"]["skip"]
     assert disk == {"notfinite_count": 1, "last_finite": False, "total_notfinite": 2, "update_count": 1}
     resumed = _port_runner(3)
