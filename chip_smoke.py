@@ -130,7 +130,7 @@ phases and A's profile.
              prefetch buffer, is reported): checks as trainer A, 20 augment
              launches, and the val pass scores all 600
              images once (the masked tail: the val batches' ``_weight`` sum
-             to 600). Prints ms/step, img/s, input_utilization, data_time_s,
+             to 600). Prints ms/step, img/s, input_wait_share, data_time_s,
              the decoder's counts, the val pass's wall and the H2D MB per
              batch.
 10b. trainer T — ``records tfrecord`` writes that tree as the reference's
@@ -2609,7 +2609,7 @@ def trainer_phase(
     that JPEG ImageFolder (train and val) instead of synthetic data, for two
     epochs (folder_overrides), and reports the second: every
     val image must be scored once (the sum of the masked val batches'
-    ``_weight``), and it reports the decoder's counts, ``input_utilization``,
+    ``_weight``), and it reports the decoder's counts, ``input_wait_share``,
     ``data_time_s``, the val pass's wall and the bytes copied to the card
     per train batch; the val batches must come in ``val_shapes`` shapes.
     With ``cache`` the tree is a packed one, read through IMAGENET_DIR by a
@@ -2686,7 +2686,7 @@ def trainer_phase(
         "steady_steps": [i + 1 for i in steady],
         "step_ms": probe.step_ms,
         "img_per_s": probe.batch_size / ms_step * 1e3,
-        "input_utilization": probe.train_metrics.get("input_utilization"),
+        "input_wait_share": probe.train_metrics.get("input_wait_share"),
         "data_time_s": probe.train_metrics.get("data_time_s"),
         "epoch_time_s": probe.train_metrics.get("epoch_time_s"),
         "max_memory_allocated_gib": max(getattr(probe, "warm_peak", 0), torch.cuda.max_memory_allocated()) / 2**30,
@@ -2712,7 +2712,7 @@ def trainer_phase(
         result.update({
             "cache_fill_s": first.get("cache_fill_s"),
             "cache_mb": first.get("cache_mb"),
-            "input_utilization_by_epoch": [m.get("input_utilization") for m in probe.train_metrics_by_epoch],
+            "input_wait_share_by_epoch": [m.get("input_wait_share") for m in probe.train_metrics_by_epoch],
             # the index rows, copied once an epoch: the steady state's only H2D traffic
             "h2d_mb_per_train_step": h2d.get("cache_train_bytes", 0) / (2 * steps) / 1e6,
             "h2d_mb_val_per_epoch": h2d.get("cache_val_bytes", 0) / 2 / 1e6,

@@ -9,7 +9,9 @@ of ``sota_imagenet_tpu/data/device_cache.py``:46-558).
 * Every step: the step's row of sample indices (copied to the card once per
   epoch), ``torch.index_select`` of the batch from the cache, and the
   augment ``build_loader`` built (for train, the fused_aug kernel on the
-  card). No host decode and no host-to-device image traffic.
+  card). No host decode and no host-to-device image traffic. Spans
+  (``utils/trace.py``): ``feed.cache_fill``, and ``feed.gather`` and
+  ``feed.augment`` a step.
 
 Sampling, as in the JAX package: each data shard draws its own permutation of
 its resident samples every epoch, from ``np.random.default_rng((0x5EED,
@@ -36,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from sota_imagenet_tpu_torch.utils import trace
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 from sota_imagenet_tpu_torch.parallel.mesh import data_count, data_index, rank_seed
 
@@ -97,14 +100,15 @@ class DeviceCacheFeed:
         if self.images is not None:
             return
         host_loader, self._host = self._host, None
-        t0 = time.perf_counter()
-        if self.fill_chunk_mb > 0:
-            self.fill_mb = self._fill_chunked(host_loader)
-        else:
-            self.fill_mb = self._fill_monolithic(host_loader)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.fill_s = time.perf_counter() - t0
+        with trace.span("feed.cache_fill"):
+            t0 = time.perf_counter()
+            if self.fill_chunk_mb > 0:
+                self.fill_mb = self._fill_chunked(host_loader)
+            else:
+                self.fill_mb = self._fill_monolithic(host_loader)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.fill_s = time.perf_counter() - t0
         mode = f"chunked {self.fill_chunk_mb} MB" if self.fill_chunk_mb > 0 else "monolithic"
         get_logger().info(
             f"Device cache: {self._n_per_shard} x {self._n_data} samples "
@@ -363,9 +367,10 @@ class DeviceCacheFeed:
     def __iter__(self):
         rows = self._to_device(self.index_rows())  # one copy an epoch
         for idx in rows:
-            batch = self.augment(
-                self.generator, torch.index_select(self.images, 0, idx), torch.index_select(self.labels, 0, idx)
-            )
+            with trace.span("feed.gather"):
+                images, labels = torch.index_select(self.images, 0, idx), torch.index_select(self.labels, 0, idx)
+            with trace.span("feed.augment"):
+                batch = self.augment(self.generator, images, labels)
             if not self.is_train:
                 batch["mask"] = torch.index_select(self._valid, 0, idx)
             yield batch

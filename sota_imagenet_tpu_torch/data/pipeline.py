@@ -53,6 +53,7 @@ from sota_imagenet_tpu_torch.data.device_cache import DeviceCacheFeed
 from sota_imagenet_tpu_torch.data.packed import PackedLoader
 from sota_imagenet_tpu_torch.ops.augment import build_train_augment, build_val_augment
 from sota_imagenet_tpu_torch.parallel.mesh import data_count, data_index, rank_seed
+from sota_imagenet_tpu_torch.utils import trace
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 
 # the loaders' shard of the batch is their data rank's (the JAX loaders call these by jax's names)
@@ -439,7 +440,10 @@ class DeviceFeed:
     augment on the current stream as it hands the batch out. The copies of
     the next ``prefetch`` batches are queued before the current batch is
     consumed, so they overlap the device's work on it. ``seed``, with the
-    rank folded in, seeds the augment's generator on the device.
+    rank folded in, seeds the augment's generator on the device. Spans
+    (``utils/trace.py``): ``feed.host_batch`` and ``feed.pin`` on the
+    producer's thread, ``feed.queue_wait``, ``feed.h2d`` and
+    ``feed.augment`` on the consumer's.
 
     A host batch is (images, labels) or (images, labels, third): with the
     loader's ``meta_kind == "resample"`` the third is the per-sample (sh, sw,
@@ -479,9 +483,10 @@ class DeviceFeed:
         return on_device
 
     def _hand_out(self, tensors: tuple, resample: bool) -> dict:
-        if resample:
-            return self.augment(self.generator, *tensors)
-        batch = self.augment(self.generator, *tensors[:2])
+        with trace.span("feed.augment"):
+            if resample:
+                return self.augment(self.generator, *tensors)
+            batch = self.augment(self.generator, *tensors[:2])
         if len(tensors) > 2:  # padded val: the per-sample validity mask
             batch["mask"] = tensors[2]
         return batch
@@ -504,7 +509,12 @@ class DeviceFeed:
 
         def producer():
             try:
-                for item in self.host:
+                items = iter(self.host)
+                while True:
+                    with trace.span("feed.host_batch"):
+                        item = next(items, end)
+                    if item is end:
+                        break
                     images, labels = item[0], item[1]
                     if self.label_divisor > 1:
                         labels = np.where(labels >= 0, labels // self.label_divisor, labels)
@@ -512,7 +522,8 @@ class DeviceFeed:
                     if len(item) > 2:  # int32 resample meta, or the f32 val mask
                         tensors.append(torch.from_numpy(np.ascontiguousarray(item[2])))
                     if pin:
-                        tensors = [t.pin_memory() for t in tensors]
+                        with trace.span("feed.pin"):
+                            tensors = [t.pin_memory() for t in tensors]
                     if not put(tuple(tensors)):
                         return  # consumer abandoned the epoch (e.g. debug mode)
                 put(end)
@@ -525,12 +536,14 @@ class DeviceFeed:
         pending: List[tuple] = []  # device tensors of batches whose copies are queued
         try:
             while True:
-                item = q.get()
+                with trace.span("feed.queue_wait"):
+                    item = q.get()
                 if item is end:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                pending.append(self._to_device(item, copy_stream))
+                with trace.span("feed.h2d"):
+                    pending.append(self._to_device(item, copy_stream))
                 if len(pending) > self.prefetch:
                     # the augment is queued when the batch is handed out: on
                     # the one compute stream it would run in this order anyway,

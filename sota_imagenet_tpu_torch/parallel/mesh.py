@@ -39,7 +39,8 @@ device). Without a process group each of them is the identity of one rank.
 
 ``STATS`` counts each kind of collective and its bytes; with
 ``STATS.timed`` set it also sums their host seconds, each collective
-between two synchronisations of its device.
+between two synchronisations of its device. Each collective is a span
+``collective.<kind>`` (``utils/trace.py``) at the same boundary.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ import torch
 import torch.distributed as dist
 from torch._utils import _unflatten_dense_tensors
 
+from sota_imagenet_tpu_torch.utils import trace
 from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
 
 # torchrun's environment: the counterpart of JAX_COORDINATOR_ADDRESS (cli.py:73-74 of the JAX package)
@@ -256,12 +258,13 @@ class CollectiveStats:
     @contextlib.contextmanager
     def record(self, kind: str, t: torch.Tensor):
         sync = self.timed and t.is_cuda
-        if sync:
-            torch.cuda.synchronize(t.device)
-        t0 = time.perf_counter()
-        yield
-        if sync:
-            torch.cuda.synchronize(t.device)
+        with trace.span(f"collective.{kind}"):
+            if sync:
+                torch.cuda.synchronize(t.device)
+            t0 = time.perf_counter()
+            yield
+            if sync:
+                torch.cuda.synchronize(t.device)
         if self.timed:
             self.seconds[kind] += time.perf_counter() - t0
         self.calls[kind] += 1

@@ -61,6 +61,7 @@ from sota_imagenet_tpu_torch.models.parametrize import (
 )
 from sota_imagenet_tpu_torch.optim.factory import agc
 from sota_imagenet_tpu_torch.train.steps import cutmix_mixup
+from sota_imagenet_tpu_torch.utils import trace
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 from sota_imagenet_tpu_torch.utils.misc import process_count, process_index
 from sota_imagenet_tpu_torch.utils.weights import flax_params, kernel_parameters
@@ -370,7 +371,10 @@ class Profiler(Callback):
     It records the host and, where there is one, the card. Only rank 0
     profiles. The trace is a Chrome trace JSON that TensorBoard's profiler
     plugin reads, ``<log_dir>/<host>_<pid>.<start>-<stop>.pt.trace.json``
-    (``path`` after the stop)."""
+    (``path`` after the stop). Over the window the port's spans
+    (``utils/trace.py``) are on and mirrored into the trace, so it shows
+    the layers (``fit.step``, ``step.forward``, ``feed.augment``, ...); the
+    spans' state before the window is restored after it."""
 
     def __init__(self, log_dir: str = ".", start_step: int = 10, num_steps: int = 5):
         self.log_dir = log_dir
@@ -388,6 +392,7 @@ class Profiler(Callback):
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._prof = torch.profiler.profile(activities=activities)
             self._prof.__enter__()
+            self._spans_before = trace.enable(mirror=True)
         elif step >= self.stop_step and self._prof is not None:
             self._stop()
 
@@ -395,6 +400,7 @@ class Profiler(Callback):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof, self._prof = self._prof, None
+        trace.restore(self._spans_before)
         prof.__exit__(None, None, None)
         os.makedirs(self.log_dir, exist_ok=True)
         name = f"{socket.gethostname()}_{os.getpid()}.{self.start_step}-{self.stop_step}.pt.trace.json"
@@ -421,8 +427,9 @@ class ConsoleLogger(Callback):
 
 
 class Timer(Callback):
-    """Per-epoch wall clock (train + val, ending at the epoch's metric read)
-    and train images/sec (reference Timer, train.py:137)."""
+    """Per-epoch wall clock (train + val, ending at the epoch's metric read),
+    train images/sec (reference Timer, train.py:137) and the share of the
+    epoch the host waited for its input (``input_wait_share``), in %."""
 
     def on_epoch_begin(self, epoch):
         self._t0 = time.time()
@@ -434,9 +441,9 @@ class Timer(Callback):
     def on_epoch_end(self, epoch, train_metrics, val_metrics):
         dt = time.time() - self._t0
         ips = self._images / dt if dt > 0 else 0.0
-        util = train_metrics.get("input_utilization")
-        util_s = f" | host-wait-free {util * 100:.1f}%" if util is not None else ""
-        get_logger().info(f"Epoch {epoch:3d} | {dt:.1f}s | {ips:.1f} img/s{util_s}")
+        wait = train_metrics.get("input_wait_share")
+        wait_s = f" | input wait {wait * 100:.1f}%" if wait is not None else ""
+        get_logger().info(f"Epoch {epoch:3d} | {dt:.1f}s | {ips:.1f} img/s{wait_s}")
 
 
 class CheckpointSaver(Callback):

@@ -24,7 +24,7 @@ from sota_imagenet_tpu_torch.train import steps as steps_lib
 from sota_imagenet_tpu_torch.train.callbacks import Callback
 from sota_imagenet_tpu_torch.train.schedule import make_lr_schedule
 from sota_imagenet_tpu_torch.train.state import TrainState
-from sota_imagenet_tpu_torch.utils import debug_nans
+from sota_imagenet_tpu_torch.utils import debug_nans, trace
 from sota_imagenet_tpu_torch.utils.logging import get_logger
 from sota_imagenet_tpu_torch.utils.misc import resolve_device
 
@@ -205,28 +205,33 @@ class Runner:
             try:
                 i = 0
                 while i < spe:
-                    td = time.perf_counter()
-                    try:
-                        batch = next(it)
-                    except StopIteration:
-                        break
-                    data_time += time.perf_counter() - td
-                    self.state, m = self._train_step(self.state, batch)
+                    unit = self.state.step  # the spans of one step share it
+                    with trace.span("fit.wait_batch", unit):
+                        td = time.perf_counter()
+                        try:
+                            batch = next(it)
+                        except StopIteration:
+                            break
+                        data_time += time.perf_counter() - td
+                    with trace.span("fit.step", unit):
+                        self.state, m = self._train_step(self.state, batch)
                     dev_metrics.append(m)
                     step = int(i + epoch * spe)
-                    for c in self.callbacks:
-                        c.on_batch_end(step, m)
+                    with trace.span("fit.callbacks", unit):
+                        for c in self.callbacks:
+                            c.on_batch_end(step, m)
                     i += 1
             finally:
                 if hasattr(it, "close"):
                     it.close()  # stops the feed's producer when the epoch ends early (debug)
-            self.train_metrics = reduce_metrics(dev_metrics)  # the epoch's single device read
+            with trace.span("fit.epoch_end"):
+                self.train_metrics = reduce_metrics(dev_metrics)  # the epoch's single device read
             wall = time.time() - t0
             self.train_metrics["epoch_time_s"] = wall
             self.train_metrics["data_time_s"] = data_time
-            # HOST-WAIT PROXY, not measured device utilization: 1 - fraction of
-            # the epoch the host spent blocked waiting for the next batch
-            self.train_metrics["input_utilization"] = max(1.0 - data_time / max(wall, 1e-9), 0.0)
+            # the share of the epoch the host spent blocked waiting for its next batch (a host-side
+            # proxy: the device may still be busy with queued steps while the host waits)
+            self.train_metrics["input_wait_share"] = data_time / max(wall, 1e-9)
             if cached and epoch == start_epoch:
                 self.train_metrics["cache_fill_s"] = loader.fill_s
                 self.train_metrics["cache_mb"] = loader.fill_mb

@@ -86,6 +86,13 @@ the update reads the schedule at that count, as the JAX optimizer reads
 its own count, while the ``lr`` metric stays ``lr_schedule(step)``. A
 skipped update still moves the buffers, the criterion's state, the EMA
 and the post-step transform, as the JAX step does.
+
+The train step marks its phases with spans (``utils/trace.py``; nothing
+while tracing is off): ``step.mixup``, ``step.forward`` and
+``step.backward`` for each microbatch (and SAM pass), ``step.grad_sync``
+(the average over the microbatches and the ranks, with the batch's
+metrics), ``step.optimizer`` (gradient transform, norm, update, post-step
+transform) and ``step.ema``.
 """
 
 from __future__ import annotations
@@ -107,6 +114,7 @@ from sota_imagenet_tpu_torch.parallel import mesh as par
 from sota_imagenet_tpu_torch.parallel import spatial, tp
 from sota_imagenet_tpu_torch.train.metrics import accuracy_topk, classification_metrics
 from sota_imagenet_tpu_torch.train.state import TrainState
+from sota_imagenet_tpu_torch.utils import trace
 from sota_imagenet_tpu_torch.utils.weights import flax_ranks, unit_dims
 
 Batch = Dict[str, torch.Tensor]
@@ -525,31 +533,35 @@ def build_train_step(
         # ranks' gradients is the data rank's (a band's convolutions give their share, the head its 1/S)
         bands = par.axis_size("spatial")
         for im, lb in zip(images.split(mb), labels.split(mb)):
-            mb_loss, mb_logits, loss_state = forward_loss(model, im, lb, loss_state, generator)
-            (mb_loss if bands == 1 else mb_loss / bands).backward()  # sums into .grad
+            with trace.span("step.forward"):
+                mb_loss, mb_logits, loss_state = forward_loss(model, im, lb, loss_state, generator)
+            with trace.span("step.backward"):
+                (mb_loss if bands == 1 else mb_loss / bands).backward()  # sums into .grad
             loss_sum = loss_sum + mb_loss.detach()
             all_logits.append(mb_logits.detach())
         params = [p for group in opt.param_groups for p in group["params"]]
         grads = [p.grad for p in params]
-        if accumulate_steps > 1:
-            torch._foreach_div_(grads, float(accumulate_steps))
-        loss = loss_sum / accumulate_steps
-        metrics = classification_metrics(torch.cat(all_logits), labels, loss)
-        stats = [loss, metrics["Acc@1"], metrics["Acc@5"]]
-        heads = par.axis_size("model")
-        if bands == heads == 1:
-            # one all-reduce per dtype; the loss in its own dtype, then rounded as one process rounds it
-            par.average_([*grads, *stats], "grad")
-        else:
-            # the bands' shares summed and the data ranks averaged; a replicated parameter's copies on the model
-            # ranks averaged too (the same gradient, which the card's non-deterministic kernels round apart), so
-            # every rank applies the same bits; the metrics are the data ranks'
-            shards = {id(p) for n, p in model.named_parameters() if n in tp.sharded(model)}
-            par.average_([g for p, g in zip(params, grads) if id(p) not in shards], "grad", axis="world",
-                         count=par.data_count() * heads)
-            par.average_([g for p, g in zip(params, grads) if id(p) in shards], "grad", axis="data_spatial",
-                         count=par.data_count())
-            par.average_(stats, "grad")
+        # the gradients' average over the microbatches and over the ranks, with the batch's metrics
+        with trace.span("step.grad_sync"):
+            if accumulate_steps > 1:
+                torch._foreach_div_(grads, float(accumulate_steps))
+            loss = loss_sum / accumulate_steps
+            metrics = classification_metrics(torch.cat(all_logits), labels, loss)
+            stats = [loss, metrics["Acc@1"], metrics["Acc@5"]]
+            heads = par.axis_size("model")
+            if bands == heads == 1:
+                # one all-reduce per dtype; the loss in its own dtype, then rounded as one process rounds it
+                par.average_([*grads, *stats], "grad")
+            else:
+                # the bands' shares summed and the data ranks averaged; a replicated parameter's copies on the
+                # model ranks averaged too (the same gradient, which the card's non-deterministic kernels round
+                # apart), so every rank applies the same bits; the metrics are the data ranks'
+                shards = {id(p) for n, p in model.named_parameters() if n in tp.sharded(model)}
+                par.average_([g for p, g in zip(params, grads) if id(p) not in shards], "grad", axis="world",
+                             count=par.data_count() * heads)
+                par.average_([g for p, g in zip(params, grads) if id(p) in shards], "grad", axis="data_spatial",
+                             count=par.data_count())
+                par.average_(stats, "grad")
         metrics["loss"] = loss.to(torch.float32)
         return metrics, params, grads, loss_state
 
@@ -561,7 +573,7 @@ def build_train_step(
         images, labels = batch["image"], batch["label"]
         if mixup_fn is not None:
             # on the whole batch, before the split: the partner of sample i is B-1-i of the whole batch
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("step.mixup"):
                 images, labels = mixup_fn(state.generator, images, labels)
         if state.generator is not None and par.data_index() > 0:
             # dropout and drop-path draw from this rank's own stream; the mixup draws above are every rank's
@@ -593,7 +605,7 @@ def build_train_step(
                 if keep_buffers:
                     _restore(list(model.buffers()), after)
         # a head-TP shard's reductions over its classes take the other shards' share (parallel/tp.py)
-        with tp.reductions(model, opt):
+        with tp.reductions(model, opt), trace.span("step.optimizer"):
             if grad_transform is not None:
                 # before grad_norm and before the optimizer adds the weight decay, as the JAX step and optax order them
                 with torch.no_grad():
@@ -615,7 +627,7 @@ def build_train_step(
             with torch.no_grad():
                 par.average_([b for b in model.buffers() if b.is_floating_point()], "buffers", axis="model")
         if ema_decay:
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("step.ema"):
                 ema_t = list(state.ema.state_dict().values())
                 new_t = list(model.state_dict().values())
                 # e * decay + p * (1 - decay), over params and BN buffers

@@ -25,6 +25,7 @@ dali_dataloader.py:27-29), so a server needs only decode and resize.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import os
 from typing import Callable, Dict, Mapping, Optional, Tuple
@@ -35,6 +36,7 @@ from torch import nn
 
 from sota_imagenet_tpu_torch.constants import DATA_MEAN, DATA_STD
 from sota_imagenet_tpu_torch.models.parametrize import ParametrizedModel
+from sota_imagenet_tpu_torch.utils import trace
 from sota_imagenet_tpu_torch.utils.misc import resolve_device
 from sota_imagenet_tpu_torch.utils.weights import kernel_parameters, unit_dims
 
@@ -232,7 +234,10 @@ def load_exported(out_dir: str, device=None) -> Tuple[Callable[[torch.Tensor], t
     Runs on the card unless ``device`` says otherwise (raising without a
     GPU); a program traced on another device is moved to this one
     (``move_to_device_pass``). The weights are read, dequantized and put on
-    the device once, here. ``serve`` takes a uint8 NHWC tensor or array."""
+    the device once, here. ``serve`` takes a uint8 NHWC tensor or array.
+    Each call is a span ``serve.request`` (``utils/trace.py``; its unit the
+    request's number) holding ``serve.h2d``, the images' copy to the device,
+    and ``serve.program``, the program's call."""
     device = resolve_device(device)
     with open(os.path.join(out_dir, "meta.json")) as f:
         meta = json.load(f)
@@ -244,8 +249,13 @@ def load_exported(out_dir: str, device=None) -> Tuple[Callable[[torch.Tensor], t
     module = program.module()
     params = {k: _served_layout(v.to(device)) for k, v in load_params(os.path.join(out_dir, "params.npz")).items()}
 
+    requests = itertools.count()
+
     def serve(images_u8) -> torch.Tensor:
-        with torch.no_grad():
-            return module(params, torch.as_tensor(images_u8).to(device))
+        with torch.no_grad(), trace.span("serve.request", next(requests)):
+            with trace.span("serve.h2d"):
+                images = torch.as_tensor(images_u8).to(device)
+            with trace.span("serve.program"):
+                return module(params, images)
 
     return serve, meta

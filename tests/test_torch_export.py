@@ -11,7 +11,9 @@ served at 1, 3 and 5, and wrapped in the spectral norm (with its u/v state)
 or in weight standardisation. int8: the JAX ``_save_tree``/``_load_tree``
 dequantized weights, in the port's layout, equal the port's bit for bit in
 float32 (float32 and bfloat16 trees, a model with ECA's kernel), and the
-JAX int8 artifact and the port's serve the same logits within 1e-5."""
+JAX int8 artifact and the port's serve the same logits within 1e-5. With
+tracing on, a served request is a span ``serve.request`` holding
+``serve.h2d`` and ``serve.program``."""
 
 import json
 import os
@@ -31,6 +33,7 @@ from sota_imagenet_tpu_torch import config as TC
 from sota_imagenet_tpu_torch.models import parametrize as TP
 from sota_imagenet_tpu_torch.models.cmodel import CModel
 from sota_imagenet_tpu_torch.utils import export as TE
+from sota_imagenet_tpu_torch.utils import trace
 from sota_imagenet_tpu_torch.utils.weights import flax_to_torch_model
 
 CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
@@ -120,11 +123,22 @@ def test_artifact_serves_the_jax_logits(tmp_path, case):
     serve, meta = TE.load_exported(out, device="cpu")
     assert meta["image_size"] == SIZE and meta["batch_size"] == batch and meta["input_dtype"] == "float32"
     assert meta["traced_on"] == "cpu" and set(meta["platforms"]) == {"cpu", "cuda"}
-    for n in ((4,) if batch else (1, 3, 5)):
+    sizes = (4,) if batch else (1, 3, 5)
+    for n in sizes:
         images = _images(n, seed=n)
         got = serve(images)
         assert got.dtype == torch.float32 and tuple(got.shape) == (n, 10)
         _close(got, _jax_logits(jmodel, variables, images))
+    # a request is a span holding its copy to the device and the program's call; its unit counts the requests
+    trace.enable()
+    try:
+        serve(_images(sizes[0]))
+    finally:
+        trace.disable()
+    spans = trace.take()
+    (request,) = [s for s in spans if s.name == "serve.request"]
+    inner = sorted((s.name, s.unit) for s in spans if s.parent == request.id)
+    assert request.unit == len(sizes) and inner == [("serve.h2d", len(sizes)), ("serve.program", len(sizes))]
     program = torch.export.load(os.path.join(out, "model.pt2"))
     assert TE.custom_ops(program) == []
     if wrap:  # the raw kernels are stored; the parametrization runs inside the program
