@@ -434,7 +434,7 @@ def host_us(fn, calls: int = 200) -> float:
     return seconds / calls * 1e6
 
 
-MODULES = ("fused_aug", "conv_stats", "moments")  # under sota_imagenet_tpu_torch.ops, one library each
+MODULES = ("fused_aug", "conv_stats", "moments", "nf_fused")  # under sota_imagenet_tpu_torch.ops, one library each
 
 
 def build_phase() -> dict:
@@ -780,6 +780,221 @@ def moments_phase() -> dict:
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
         "library_ms": main["library_ms"],  # torch.var_mean(x, (0, 1, 2), correction=0), its kernels' device time
+        "cases": cases,
+    }
+
+
+def _nf_sites(batch: int = 2) -> dict:
+    """The nf_fused calls of one train forward of eca_nfnet_l0 at 224 px, by
+    shape: {"act": {(C, H, W, has bias): calls}, "tail": {(C, H, W, ECA):
+    calls}, "ws": [[(weight, scale, eps), ...] of each nf_ws call]}, the
+    weights as initialised, recorded by spies on a small batch on the card,
+    as the main path calls them."""
+    import torch
+
+    from sota_imagenet_tpu_torch.models import nfnet
+    from sota_imagenet_tpu_torch.ops import nf_fused
+
+    sites = {"act": {}, "tail": {}, "ws": []}
+    real = nf_fused.nf_act, nf_fused.nf_tail, nf_fused.nf_ws
+
+    def act(x, bias, scale):
+        key = (*x.shape[1:], bias is not None)
+        sites["act"][key] = sites["act"].get(key, 0) + 1
+        return real[0](x, bias, scale)
+
+    def tail(h, bias, shortcut, eca_weight, *a):
+        key = (*h.shape[1:], eca_weight is not None)
+        sites["tail"][key] = sites["tail"].get(key, 0) + 1
+        return real[1](h, bias, shortcut, eca_weight, *a)
+
+    def ws(convs, dtype):
+        sites["ws"].append([(w.detach().clone(), scale, eps) for w, _, scale, eps in convs])
+        return real[2](convs, dtype)
+
+    model = nfnet.eca_nfnet_l0(drop_path_rate=0.15, dtype=torch.bfloat16)
+    model = model.to(device="cuda", memory_format=torch.channels_last).train()
+    nf_fused.nf_act, nf_fused.nf_tail, nf_fused.nf_ws = act, tail, ws
+    try:
+        model(torch.zeros((batch, 224, 224, 3), device="cuda")).sum().backward()
+    finally:
+        nf_fused.nf_act, nf_fused.nf_tail, nf_fused.nf_ws = real
+    return sites
+
+
+def _one_ulp_over(got, want32, mag, rel: float = 2.0**-20) -> float:
+    """The largest |got - want32| over one bf16 ulp of ``want32`` plus ``rel``
+    of ``mag`` (tests/test_torch_nf_fused_cuda.py's tolerance): at most 1
+    where bf16 ``got`` is the float32 ``want32`` rounded once."""
+    import torch
+
+    want32 = want32.float()
+    exp = torch.floor(torch.log2(want32.abs().clamp_min(2.0**-126)))
+    ulp = torch.exp2(exp - 7) + rel * mag.float()
+    return float(((got.float() - want32).abs() / ulp).max())
+
+
+def _sum_over(got, want) -> float:
+    """The largest |got - want| over 1e-4 of |want| plus 1e-4 of the largest |want| (float32 sums in
+    another order; the card tests' tolerance): at most 1 where they agree."""
+    want = want.to(got.dtype)
+    return float(((got - want).abs() / (1e-4 * want.abs() + 1e-4 * float(want.abs().max()) + 1e-30)).max())
+
+
+def nf_fused_phase() -> dict:
+    """nf_fused's kernels on the card at every distinct shape one train step
+    of eca_nfnet_l0 gives them (_nf_sites), batch 256: ``nf_act``,
+    ``nf_tail`` and ``nf_ws``, forward and backward through their autograd
+    Functions, against their plain versions (``nf_*_reference``): bf16
+    outputs within one bf16 ulp of the plain float32 result rounded once,
+    float32 sums within 1e-4 (tests/test_torch_nf_fused_cuda.py's
+    tolerances); a dropped sample's output exactly its shortcut. Each
+    kernel's device time (the profiler), its bound (bytes once at 3.35
+    TB/s) and the plain version's time on the card, summed over a train step
+    (two microbatches of 256)."""
+    import torch
+
+    from sota_imagenet_tpu_torch.ops import nf_fused
+
+    batch, microbatches, scale = 256, 2, 1.7881293296813965
+    sites = _nf_sites()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def nhwc(c, h, w, std=1.0):
+        x = torch.randn((batch, h, w, c), generator=gen, device="cuda") * std
+        return x.to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    cases, worst = [], {"ulps": 0.0, "sums": 0.0}
+
+    def check(case, ulps, sums):
+        case["ulps_over_tol"], case["sums_over_tol"] = ulps, sums
+        worst["ulps"], worst["sums"] = max(worst["ulps"], ulps), max(worst["sums"], sums)
+        print(f"[kernels] nf_fused {json.dumps(case)}", flush=True)
+        if ulps > 1.0 or sums > 1.0:
+            raise AssertionError(f"nf_fused disagrees with its plain version: {case}")
+        cases.append(case)
+
+    for (c, h, w, has_bias), calls in sorted(sites["act"].items()):
+        x = nhwc(c, h, w, 2.0).requires_grad_()
+        bias = torch.randn(c, generator=gen, device="cuda").requires_grad_() if has_bias else None
+        dy = nhwc(c, h, w)
+        y = nf_fused.nf_act(x, bias, scale)
+        dx, db = torch.autograd.grad(y, [x] if bias is None else [x, bias], dy) + ((None,) if bias is None else ())
+        xf = x.detach().float()
+        b = None if bias is None else bias.detach()
+        z_mag = xf.abs() + (0.0 if b is None else b.abs().view(1, -1, 1, 1))
+        want_dx, want_db = nf_fused.nf_act_grad_reference(dy.float(), xf, b, scale)
+        ulps = max(_one_ulp_over(y, nf_fused.nf_act_reference(xf, b, scale), scale * z_mag),
+                   _one_ulp_over(dx, want_dx, dy.float().abs() * scale * (1.0 + z_mag)))
+        sums = 0.0 if b is None else _sum_over(db, want_db)
+        xd = x.detach().contiguous(memory_format=torch.channels_last)
+        dyc = dy.contiguous(memory_format=torch.channels_last)
+        n = batch * c * h * w
+        case = {"kernel": "nf_act", "shape": [batch, c, h, w], "bias": has_bias, "calls_per_microbatch": calls,
+                "fwd_ms": device_ms(lambda: nf_fused._act_kernel(xd, b, scale)),
+                "bwd_ms": device_ms(lambda: nf_fused._act_grad_kernel(dyc, xd, b, scale)),
+                "bound_fwd_ms": 4 * n / HBM_BYTES_PER_S * 1e3, "bound_bwd_ms": 6 * n / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": median_ms(lambda: (nf_fused.nf_act_reference(xd, b, scale),
+                                               nf_fused.nf_act_grad_reference(dyc, xd, b, scale)), 3, 2, warmup=1)}
+        check(case, ulps, sums)
+        del x, y, dx, dy, xd, dyc, xf, z_mag, want_dx
+    for (c, h, w, eca), calls in sorted(sites["tail"].items()):
+        hh, sc, dy = nhwc(c, h, w).requires_grad_(), nhwc(c, h, w).requires_grad_(), nhwc(c, h, w)
+        bias = (torch.randn(c, generator=gen, device="cuda") * 0.2).requires_grad_()
+        taps = torch.randn((1, 1, 3), generator=gen, device="cuda").requires_grad_() if eca else None
+        gain = torch.full((), 0.5, device="cuda", requires_grad=True)
+        mask = torch.rand(batch, generator=gen, device="cuda") < 0.85
+        mask[0], mask[-1] = True, False
+        k = 0.2 * (2.0 if eca else 1.0) / 0.85
+        leaves = [t for t in (hh, bias, sc, taps, gain) if t is not None]
+        out = nf_fused.nf_tail(hh, bias, sc, taps, gain, mask, k)
+        grads = dict(zip(("dh", "db", "dsc", "dw", "dgain") if eca else ("dh", "db", "dsc", "dgain"),
+                         torch.autograd.grad(out, leaves, dy)))
+        hf, scf = hh.detach().float(), sc.detach().float()
+        tp = None if taps is None else taps.detach()
+        want, want_m = nf_fused.nf_tail_reference(hf, bias.detach(), scf, tp, gain.detach(), mask, k)
+        wdh, wdb, wdw, wdgain = nf_fused.nf_tail_grad_reference(dy.float(), hf, bias.detach(), want_m, tp,
+                                                                gain.detach(), mask, k)
+        if not (torch.equal(out[~mask], sc.detach()[~mask]) and torch.equal(grads["dsc"], dy)):
+            raise AssertionError(f"nf_tail at {[batch, c, h, w]}: a dropped sample is not its shortcut, or the "
+                                 "shortcut's gradient is not dy")
+        kmax = k * 0.5
+        mag = scf.abs() + kmax * (hf.abs() + bias.detach().abs().view(1, -1, 1, 1))
+        ulps = max(_one_ulp_over(out[mask], want[mask], mag[mask]),
+                   _one_ulp_over(grads["dh"][mask], wdh[mask], (dy.float().abs() * kmax + wdh.abs())[mask], 1e-4))
+        sums = max(_sum_over(grads["db"], wdb), _sum_over(grads["dgain"], wdgain),
+                   _sum_over(grads["dw"], wdw) if eca else 0.0)
+        hd, scd = hh.detach(), sc.detach()
+        b, g = bias.detach(), gain.detach().reshape(1)
+        m = nf_fused._tail_kernel(hd, b, scd, tp, g, mask, k)[1]
+        n = batch * c * h * w
+        case = {"kernel": "nf_tail", "shape": [batch, c, h, w], "eca": eca, "calls_per_microbatch": calls,
+                "fwd_ms": device_ms(lambda: nf_fused._tail_kernel(hd, b, scd, tp, g, mask, k)),
+                "bwd_ms": device_ms(lambda: nf_fused._tail_grad_kernel(dy, hd, b, m, tp, g, mask, k)),
+                "bound_fwd_ms": ((2 if eca else 0) + 6) * n / HBM_BYTES_PER_S * 1e3,
+                "bound_bwd_ms": 8 * n / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": median_ms(lambda: (nf_fused.nf_tail_reference(hd, b, scd, tp, g, mask, k),
+                                               nf_fused.nf_tail_grad_reference(dy, hd, b, m, tp, g, mask, k)),
+                                      3, 2, warmup=1)}
+        check(case, ulps, sums)
+        del hh, sc, dy, out, grads, hf, scf, want, wdh, mag, hd, scd
+    for group in sites["ws"]:
+        # the model's initial weights, random gains (tests/test_torch_nf_fused_cuda.py's data)
+        shapes = [tuple(w.shape) for w, _, _ in group]
+        wd, scs, epss = [w for w, _, _ in group], [sc for _, sc, _ in group], [eps for _, _, eps in group]
+        ws = [w.clone().requires_grad_() for w in wd]
+        gains = [(torch.rand(s[0], generator=gen, device="cuda") * 2.0 + 0.1).requires_grad_() for s in shapes]
+        dys = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in shapes]
+        ys = nf_fused.nf_ws(list(zip(ws, gains, scs, epss)), torch.bfloat16)
+        got = torch.autograd.grad(ys, [t for pair in zip(ws, gains) for t in pair], dys)
+        gd = [g.detach() for g in gains]
+        ulps = sums = 0.0
+        for j, (w, g, sc_, eps) in enumerate(zip(wd, gd, scs, epss)):
+            var, mean = torch.var_mean(w, dim=(1, 2, 3), keepdim=True, correction=0)
+            a = torch.rsqrt(var + eps) * sc_ * g.view(-1, 1, 1, 1)
+            ulps = max(ulps, _one_ulp_over(ys[j], nf_fused.nf_ws_reference(w, g, sc_, eps), (w.abs() + mean.abs()) * a))
+            want_dw, want_dg = nf_fused.nf_ws_grad_reference(dys[j].float(), w, g, sc_, eps)
+            sums = max(sums, _sum_over(got[2 * j], want_dw), _sum_over(got[2 * j + 1], want_dg))
+        stats = nf_fused._ws_kernel(wd, gd, scs, epss)[1]
+        n = sum(math.prod(s) for s in shapes)
+        case = {"kernel": "nf_ws", "shapes": [list(s) for s in shapes], "calls_per_microbatch": 1,
+                "fwd_ms": device_ms(lambda: nf_fused._ws_kernel(wd, gd, scs, epss)),
+                "bwd_ms": device_ms(lambda: nf_fused._ws_grad_kernel(dys, wd, gd, stats, scs)),
+                "bound_fwd_ms": 6 * n / HBM_BYTES_PER_S * 1e3, "bound_bwd_ms": 10 * n / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": median_ms(lambda: [(nf_fused.nf_ws_reference(w, g, s, e),
+                                                nf_fused.nf_ws_grad_reference(d, w, g, s, e))
+                                               for w, g, s, e, d in zip(wd, gd, scs, epss, dys)], 3, 2, warmup=1)}
+        check(case, ulps, sums)
+
+    def per_step(key, kernel=None):
+        return microbatches * sum(c[key] * c["calls_per_microbatch"] for c in cases
+                                  if kernel is None or c["kernel"] == kernel)
+
+    by_kernel = {}
+    for kernel in ("nf_act", "nf_tail", "nf_ws"):
+        ms = per_step("fwd_ms", kernel) + per_step("bwd_ms", kernel)
+        bound = per_step("bound_fwd_ms", kernel) + per_step("bound_bwd_ms", kernel)
+        by_kernel[kernel] = {"ms": ms, "bound_ms": bound, "bound_share": bound / ms,
+                             "plain_ms": per_step("plain_ms", kernel)}
+    ms = per_step("fwd_ms") + per_step("bwd_ms")
+    bound = per_step("bound_fwd_ms") + per_step("bound_bwd_ms")
+    print(f"[kernels] nf_fused per train step of 2 x 256: {json.dumps(by_kernel)}", flush=True)
+    return {
+        "name": "nf_fused",
+        "route": "cuda",
+        "source": "sota_imagenet_tpu_torch/csrc/nf_fused.cu",
+        "replaces": None,  # no TPU kernel: XLA fuses these chains itself
+        "launches": None,  # set from the main path's run (trainer D)
+        "ulps_over_tol": worst["ulps"],
+        "sums_over_tol": worst["sums"],
+        "ms": ms,  # device time of the kernels of one train step, forward and backward
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "bound_share": bound / ms,
+        "plain_ms": per_step("plain_ms"),
+        "library_ms": None,  # no single PyTorch call computes these chains
+        "by_kernel": by_kernel,
+        "times_are": "sums over one train step of eca_nfnet_l0, two microbatches of 256 at 224 px",
         "cases": cases,
     }
 
@@ -2500,6 +2715,25 @@ def bresnet_checks(model) -> dict:
     }
 
 
+def nf_structural_launches(model, backward: bool = True) -> int:
+    """nf_fused's launches in one forward (and with ``backward`` its backward)
+    of the NFNet in ``model`` on the kernels' path: each SiLU site 1 forward
+    and 1 backward, plus the bias's column sum where it has one (all but the
+    pre-activations); each block tail 2 forward with ECA (pool, apply), 1
+    without, and 4 backward (sums, gate, apply, column sum); the weight
+    standardisation 1 forward and 1 backward for each block's convs and once
+    for the stem's and the final conv's together."""
+    from sota_imagenet_tpu_torch.models.nfnet import NFNet
+
+    net = next(m for m in model.modules() if isinstance(m, NFNet))
+    sites = len(net.stem) - 1 + 1  # the stem's SiLU sites and the final conv's
+    fwd, bwd = sites + 1, 2 * sites + 1
+    for blk in net.blocks:
+        fwd += 1 + 3 + (2 if blk.attn is not None else 1) + 1
+        bwd += 1 + 3 * 2 + 4 + 1
+    return fwd + bwd if backward else fwd
+
+
 def kernel_counters() -> dict:
     """name -> the wrapper whose ``launches`` counts that kernel's launches."""
     from sota_imagenet_tpu_torch.ops.conv_stats import conv1x1_stats
@@ -2629,6 +2863,7 @@ def trainer_phase(
 
     from sota_imagenet_tpu_torch import cli
     from sota_imagenet_tpu_torch.data import decode
+    from sota_imagenet_tpu_torch.ops import nf_fused
     from sota_imagenet_tpu_torch.tools.accuracy_proof import imagenet_dir
 
     probe = _probe_callback(profile_window, record_shapes=recipe is not None)
@@ -2651,11 +2886,15 @@ def trainer_phase(
         by_path = counters["conv1x1_stats"].launches_by_path
         for path in by_path:
             by_path[path] = 0
+        for counter in (nf_fused.launches, nf_fused.fused, nf_fused.fallbacks):
+            counter.clear()  # counts from here are this path's
         decoded0 = dict(decode.decoded)
         t0 = time.perf_counter()
         val = cli.main(["-c", config, *overrides], callbacks=[probe])
         wall = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
+        nf = {"launches": sum(nf_fused.launches.values()), "by_kernel": dict(nf_fused.launches),
+              "fused_blocks": nf_fused.fused["NFBlock"], "fallbacks": dict(nf_fused.fallbacks)}
         by_path = dict(by_path)
         ckpts = glob.glob(os.path.join(logdir, "*", "*", "model_last.ckpt"))
         if keep_ckpt and ckpts:
@@ -2680,6 +2919,7 @@ def trainer_phase(
         "train_steps": steps,
         "kernel_launches": launches,
         "conv1x1_stats_launches_by_path": by_path,
+        "nf_fused": nf,
         "train_loss": loss,
         "val": val,
         "ms_per_step_median": ms_step,
@@ -2735,6 +2975,18 @@ def trainer_phase(
             "not_decayed": sum(1 for v in decay.values() if v == 0),
             "gains_decayed": sorted(k for k, v in decay.items() if "gain" in k and v > 0),
         }
+    if recipe == "nfnet":
+        # the main path's nf_fused launches: each microbatch a train forward and backward (the blocks'
+        # fused calls over the blocks a forward), each val batch a forward
+        from sota_imagenet_tpu_torch.models.nfnet import NFNet
+
+        model = probe.runner.state.model
+        microbatches = nf["fused_blocks"] // len(next(m for m in model.modules() if isinstance(m, NFNet)).blocks)
+        nf["microbatches"], nf["val_forwards"] = microbatches, len(probe.val_batches)
+        nf["want"] = (microbatches * nf_structural_launches(model)
+                      + len(probe.val_batches) * nf_structural_launches(model, backward=False))
+        nf["launches_per_step"] = (nf["launches"] - len(probe.val_batches) * nf_structural_launches(
+            model, backward=False)) / max(steps * epochs, 1)
     if recipe == "nf_lamb":
         result["ortho_init"] = probe.ortho
         result["std_ema"] = probe.std_emas
@@ -2798,6 +3050,12 @@ def trainer_phase(
     want = {k: per_step.get(k, 0) * steps * epochs for k in counters}
     if steps != 10 or launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} in {epochs} x {steps} train steps, want {want}")
+    if recipe == "nfnet" and (nf["fallbacks"] or not nf["microbatches"] or nf["microbatches"] % (steps * epochs)
+                              or nf["launches"] != nf["want"]):
+        raise AssertionError(f"{name}: nf_fused {nf}: want no fallbacks, a whole number of microbatches a step "
+                             "and the structural count of launches")
+    if recipe != "nfnet" and nf["launches"]:
+        raise AssertionError(f"{name}: nf_fused launched on a path that has no NFNet: {nf}")
     if by_path != {"sm90": want["conv1x1_stats"], "mma_sync": 0}:
         raise AssertionError(f"{name}: conv1x1_stats launches by path {by_path}, want all {want['conv1x1_stats']} on sm90")
     if probe.param_devices != {"cuda"} or probe.metric_devices != {"cuda"}:
@@ -3403,11 +3661,21 @@ scalars = draw_augment_scalars(gen, 8, device="cuda", **kw)
 before = fused_augment.launches
 out = fused_augment(imgs, scalars, out_dtype=torch.bfloat16, **kw)
 ref = fused_augment_reference(imgs, scalars, out_dtype=torch.bfloat16, **kw)
+from sota_imagenet_tpu_torch.ops import nf_fused
+x = torch.randn((4, 8, 8, 64), device="cuda", generator=gen).to(torch.bfloat16).permute(0, 3, 1, 2)
+b = torch.randn(64, device="cuda", generator=gen)
+nf_before = sum(nf_fused.launches.values())
+y = nf_fused.nf_act(x, b, 1.7881293296813965)
+y_ref = nf_fused.nf_act_reference(x.float(), b, 1.7881293296813965)
 torch.cuda.synchronize()
 print(json.dumps({"package": sota_imagenet_tpu_torch.__file__, "build_dir": str(cuda_build.build_dir()),
                   "library": str(cuda_build.library_path("fused_aug", ["fused_aug.cu"])),
                   "launches": fused_augment.launches - before,
-                  "max_abs_err": (out.float() - ref.float()).abs().max().item(), "sys_path": sys.path}))
+                  "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                  "nf_library": str(cuda_build.library_path("nf_fused", ["nf_fused.cu"])),
+                  "nf_launches": sum(nf_fused.launches.values()) - nf_before,
+                  "nf_max_rel_err": ((y.float() - y_ref).abs() / y_ref.abs().clamp_min(1e-3)).max().item(),
+                  "sys_path": sys.path}))
 """
 
 
@@ -3418,7 +3686,8 @@ def wheel_phase(gpu: str) -> dict:
     directory, then a fresh interpreter that has that directory on its path
     and no directory of the checkout imports the port, builds fused_aug from
     the wheel's own csrc/ and launches it on the card against its plain
-    version (bit for bit); then the installed ``sota-train-torch`` console
+    version (bit for bit), and nf_fused's ``nf_act`` likewise (within one
+    bf16 ulp, 2**-7 of the value); then the installed ``sota-train-torch`` console
     script trains tiny_synthetic for one debug epoch on the card and must
     exit 0 with its model_last.ckpt written."""
     import glob
@@ -3464,13 +3733,16 @@ def wheel_phase(gpu: str) -> dict:
             print(f"[wheel] sota-train-torch:\n{script.stdout[-3000:]}\n{script.stderr[-3000:]}", flush=True)
         site = os.path.realpath(site)
     result = {"phase": "wheel", "cu_files": cu, "package": got["package"], "build_dir": got["build_dir"],
-              "launches": got["launches"], "max_abs_err": got["max_abs_err"],
+              "launches": got["launches"], "max_abs_err": got["max_abs_err"], "nf_launches": got["nf_launches"],
+              "nf_max_rel_err": got["nf_max_rel_err"],
               "outside_checkout": not got["package"].startswith(repo) and not any(
                   p and os.path.abspath(p).startswith(repo) for p in got["sys_path"]),
               "sota_train_torch": script_result, "seconds": time.perf_counter() - t0, "gpu": gpu}
     print(f"[wheel] {json.dumps(result)}")
-    if len(cu) != 4 or result["launches"] != 1 or result["max_abs_err"] != 0.0 or not result["outside_checkout"]:
+    if len(cu) != 5 or result["launches"] != 1 or result["max_abs_err"] != 0.0 or not result["outside_checkout"]:
         raise AssertionError(f"wheel: {result}")
+    if result["nf_launches"] != 1 or result["nf_max_rel_err"] > 2.0**-7:
+        raise AssertionError(f"wheel: nf_fused from the wheel: {result}")
     if not result["build_dir"].startswith(site):
         raise AssertionError(f"wheel: built into {result['build_dir']}, not beside the installed package")
     if script_result["rc"] != 0 or not script_result["on_the_card"] or script_result["model_last"] != 1:
@@ -4551,6 +4823,7 @@ def main(argv=None) -> int:
         run("fused_aug", kernel_phase)
         run("conv1x1_stats", conv_stats_phase)
         run("moments", moments_phase)
+        run("nf_fused", nf_fused_phase)
     aug_only = {"fused_aug": 1}
     serve_dir = tempfile.TemporaryDirectory()  # trainer A's checkpoint and serve's artifacts, until bench_models
     trainer_a_ckpt = os.path.join(serve_dir.name, "trainer_a.ckpt")
@@ -4729,7 +5002,7 @@ def main(argv=None) -> int:
     if phases != list(PHASES):
         print(f"chip_smoke: ran only {phases}; a full run prints the result lines", file=sys.stderr)
         return 0
-    kernels = [results["fused_aug"], results["conv1x1_stats"], results["moments"]]
+    kernels = [results["fused_aug"], results["conv1x1_stats"], results["moments"], results["nf_fused"]]
     # launches on each kernel's own main path: fused_aug on r50_baseline (trainer A; beside it
     # the hard-aug recipe, the NFNet recipe, tiny_synthetic and the two folder trainers), conv1x1_stats with fused_stats
     # (trainer C); no path calls moments
@@ -4764,6 +5037,9 @@ def main(argv=None) -> int:
     kernels[1]["launches_per_step_by_remat_policy"] = next(
         r for r in results["model_remat"]["cases"] if r["case"] == "r50_fused_stats")["conv1x1_stats_launches"]
     kernels[1]["launches_by_path"] = results["trainer_c"]["conv1x1_stats_launches_by_path"]
+    kernels[3]["launches"] = results["trainer_d"]["nf_fused"]["launches"]  # the NFNet recipe, val included
+    kernels[3]["launches_per_train_step"] = results["trainer_d"]["nf_fused"]["launches_per_step"]
+    kernels[3]["fallbacks"] = results["trainer_d"]["nf_fused"]["fallbacks"]
     kernels[2]["launches"] = max(r["kernel_launches"]["moments"] for k, r in results.items()
                                  if k.startswith("trainer") and "kernel_launches" in r)
     for k in kernels:

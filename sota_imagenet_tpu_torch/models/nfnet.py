@@ -15,6 +15,17 @@ follow the JAX tree (``stem_conv{i}``, ``stage{s}_block{b}`` with ``conv1``,
 ``conv2``, ``conv2b``, ``conv3``, ``downsample``, ``attn``,
 ``skipinit_gain``; ``final_conv``; ``fc``), which ``utils/weights.py`` maps.
 Parameters stay float32; the convs and the head run in the activation dtype.
+
+On the card (``kernel_path``: a bf16 CUDA tensor, SiLU, ECA with 3 taps or
+no attention, plain convs, channels a multiple of 8, outside spatial
+partitioning) the elementwise chains run as hand-written kernels
+(``ops/nf_fused.py``): the weight standardisation of a block's convs (and of
+the stem's and the final conv's) as one ``nf_ws``,
+every SiLU site as ``nf_act``, the conv's bias folded in, and each block's
+tail after ``conv3`` (bias, ECA, drop-path, skip-init gain, alpha, residual)
+as ``nf_tail``. The drop mask is drawn where and when
+``DropPath`` draws it, through ``layers.draw_keep_mask``. Everywhere else,
+the CPU (and so ``cli export``) included, the op by op chain runs.
 """
 
 from __future__ import annotations
@@ -25,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sota_imagenet_tpu_torch.models.attention import get_attn
+from sota_imagenet_tpu_torch.models import layers
+from sota_imagenet_tpu_torch.models.attention import ECA, get_attn
 from sota_imagenet_tpu_torch.models.layers import (
     ACTIVATION_GAMMA,
     DropPath,
@@ -34,6 +46,60 @@ from sota_imagenet_tpu_torch.models.layers import (
     ScaledStdConv,
     activation_from_name,
 )
+from sota_imagenet_tpu_torch.ops import nf_fused
+from sota_imagenet_tpu_torch.parallel import spatial
+from sota_imagenet_tpu_torch.parallel.mesh import band_of
+
+
+def kernel_path(
+    x: torch.Tensor, act, convs: Sequence[ScaledStdConv], attn: Optional[nn.Module] = None, channels: Sequence[int] = ()
+) -> Optional[str]:
+    """None where ``nf_fused``'s kernels compute the chains around ``convs``
+    (and, with ``attn``, a block's tail), else the reason the op by op chain
+    runs: ``activation`` (not SiLU), ``attention`` (neither ECA with 3 taps
+    nor none), ``conv`` (heads, edge compensation, coordinates, a pinned
+    dtype, weight normalisation, a single gain or a weight not float32),
+    ``channels`` (a SiLU site's ``channels`` or a conv's outputs not
+    a multiple of 8, or a tail too wide), ``dtype`` (not bf16), ``spatial``
+    (spatial partitioning, whose ops on bands of H rows a kernel would
+    bypass), ``device`` (not a CUDA tensor)."""
+    if act is not F.silu:
+        return "activation"
+    if attn is not None and not (isinstance(attn, ECA) and attn.kernel_size == 3):
+        return "attention"
+    if any(c.n_heads != 1 or c.partial or c.coord_conv or c.dtype is not None or c.norm for c in convs):
+        return "conv"
+    if any(c.weight.dtype != torch.float32 or (c.gain is not None and c.gain.shape != (c.out_chs,)) for c in convs):
+        return "conv"
+    widths = [*channels, *(c.out_chs for c in convs)]
+    if any(w % nf_fused.VEC for w in widths) or (attn is not None and convs[-1].out_chs > nf_fused.MAX_TAIL_CHANNELS):
+        return "channels"
+    if x.dtype != torch.bfloat16:
+        return "dtype"
+    if spatial.is_active() or band_of(x) is not None:
+        return "spatial"
+    if x.device.type != "cuda":
+        return "device"
+    return None
+
+
+def _standardized(convs: Sequence[Optional[ScaledStdConv]], dtype: torch.dtype) -> list:
+    """Each conv's standardised weight in ``dtype`` (None for a None conv), by one ``nf_ws`` call."""
+    present = [c for c in convs if c is not None]
+    weights = iter(nf_fused.nf_ws([(c.weight, c.gain, c.scale, c.eps) for c in present], dtype))
+    return [None if c is None else next(weights) for c in convs]
+
+
+def _conv(conv: ScaledStdConv, weight: torch.Tensor, x: torch.Tensor, bias: bool = False) -> torch.Tensor:
+    """``conv(x)`` with ``weight``, its standardised weight; without its bias,
+    which the kernel after it adds, unless ``bias``."""
+    b = conv.bias.to(x.dtype) if bias and conv.bias is not None else None
+    return F.conv2d(x, weight, b, conv.stride, conv.padding, conv.dilation, conv.groups)
+
+
+def _conv_act(conv: ScaledStdConv, weight: torch.Tensor, x: torch.Tensor, gamma: float) -> torch.Tensor:
+    """``gamma * silu(conv(x))`` with the conv's bias and the activation in one kernel."""
+    return nf_fused.nf_act(_conv(conv, weight, x), conv.bias, gamma)
 
 
 class NFBlock(nn.Module):
@@ -81,7 +147,44 @@ class NFBlock(nn.Module):
     def act(self, x: torch.Tensor) -> torch.Tensor:
         return self.base_act(x) * self.gamma
 
+    def kernel_path(self, x: torch.Tensor) -> Optional[str]:
+        """``kernel_path`` for this block's input: None where its chains run as kernels."""
+        convs = [c for c in (self.downsample, self.conv1, self.conv2, self.conv2b, self.conv3) if c is not None]
+        return kernel_path(x, self.base_act, convs, self.attn, channels=(x.shape[1],))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        reason = self.kernel_path(x)
+        if x.device.type == "cuda" and self.training:
+            if reason:
+                nf_fused.fallbacks[reason] += 1
+            else:
+                nf_fused.fused["NFBlock"] += 1
+        return self.chain(x) if reason else self.fused(x)
+
+    def fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The block with its chains as ``nf_fused``'s kernels (the plain versions on the CPU)."""
+        w_down, w1, w2, w2b, w3 = _standardized(
+            (self.downsample, self.conv1, self.conv2, self.conv2b, self.conv3), x.dtype)
+        out = nf_fused.nf_act(x, None, self.gamma * self.beta)
+        shortcut = x
+        if self.downsample is not None:
+            shortcut = _conv(self.downsample, w_down, F.avg_pool2d(out, 2, 2) if self.stride > 1 else out, bias=True)
+        for conv, weight in ((self.conv1, w1), (self.conv2, w2), (self.conv2b, w2b)):
+            out = _conv_act(conv, weight, out, self.gamma)
+        out = _conv(self.conv3, w3, out)
+        drop, k = self.drop_path, self.alpha
+        mask = None
+        if drop.training and drop.keep_prob < 1.0:
+            # drawn here as DropPath draws it, so the generator's stream and a test's patch see the same draws
+            mask = layers.draw_keep_mask(drop.generator, drop.keep_prob, (out.shape[0], 1, 1, 1), out.device)
+            k = k / drop.keep_prob
+        eca = None
+        if self.attn is not None:
+            eca, k = self.attn.weight, k * self.attn_gain
+        return nf_fused.nf_tail(out, self.conv3.bias, shortcut, eca, self.skipinit_gain, mask, k)
+
+    def chain(self, x: torch.Tensor) -> torch.Tensor:
+        """The block op by op."""
         out = self.act(x) * self.beta
         shortcut = x
         if self.downsample is not None:
@@ -179,13 +282,19 @@ class NFNet(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory = channels_last
-        for i, conv in enumerate(self.stem):
-            x = conv(x)
-            if i < len(self.stem) - 1:
-                x = self.act(x)
+        kernels = kernel_path(x, self.base_act, [*self.stem, self.final_conv]) is None
+        if kernels:
+            *stem, final = _standardized([*self.stem, self.final_conv], x.dtype)
+            for conv, weight in zip(self.stem[:-1], stem):
+                x = _conv_act(conv, weight, x, self.gamma)
+            x = _conv(self.stem[-1], stem[-1], x, bias=True)
+        else:
+            for conv in self.stem[:-1]:
+                x = self.act(conv(x))
+            x = self.stem[-1](x)
         for block in self.blocks:
             x = block(x)
-        x = self.act(self.final_conv(x))
+        x = _conv_act(self.final_conv, final, x, self.gamma) if kernels else self.act(self.final_conv(x))
         x = self.dropout(x.mean(dim=(2, 3)))
         return self.fc(x).float()
 

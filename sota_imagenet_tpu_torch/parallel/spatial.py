@@ -798,6 +798,11 @@ def _active():
         _TLS.active = False
 
 
+def is_active() -> bool:
+    """Whether this thread runs inside spatial partitioning (a model's forward on bands of H rows)."""
+    return getattr(_TLS, "active", False)
+
+
 def current() -> Callable[[], Any]:
     """A factory of the context this thread's forward runs in: inside spatial
     partitioning, one that enters it again where it is not active (a remat

@@ -2,7 +2,7 @@
 port builds its kernels where it may write.
 
 * ``pip wheel`` of a copy of the tree (offline: no index, no build
-  isolation, no dependencies) holds all four ``sota_imagenet_tpu_torch/csrc``
+  isolation, no dependencies) holds all five ``sota_imagenet_tpu_torch/csrc``
   ``.cu`` files beside the port's modules (``MANIFEST.in``), so
   ``ops/cuda_build.py`` finds them next to an installed package.
 * ``cuda_build.build_dir``: a checkout builds into its ``_build/``; a package
@@ -63,7 +63,7 @@ def wheel(tmp_path_factory) -> Path:
 
 
 def test_the_wheel_holds_every_cuda_source(wheel):
-    assert len(CU) == 4, CU
+    assert len(CU) == 5, CU
     names = set(zipfile.ZipFile(wheel).namelist())
     for cu in CU:
         assert f"sota_imagenet_tpu_torch/csrc/{cu}" in names, sorted(n for n in names if "csrc" in n)
